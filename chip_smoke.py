@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA level-loop kernel from ``jepsen_tpu_torch/csrc`` with
+nvcc, holds it against its plain torch version slice by slice on the
+card, times both at the main path's shape, then checks the two bench-tier
+histories ("1k": 1000-op cas-register, "mutex2k": 1999-op mutex with
+crashed ops) through ``linearizable(..., algorithm="device",
+device="cuda")`` and requires both invalid, with the kernel launched on
+the mutex2k path.  Every phase prints one line; the line before the last
+is the per-kernel JSON record and the last line the device record.  Any
+failed phase exits nonzero.  Exits nonzero without a result when no CUDA
+device is present or the package is not beside this script.
+
+The script imports torch, numpy and the port only.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+#: bench tiers: (name, encoded ops, processes); generator parameters as
+#: the JAX package's bench.py builds them, seeded "bench-<tier>"
+TIERS = (("1k", 1000, 32), ("mutex2k", 2000, 16))
+
+#: (valid, configs, max_depth) of the JAX package's device search on the
+#: same tier histories (jepsen_tpu.checker.linearizable.search_opseq on
+#: the CPU, lint/hb/dpor/audit off)
+REFERENCE = {"1k": (False, 97218, 975), "mutex2k": (False, 15863, 1971)}
+
+#: H100 SXM peaks for the kernel's bound (NVIDIA data sheet): memory
+#: rate, and the float32 rate outside the tensor cores standing in for
+#: 32-bit integer work (the card's int32 rate is at most that)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
+OPS_PER_LANE = 8
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------------------------
+# histories
+# ---------------------------------------------------------------------------
+
+
+def _exact_encoded(gen, encode, target: int, *, lo_guess: int):
+    """Scan the generator's nominal size until the ENCODED row count
+    equals ``target`` (encoding drops :fail ops); deterministic, so the
+    same tier always gives the same history."""
+    n = lo_guess
+    best = None
+    seen: set[int] = set()
+    for _ in range(200):
+        h = gen(n)
+        seq = encode(h)
+        got = len(seq)
+        if got == target:
+            return h, seq
+        if best is None or abs(got - target) < best[0]:
+            best = (abs(got - target), h, seq)
+        seen.add(n)
+        step = int(round(n * (target - got) / max(1, got)))
+        n += step if step else (1 if got < target else -1)
+        n = max(target // 2, n)
+        if n in seen:
+            for d in range(1, 50):
+                if n + d not in seen:
+                    n += d
+                    break
+                if n - d > target // 2 and n - d not in seen:
+                    n -= d
+                    break
+            else:
+                break
+    return best[1], best[2]
+
+
+def tier_history(name: str):
+    """(OpSeq, model) of a bench tier, built with the port's synth."""
+    from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
+    from jepsen_tpu_torch.models import cas_register, mutex
+    from jepsen_tpu_torch.synth import (corrupt_read, register_history,
+                                        sim_mutex_history)
+
+    _, n_ops, n_procs = {t[0]: t for t in TIERS}[name]
+    if name == "mutex2k":
+        model = mutex()
+
+        def gen(n):
+            rng = random.Random(f"bench-{name}")
+            h = sim_mutex_history(rng, n_ops=n, n_procs=n_procs,
+                                  crash_p=0.01, max_crashes=12)
+            # an acquire chain longer than the :info ops can explain
+            n_info = sum(1 for op in h if op.type == "info")
+            for i in range(n_info + 2):
+                p = n_procs + i
+                h = h + [invoke_op(p, "acquire", None),
+                         ok_op(p, "acquire", None)]
+            return h
+        lo = n_ops
+    else:
+        model = cas_register()
+
+        def gen(n):
+            rng = random.Random(f"bench-{name}")
+            h = register_history(rng, n_ops=n, n_procs=n_procs, overlap=8,
+                                 crash_p=0.002, max_crashes=8, n_values=4)
+            return corrupt_read(rng, h, at=0.98)
+        lo = int(n_ops * 1.35)
+    _, seq = _exact_encoded(gen, lambda h: encode_ops(h, model.f_codes),
+                            n_ops, lo_guess=lo)
+    return seq, model
+
+
+def lockstep_cases():
+    """(label, model, OpSeq, frontier, bail, slices, lvl_cap) for the
+    kernel-vs-plain phase: the JAX package's own Pallas lockstep cases,
+    then the bench tiers at the main path's F=64 rung."""
+    from jepsen_tpu_torch.history import encode_ops
+    from jepsen_tpu_torch.models import cas_register, mutex
+    from jepsen_tpu_torch.synth import (corrupt_read, register_history,
+                                        sim_mutex_history)
+
+    out = []
+    for seed in (1, 2, 3, 4, 5):
+        rng = random.Random(seed)
+        h = register_history(rng, n_ops=56, n_procs=4, overlap=3,
+                             crash_p=0.08, max_crashes=4, n_values=3)
+        if seed % 2:
+            h = corrupt_read(rng, h, at=0.85)
+        m = cas_register()
+        out.append((f"cas-crash-{seed}", m, encode_ops(h, m.f_codes), 16,
+                    False, 12, 8))
+    for seed in (11, 12, 13):
+        rng = random.Random(seed)
+        h = sim_mutex_history(rng, n_ops=60, n_procs=3, crash_p=0.06,
+                              max_crashes=4)
+        m = mutex()
+        out.append((f"mutex-{seed}", m, encode_ops(h, m.f_codes), 16,
+                    False, 12, 8))
+    for seed in (21, 22, 23):
+        rng = random.Random(seed)
+        h = register_history(rng, n_ops=64, n_procs=8, overlap=7,
+                             crash_p=0.05, max_crashes=3, n_values=2)
+        m = cas_register()
+        seq = encode_ops(h, m.f_codes)
+        out.append((f"overflow-bail-{seed}", m, seq, 16, True, 12, 8))
+        out.append((f"overflow-nobail-{seed}", m, seq, 16, False, 12, 8))
+    for name, _, _ in TIERS:
+        seq, m = tier_history(name)
+        out.append((f"{name}-F64", m, seq, 64, False, 4, 64))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def _setup(model, seq, frontier, device):
+    from jepsen_tpu_torch.checker.encode import (carry_to_device,
+                                                 choose_dims, encode_search,
+                                                 pad_search, search_args,
+                                                 _init_carry)
+
+    es = encode_search(seq)
+    dims = choose_dims(es, model, device=device, frontier=frontier)
+    esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = search_args(esp, es, device=device)
+    carry = carry_to_device(_init_carry(dims, model), device)
+    return dims, args, carry
+
+
+def _timed(fn, *a):
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*a)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _diff(ca, cb):
+    """Max abs difference of two carries over the scalars and the live
+    frontier rows (at least 1 when the live counts differ)."""
+    import torch
+
+    sa = [int(v) for v in ca[1:]]
+    sb = [int(v) for v in cb[1:]]
+    err = max(abs(x - y) for x, y in zip(sa, sb))
+    n = sa[0]
+    if sa[0] != sb[0]:
+        return max(err, 1)
+    if n:
+        d = (ca[0][:n].to(torch.int64) - cb[0][:n].to(torch.int64)).abs()
+        err = max(err, int(d.max()))
+    return err
+
+
+def phase_lockstep(device):
+    """Kernel vs plain version slice by slice on the card."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    worst = 0
+    for label, model, seq, frontier, bail, slices, lvl_cap in \
+            lockstep_cases():
+        dims, args, carry = _setup(model, seq, frontier, device)
+        check(lk.eligible(model, dims), f"{label}: {dims} not eligible")
+        ck = cr = carry
+        t_k, t_r = [], []
+        for s in range(slices):
+            ck, ms_k = _timed(lk.level_loop, model, dims, *args, 10**8,
+                              lvl_cap, bail, *ck)
+            cr, ms_r = _timed(lk.level_loop_reference, model, dims, *args,
+                              10**8, lvl_cap, bail, *cr)
+            t_k.append(ms_k)
+            t_r.append(ms_r)
+            err = _diff(ck, cr)
+            worst = max(worst, err)
+            check(err == 0, f"{label} slice {s}: kernel != plain "
+                  f"(kernel {[int(v) for v in ck[1:]]}, plain "
+                  f"{[int(v) for v in cr[1:]]}, max abs err {err})")
+            if int(cr[2]) != -1 or int(cr[1]) == 0 or (bail and
+                                                       bool(cr[5])):
+                break
+        print(f"lockstep {label}: F={dims.frontier} W={dims.window} "
+              f"NC={dims.n_crash_pad} slices={s + 1} identical; "
+              f"status={int(ck[2])} configs={int(ck[3])} "
+              f"depth={int(ck[4])} ovf={int(ck[5])}; kernel ms/slice "
+              f"{[round(t, 3) for t in t_k]} plain ms/slice "
+              f"{[round(t, 1) for t in t_r]}", flush=True)
+    return worst
+
+
+def phase_timing(device, lvl_cap=256, reps=20):
+    """Kernel and plain version on the same inputs at the main path's
+    kernel shape: mutex2k at F=64 from the root, one slice of
+    ``lvl_cap`` levels."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    seq, model = tier_history("mutex2k")
+    dims, args, carry = _setup(model, seq, 64, device)
+    call = (*args, 10**8, lvl_cap, True, *carry)
+    out, _ = _timed(lk.level_loop, model, dims, *call)  # warm-up
+    levels = int(out[4]) - int(carry[4])
+    ms_k = [_timed(lk.level_loop, model, dims, *call)[1]
+            for _ in range(reps)]
+    ref, _ = _timed(lk.level_loop_reference, model, dims, *call)
+    ms_r = [_timed(lk.level_loop_reference, model, dims, *call)[1]
+            for _ in range(3)]
+    err = _diff(out, ref)
+    check(err == 0, f"timing slice: kernel != plain (max abs err {err})")
+    # bytes the slice must move: every table read once, the carry read
+    # and written once
+    n_bytes = (sum(t.numel() * t.element_size() for t in args[:10])
+               + 2 * (carry[0].numel() * 4 + 5 * 4))
+    # operations this run's data needs, at least: every live
+    # configuration of every level tests each of its L candidate lanes
+    # (window bit, two return compares, model step: >= 8 int32 ops)
+    configs = int(out[3]) - int(carry[3])
+    n_ops = configs * (dims.window + dims.n_crash_pad) * OPS_PER_LANE
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    ms = sorted(ms_k)[len(ms_k) // 2]
+    plain_ms = sorted(ms_r)[len(ms_r) // 2]
+    print(f"timing mutex2k F={dims.frontier} W={dims.window} "
+          f"NC={dims.n_crash_pad} lvl_cap={lvl_cap}: levels={levels} "
+          f"configs={configs} kernel {ms:.4f} ms/slice "
+          f"({ms / max(1, levels) * 1e3:.2f} us/level, min {min(ms_k):.4f} "
+          f"max {max(ms_k):.4f} over {reps}); plain {plain_ms:.1f} "
+          f"ms/slice; bound: bytes {bytes_ms:.3e} ms ({n_bytes} B), "
+          f"operations {ops_ms:.3e} ms ({n_ops} int32 ops)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err}
+
+
+def _traced_search(seq, model):
+    """``search_opseq`` on the card with each slice timed: returns the
+    result and, per (route, width), [slices, depth advanced, configs
+    added, seconds]."""
+    import torch
+
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    rows: dict = {}
+    get_kernel = lin.get_kernel
+
+    def traced(model, dims, device):
+        fn = get_kernel(model, dims, device)
+        route = ("cuda" if lin._use_kernel(model, dims, device)
+                 else "torch")
+
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            r = rows.setdefault((route, dims.frontier), [0, 0, 0, 0.0])
+            r[0] += 1
+            r[1] += int(out[4]) - int(a[26])
+            r[2] += int(out[3]) - int(a[25])
+            r[3] += time.perf_counter() - t0
+            return out
+        return run
+
+    lin.get_kernel = traced
+    try:
+        return lin.search_opseq(seq, model, device="cuda"), rows
+    finally:
+        lin.get_kernel = get_kernel
+
+
+def phase_main_path():
+    """Both tiers through the checker entry point on the card (the
+    counted main path), then the device search alone for its own wall
+    time and final frontier width (not counted)."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+
+    results = {}
+    for name, _, _ in TIERS:
+        seq, model = tier_history(name)
+        lk.LAUNCHES = 0  # counts only this tier's main-path launches
+        t0 = time.perf_counter()
+        out = linearizable(model, algorithm="device",
+                           device="cuda").check({}, seq)
+        wall = time.perf_counter() - t0
+        launches = lk.LAUNCHES
+        results[name] = (out, launches)
+        print(f"main {name}: ops={len(seq)} valid={out['valid']} "
+              f"configs={out['configs']} "
+              f"device_configs={out.get('device_configs')} "
+              f"max_depth={out['max_depth']} engine={out['engine']} "
+              f"wall_s={wall:.3f} launches={launches}", flush=True)
+        check(out["valid"] is False, f"{name}: verdict {out['valid']}, "
+              "want False")
+        t0 = time.perf_counter()
+        dev, slices = _traced_search(seq, model)
+        wall = time.perf_counter() - t0
+        print(f"search {name}: valid={dev['valid']} "
+              f"configs={dev['configs']} max_depth={dev['max_depth']} "
+              f"engine={dev['engine']} frontier={dev['frontier']} "
+              f"window={dev['window']} wall_s={wall:.3f}", flush=True)
+        print(f"slices {name}: " + "; ".join(
+            f"{route} F={f}: {n} slices, depth +{d}, configs +{c}, "
+            f"{t:.3f} s" for (route, f), (n, d, c, t) in slices.items()),
+            flush=True)
+        want = REFERENCE[name]
+        check((dev["valid"], dev["configs"], dev["max_depth"]) == want,
+              f"{name}: device search gave {dev['valid']}, "
+              f"{dev['configs']} configs, depth {dev['max_depth']}; the "
+              f"JAX package gives {want}")
+    check(results["mutex2k"][1] > 0, "mutex2k: the kernel never launched")
+    check("cuda" in results["mutex2k"][0]["engine"],
+          "mutex2k: engine label lacks the cuda tag")
+    return results
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (REPO / "jepsen_tpu_torch").is_dir():
+        print("chip_smoke: jepsen_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"device: {name} x{torch.cuda.device_count()} torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"nvidia-smi: {smi}", flush=True)
+    device = torch.device("cuda", 0)
+    try:
+        from jepsen_tpu_torch import _build
+
+        _build.build_all()
+        regs = [ln.strip() for ln in
+                _build.PTXAS_REPORT.get("level_loop", "").splitlines()
+                if "registers" in ln]
+        print(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}",
+              flush=True)
+        worst = phase_lockstep(device)
+        timing = phase_timing(device)
+        results = phase_main_path()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    record = {"kernels": [{
+        "name": "level_loop",
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/level_loop.cu",
+        "replaces": "jepsen_tpu/checker/pallas_level.py:132",
+        "launches": sum(v[1] for v in results.values()),
+        "launches_by_tier": {k: v[1] for k, v in results.items()},
+        "max_abs_err": max(worst, timing["max_abs_err"]),
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }]}
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,342 @@
+"""Host encoding of one history for the device search.
+
+Configuration encoding: determinate (ok) ops are kept sorted by
+invocation.  In any reachable configuration, if ``p`` is the first
+unlinearized determinate op, every linearized determinate op beyond it
+was invoked before ``ret[p]``, and their number is bounded by the
+host-computed ``window``; so the linearized determinate set is exactly
+(prefix ``p``, bitmask over the next ``W`` ops).  Crashed (:info) ops,
+which may linearize at any point after invocation or never, live in a
+separate bitmask of width ``<= 64``.  A configuration is then the int32
+row ``[p | window words | crash words | model state]``.
+
+The carry ``(frontier, count, status, configs, max_depth, ovf)`` is the
+whole search state and the exchange format with the JAX package:
+:func:`from_reference` and :func:`to_numpy` move encodings and carries
+across, word for word.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from ..history import INF_RET, NIL, OpSeq
+
+#: int32 "+infinity" event rank on device
+INF32 = 2**31 - 1
+
+#: must-order predecessor slots per row in the (inert) reduction planes
+MASK_PREDS = 4
+
+#: fill of the (inert) dead-value table: no value is ever dead
+NEVER_DEAD = 2**31 - 1
+
+#: refuse device search past these (host oracle instead)
+MAX_WINDOW = 512
+MAX_CRASH = 64
+
+#: widest frontier rung
+MAX_FRONTIER = 1 << 18
+
+
+@dataclass
+class EncodedSearch:
+    """Device-ready arrays for one history (numpy; padded by
+    :func:`pad_search`).  The ``*_mpred``/``*_cpredw``/``dead_*`` fields
+    are the state-space-reduction planes; this port carries them inert
+    (no predecessors, no dead values), as the unreduced search does."""
+
+    det_f: np.ndarray  # int32 [n_det(_pad)]
+    det_v1: np.ndarray
+    det_v2: np.ndarray
+    det_inv: np.ndarray  # INF32 padding
+    det_ret: np.ndarray  # INF32 padding
+    suffix_min_ret: np.ndarray  # int32 [n_det(_pad) + 1]
+    crash_f: np.ndarray  # int32 [n_crash(_pad)]
+    crash_v1: np.ndarray
+    crash_v2: np.ndarray
+    crash_inv: np.ndarray
+    n_det: int
+    n_crash: int
+    window: int  # exact bound on the linearized-beyond-prefix span
+    concurrency: int  # max simultaneously-enabled candidates
+    det_mpred: np.ndarray | None = None    # int32 [n_det_pad, P]
+    det_cpredw: np.ndarray | None = None   # int32 [n_det_pad, CW]
+    crash_mpred: np.ndarray | None = None  # int32 [n_crash_pad, P]
+    crash_cpredw: np.ndarray | None = None  # int32 [n_crash_pad, CW]
+    dead_from: np.ndarray | None = None    # int32 [VT]
+    dead_lo: int = 0
+    dead_tok: int = 0
+
+
+def split_rows(seq: OpSeq):
+    """Row indices of determinate (ok) and crashed (info) ops."""
+    ok = np.asarray(seq.ok, dtype=bool)
+    return np.nonzero(ok)[0], np.nonzero(~ok)[0]
+
+
+def window_width(det_inv: np.ndarray, det_ret: np.ndarray) -> int:
+    """Exact window bound: max over b of #{j >= b : inv[j] < ret[b]}."""
+    n = len(det_inv)
+    if n == 0:
+        return 1
+    upper = np.searchsorted(det_inv, det_ret, side="left")
+    return max(1, int((upper - np.arange(n)).max()))
+
+
+def max_enabled(seq: OpSeq) -> int:
+    """Bound on simultaneously-enabled candidates: the history's peak
+    concurrency (enabled candidates pairwise overlap, and overlapping
+    intervals share a point; crashed ops stay open forever)."""
+    events = []
+    for i in range(len(seq)):
+        events.append((int(seq.inv[i]), 1))
+        if int(seq.ret[i]) != INF_RET:
+            events.append((int(seq.ret[i]), -1))
+    events.sort()
+    cur = peak = 0
+    for _, d in events:
+        cur += d
+        peak = max(peak, cur)
+    return max(1, peak)
+
+
+def encode_search(seq: OpSeq) -> EncodedSearch:
+    det_idx, crash_idx = split_rows(seq)
+    inv64 = np.asarray(seq.inv, dtype=np.int64)
+    det_inv = inv64[det_idx]
+    det_ret = np.asarray(seq.ret, dtype=np.int64)[det_idx]
+
+    def i32(a):
+        return np.asarray(a, dtype=np.int32)
+
+    det_ret32 = i32(np.minimum(det_ret, INF32))
+    n_det = len(det_idx)
+    # suffix minima of det returns; sfx[n_det] = +inf
+    sfx = np.full(n_det + 1, INF32, dtype=np.int32)
+    if n_det:
+        sfx[:n_det] = np.minimum.accumulate(det_ret32[::-1])[::-1]
+    return EncodedSearch(
+        det_f=i32(seq.f[det_idx]), det_v1=i32(seq.v1[det_idx]),
+        det_v2=i32(seq.v2[det_idx]),
+        det_inv=i32(np.minimum(det_inv, INF32)), det_ret=det_ret32,
+        suffix_min_ret=sfx,
+        crash_f=i32(seq.f[crash_idx]), crash_v1=i32(seq.v1[crash_idx]),
+        crash_v2=i32(seq.v2[crash_idx]),
+        crash_inv=i32(np.minimum(inv64[crash_idx], INF32)),
+        n_det=n_det, n_crash=len(crash_idx),
+        window=window_width(det_inv, det_ret),
+        concurrency=max_enabled(seq))
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1)).bit_length()
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((max(1, x) + m - 1) // m) * m
+
+
+def pad_search(es: EncodedSearch, n_det_pad: int,
+               n_crash_pad: int) -> EncodedSearch:
+    """Pad every table to static shapes; the reduction planes are
+    materialized inert (all -1 predecessors, zero crash-pred words, an
+    all-NEVER_DEAD 8-entry dead table)."""
+
+    def pad(a, n, fill):
+        out = np.full(n, fill, dtype=np.int32)
+        out[:len(a)] = a
+        return out
+
+    cw = max(1, n_crash_pad // 32)
+    return EncodedSearch(
+        det_f=pad(es.det_f, n_det_pad, 0),
+        det_v1=pad(es.det_v1, n_det_pad, NIL),
+        det_v2=pad(es.det_v2, n_det_pad, NIL),
+        det_inv=pad(es.det_inv, n_det_pad, INF32),
+        det_ret=pad(es.det_ret, n_det_pad, INF32),
+        suffix_min_ret=pad(es.suffix_min_ret, n_det_pad + 1, INF32),
+        crash_f=pad(es.crash_f, n_crash_pad, 0),
+        crash_v1=pad(es.crash_v1, n_crash_pad, NIL),
+        crash_v2=pad(es.crash_v2, n_crash_pad, NIL),
+        crash_inv=pad(es.crash_inv, n_crash_pad, INF32),
+        n_det=es.n_det, n_crash=es.n_crash, window=es.window,
+        concurrency=es.concurrency,
+        det_mpred=np.full((n_det_pad, MASK_PREDS), -1, np.int32),
+        det_cpredw=np.zeros((n_det_pad, cw), np.int32),
+        crash_mpred=np.full((n_crash_pad, MASK_PREDS), -1, np.int32),
+        crash_cpredw=np.zeros((n_crash_pad, cw), np.int32),
+        dead_from=np.full(8, NEVER_DEAD, np.int32))
+
+
+@dataclass(frozen=True)
+class SearchDims:
+    """Static search dimensions."""
+
+    n_det_pad: int
+    n_crash_pad: int  # multiple of 32, <= 64
+    window: int  # W, multiple of 32
+    k: int  # successor lanes per config (>= max concurrency)
+    state_width: int
+    frontier: int  # F: max configs per BFS level
+
+    @property
+    def win_words(self) -> int:
+        return self.window // 32
+
+    @property
+    def crash_words(self) -> int:
+        return max(1, self.n_crash_pad // 32)
+
+    @property
+    def words(self) -> int:
+        # p | win | crash | state
+        return 1 + self.win_words + self.crash_words + self.state_width
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(32, dtype=torch.int64, device=device)
+
+
+def _pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
+    """bool [..., 32*n_words] -> int32 words [..., n_words] (bit 31
+    round-trips through the sign)."""
+    b = bits.reshape(bits.shape[:-1] + (n_words, 32)).to(torch.int64)
+    words = (b << _shifts(bits.device)).sum(dim=-1)
+    return _u32_to_i32(words)
+
+
+def _unpack_bits(words: torch.Tensor, n_words: int) -> torch.Tensor:
+    """int32 words [..., n_words] -> bool [..., 32*n_words]."""
+    w = _u32(words)[..., :, None]
+    bits = (w >> _shifts(words.device)) & 1
+    return bits.reshape(words.shape[:-1] + (n_words * 32,)).bool()
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words as their unsigned values, in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> the int32 with the same
+    bits."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _width_floor(device: torch.device) -> int:
+    """Narrowest frontier rung: 64 on the card (one block's warps cover
+    64 rows at the cost of one), 16 on the host, where per-level cost
+    tracks the rows actually alive."""
+    return 64 if device.type == "cuda" else 16
+
+
+def _grid_width(f: int, device: torch.device) -> int:
+    """Snap up to the power-of-two width grid, floored per device and
+    clamped to MAX_FRONTIER."""
+    w = _width_floor(device)
+    while w < f and w < MAX_FRONTIER:
+        w *= 2
+    return w
+
+
+def choose_dims(es: EncodedSearch, model, *, device,
+                frontier: int | None = None) -> SearchDims:
+    """Search dimensions, quantized to powers of two / multiples of 32.
+    The default frontier starts narrow; the driver widens on overflow
+    and narrows when the live frontier shrinks."""
+    W = _round_up(es.window, 32)
+    NC = _round_up(es.n_crash, 32) if es.n_crash else 32
+    K = _next_pow2(min(es.concurrency, W + es.n_crash))
+    if frontier is None:
+        frontier = _grid_width(min(4096, (es.n_det + es.n_crash) // 8),
+                               torch.device(device))
+    return SearchDims(n_det_pad=max(64, _next_pow2(es.n_det)),
+                      n_crash_pad=NC, window=W, k=max(1, K),
+                      state_width=model.state_width, frontier=frontier)
+
+
+def _init_config(dims: SearchDims, model) -> np.ndarray:
+    """Root configuration: p=0, empty masks, the model's init state."""
+    cfg = np.zeros(dims.words, np.int32)
+    cfg[1 + dims.win_words + dims.crash_words:] = np.asarray(model.init,
+                                                            np.int32)
+    return cfg
+
+
+def _init_carry(dims: SearchDims, model):
+    """Fresh search carry as numpy (the JAX package's dtypes)."""
+    frontier = np.zeros((dims.frontier, dims.words), np.int32)
+    frontier[0] = _init_config(dims, model)
+    return (frontier, np.int32(1), np.int32(-1), np.int32(0),
+            np.int32(0), np.bool_(False))
+
+
+def _widen_carry(carry, old_f: int, new_f: int):
+    """Zero-pad a device carry's frontier from old_f to new_f rows."""
+    fr = carry[0]
+    out = torch.zeros((new_f, fr.shape[1]), dtype=fr.dtype,
+                      device=fr.device)
+    out[:old_f] = fr
+    return (out,) + tuple(carry[1:])
+
+
+def carry_to_device(carry, device) -> tuple:
+    """A numpy carry (frontier, count, status, configs, max_depth, ovf)
+    as device tensors: int32 frontier and scalars, bool ovf."""
+    dev = torch.device(device)
+    out = [torch.as_tensor(np.asarray(carry[0], np.int32), device=dev)]
+    out += [torch.tensor(int(np.asarray(c)), dtype=torch.int32, device=dev)
+            for c in carry[1:5]]
+    out.append(torch.tensor(bool(np.asarray(carry[5])), device=dev))
+    return tuple(out)
+
+
+_TABLES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret",
+           "suffix_min_ret", "crash_f", "crash_v1", "crash_v2",
+           "crash_inv", "det_mpred", "det_cpredw", "crash_mpred",
+           "crash_cpredw", "dead_from")
+
+
+def search_args(esp: EncodedSearch, es: EncodedSearch | None = None, *,
+                device) -> tuple:
+    """The positional table/scalar arguments of the step functions: 15
+    int32 tensors, then ``n_det, n_crash, dead_lo, dead_tok`` as Python
+    ints.  ``es`` supplies the true counts when ``esp`` is padded."""
+    src = es if es is not None else esp
+    dev = torch.device(device)
+    return tuple(torch.as_tensor(np.asarray(getattr(esp, k), np.int32),
+                                 device=dev) for k in _TABLES) + (
+        int(src.n_det), int(src.n_crash), int(esp.dead_lo),
+        int(esp.dead_tok))
+
+
+def from_reference(es_arrays: dict, carry=None, device="cuda"):
+    """The JAX package's padded ``EncodedSearch`` fields (a dict of
+    numpy arrays and ints, e.g. ``dataclasses.asdict``) and optionally
+    its carry (numpy) -> ``(args, carry)`` as this port's tensors on
+    ``device``: ``args`` as :func:`search_args` builds them."""
+    names = {f.name for f in fields(EncodedSearch)}
+    esp = EncodedSearch(**{k: v for k, v in es_arrays.items()
+                           if k in names})
+    args = search_args(esp, device=device)
+    return args, (None if carry is None
+                  else carry_to_device(carry, device))
+
+
+def to_numpy(values) -> tuple:
+    """Tensors (a carry or step arguments) -> numpy, in the JAX
+    package's dtypes: int32 arrays and scalars, ``np.bool_`` flags;
+    Python ints pass through."""
+    out = []
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            a = v.detach().cpu().numpy()
+            out.append(a if a.ndim else a[()])
+        else:
+            out.append(v)
+    return tuple(out)

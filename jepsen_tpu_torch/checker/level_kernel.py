@@ -1,0 +1,129 @@
+"""The fused level loop: a whole search slice as one CUDA kernel.
+
+Counterpart of the JAX package's Pallas kernel
+(``jepsen_tpu/checker/pallas_level.py::build_pallas_step_fn``).  The
+kernel (``csrc/level_loop.cu``) runs ``lvl_cap`` levels of mask phase,
+crash closure, successor compaction and exact all-pairs dominance prune
+inside one thread block, for the narrow, depth-bound rungs where a level
+of plain torch ops costs dozens of launches.
+
+  * :func:`eligible` — which searches the kernel takes;
+  * :func:`level_loop_reference` — the plain version: the torch step
+    (``step.py``) pinned to the all-pairs prune;
+  * :func:`level_loop` — the wrapper: the plain version for CPU tensors,
+    the kernel for CUDA tensors (or an exception; never a fallback);
+  * :data:`LAUNCHES` — kernel launches so far (plain version excluded).
+
+Both take ``(model, dims, *step_args)`` where ``step_args`` are the 28
+arguments of a step function; :func:`build_level_loop_fn` binds the
+first two.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from .encode import SearchDims
+from .step import build_search_step_fn
+
+#: models the kernel's ``model_step`` implements
+SAFE_MODELS = frozenset({"register", "cas-register", "mutex", "noop"})
+
+#: kernel launches so far; each launch adds one
+LAUNCHES = 0
+
+
+def eligible(model, dims: SearchDims) -> bool:
+    return (model.name in SAFE_MODELS
+            and dims.frontier <= 64
+            and dims.window <= 64
+            and dims.n_crash_pad <= 64
+            and dims.state_width <= 4)
+
+
+_REFERENCE_STEPS: dict = {}
+
+
+def _reference_step(model, dims: SearchDims, device: torch.device):
+    key = (model.name, dims, str(device))
+    fn = _REFERENCE_STEPS.get(key)
+    if fn is None:
+        fn = _REFERENCE_STEPS[key] = build_search_step_fn(
+            model, dims, device, use_allpairs=True)
+    return fn
+
+
+def level_loop_reference(model, dims: SearchDims, *args):
+    """The plain torch version of one kernel launch."""
+    return _reference_step(model, dims, args[22].device)(*args)
+
+
+_N_TABLES = 10  # det_f .. crash_inv
+
+
+def _check_tables(dims: SearchDims, tables, frontier):
+    want = ([dims.n_det_pad] * 5 + [dims.n_det_pad + 1]
+            + [dims.n_crash_pad] * 4)
+    for i, (t, n) in enumerate(zip(tables, want)):
+        if (t.device != frontier.device or t.dtype != torch.int32
+                or not t.is_contiguous() or tuple(t.shape) != (n,)):
+            raise ValueError(
+                f"level_loop: table {i} must be a contiguous int32 "
+                f"[{n}] tensor on {frontier.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if (frontier.dtype != torch.int32 or not frontier.is_contiguous()
+            or tuple(frontier.shape) != (dims.frontier, dims.words)):
+        raise ValueError(
+            f"level_loop: frontier must be a contiguous int32 "
+            f"[{dims.frontier}, {dims.words}] tensor, got "
+            f"{frontier.dtype} {tuple(frontier.shape)}")
+
+
+def level_loop(model, dims: SearchDims, *args):
+    """One slice through the CUDA kernel (CUDA tensors) or through
+    :func:`level_loop_reference` (CPU tensors).  Returns the carry
+    ``(frontier, count, status, configs, max_depth, ovf)``."""
+    global LAUNCHES
+    frontier = args[22]
+    if frontier.device.type == "cpu":
+        return level_loop_reference(model, dims, *args)
+    if frontier.device.type != "cuda":
+        raise ValueError(f"level_loop: unsupported device {frontier.device}")
+    if not eligible(model, dims):
+        raise ValueError(f"level_loop: {model.name} at {dims} is not "
+                         "eligible for the fused kernel")
+    tables = args[:_N_TABLES]
+    _check_tables(dims, tables, frontier)
+    n_det, n_crash = int(args[15]), int(args[16])
+    budget, lvl_cap, bail = int(args[19]), int(args[20]), bool(args[21])
+    dev = frontier.device
+    scal_in = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
+                           for v in args[23:28]])
+    frontier_out = torch.empty_like(frontier)
+    scal_out = torch.empty(5, dtype=torch.int32, device=dev)
+
+    from .._build import library
+
+    lib = library("level_loop")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.jtt_level_loop(
+            *[t.data_ptr() for t in tables], frontier.data_ptr(),
+            scal_in.data_ptr(), frontier_out.data_ptr(),
+            scal_out.data_ptr(), dims.frontier, dims.window,
+            dims.n_crash_pad, dims.state_width, n_det, n_crash, budget,
+            lvl_cap, int(bail), model.kernel_id, stream)
+    if rc != 0:
+        raise RuntimeError("level_loop kernel launch failed: "
+                           f"{lib.jtt_error_string(rc).decode()} ({rc})")
+    LAUNCHES += 1
+    return (frontier_out, scal_out[0], scal_out[1], scal_out[2],
+            scal_out[3], scal_out[4] != 0)
+
+
+def build_level_loop_fn(model, dims: SearchDims):
+    """A step function (the 28-argument signature) backed by
+    :func:`level_loop`."""
+    return functools.partial(level_loop, model, dims)

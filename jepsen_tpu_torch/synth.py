@@ -1,0 +1,204 @@
+"""Synthetic histories for benchmarks and self-tests.
+
+Simulated single-threaded processes run against an in-memory register or
+lock; each op takes effect atomically at its completion event, so the
+emitted history is valid by construction until a corruptor rewrites it.
+Driven by a caller's ``random.Random``: the same seed gives the same
+history as the JAX package's generators of the same names.
+"""
+
+from __future__ import annotations
+
+import random
+from dataclasses import replace
+
+from .history import Op, fail_op, info_op, invoke_op, ok_op
+
+
+def register_history(rng: random.Random, *, n_ops: int, n_procs: int,
+                     overlap: int = 4, crash_p: float = 0.0,
+                     max_crashes: int = 16, n_values: int = 5,
+                     cas: bool = True,
+                     unique_writes: bool = False,
+                     quiesce_every: int | None = None) -> list[Op]:
+    """Concurrent cas-register history, valid by construction.
+
+    ``overlap`` is the target number of pending ops; ``crash_p`` the
+    chance a completing op crashes (:info) instead, its effect applied
+    on a coin flip; ``unique_writes`` draws write values from a counter
+    starting at 1; ``quiesce_every`` drains all pending ops after every
+    that many invocations."""
+    state = None
+    h: list[Op] = []
+    pending: dict[int, tuple] = {}
+    n_crashed = 0
+    done = 0
+    next_v = 1
+    crashed_procs: set[int] = set()
+    while done < n_ops or pending:
+        free = [p for p in range(n_procs)
+                if p not in pending and p not in crashed_procs]
+        want_invoke = (done < n_ops and free
+                       and (len(pending) < overlap or not pending)
+                       and not (quiesce_every and done
+                                and done % quiesce_every == 0
+                                and pending))
+        if want_invoke:
+            p = rng.choice(free)
+            fs = ["read", "write"] + (["cas"] if cas else [])
+            f = rng.choice(fs)
+            if f == "read":
+                v = None
+            elif f == "write":
+                if unique_writes:
+                    v = next_v
+                    next_v += 1
+                else:
+                    v = rng.randrange(n_values)
+            else:
+                v = (rng.randrange(n_values), rng.randrange(n_values))
+            h.append(invoke_op(p, f, v))
+            pending[p] = (f, v)
+            done += 1
+            continue
+        if not pending:
+            break
+        p = rng.choice(list(pending))
+        f, v = pending.pop(p)
+        if crash_p and rng.random() < crash_p and n_crashed < max_crashes:
+            n_crashed += 1
+            crashed_procs.add(p)  # a crashed process id is retired
+            if rng.random() < 0.5:
+                if f == "write":
+                    state = v
+                elif f == "cas" and state == v[0]:
+                    state = v[1]
+            h.append(info_op(p, f, v if f != "read" else None))
+            continue
+        if f == "read":
+            h.append(ok_op(p, f, state))
+        elif f == "write":
+            state = v
+            h.append(ok_op(p, f, v))
+        elif state == v[0]:
+            state = v[1]
+            h.append(ok_op(p, f, v))
+        else:
+            h.append(fail_op(p, f, v))
+    return h
+
+
+def swap_read_values(rng: random.Random, h: list[Op], *,
+                     min_gap: int | None = None) -> list[Op]:
+    """Swap the values of two ok reads of different values at least
+    ``min_gap`` events apart (default: a quarter of the history)."""
+    idx = [i for i, op in enumerate(h)
+           if op.type == "ok" and op.f == "read" and op.value is not None]
+    if len(idx) < 2:
+        return h
+    gap = len(h) // 4 if min_gap is None else min_gap
+    for _ in range(200):
+        i, j = sorted(rng.sample(idx, 2))
+        if j - i >= gap and h[i].value != h[j].value:
+            h = list(h)
+            h[i], h[j] = (replace(h[i], value=h[j].value),
+                          replace(h[j], value=h[i].value))
+            return h
+    return h
+
+
+def corrupt_read(rng: random.Random, h: list[Op], *,
+                 at: float = 1.0) -> list[Op]:
+    """Rewrite the ok read nearest fraction ``at`` of the way through to
+    a value nothing wrote; the result is (almost certainly) invalid."""
+    h = list(h)
+    idx = [i for i, op in enumerate(h)
+           if op.type == "ok" and op.f == "read" and op.value is not None]
+    if not idx:
+        return h
+    target = int(at * (len(h) - 1))
+    i = min(idx, key=lambda j: abs(j - target))
+    h[i] = replace(h[i], value=(h[i].value or 0) + 1_000_003)
+    return h
+
+
+def sim_mutex_history(rng: random.Random, n_ops: int = 40,
+                      n_procs: int = 4, *,
+                      crash_p: float = 0.0,
+                      max_crashes: int = 48,
+                      lease_p: float = 0.05) -> list[Op]:
+    """Alternating acquire/release per process against a real lock.
+
+    After the op budget is spent, completable pending ops are drained
+    and anything still stuck becomes a crashed :info op.  A holder that
+    crashes holding the lock loses it to lease expiry (probability
+    ``lease_p`` per scheduling step); ``max_crashes`` caps :info ops."""
+    holder = None
+    holder_crashed = False
+    h: list[Op] = []
+    pending: dict = {}
+    wants: dict = {}
+    crashed: set = set()
+    done = 0
+    while done < n_ops:
+        if len(crashed) >= n_procs:
+            break
+        if holder_crashed and rng.random() < lease_p:
+            holder = None
+            holder_crashed = False
+        p = rng.randrange(n_procs)
+        if p in crashed:
+            continue
+        if p in pending:
+            f = pending[p]
+            if crash_p and len(crashed) < max_crashes \
+                    and rng.random() < crash_p:
+                if rng.random() < 0.5:
+                    if f == "acquire" and holder is None:
+                        holder = p
+                    elif f == "release" and holder == p:
+                        holder = None
+                del pending[p]
+                crashed.add(p)
+                if holder == p:
+                    holder_crashed = True
+                h.append(info_op(p, f, None))
+                continue
+            if f == "acquire" and holder is None:
+                holder = p
+                holder_crashed = False
+                del pending[p]
+                h.append(ok_op(p, f, None))
+            elif f == "release":
+                del pending[p]
+                if holder == p:
+                    holder = None
+                    holder_crashed = False
+                    h.append(ok_op(p, f, None))
+                else:
+                    h.append(fail_op(p, f, None))
+            continue
+        f = "release" if wants.get(p) else "acquire"
+        wants[p] = not wants.get(p)
+        h.append(invoke_op(p, f, None))
+        pending[p] = f
+        done += 1
+
+    if holder is not None and holder not in crashed \
+            and holder not in pending:
+        h.append(invoke_op(holder, "release", None))
+        h.append(ok_op(holder, "release", None))
+        holder = None
+    for p, f in sorted(pending.items()):
+        if f == "acquire" and holder is None:
+            holder = p
+            h.append(ok_op(p, f, None))
+        elif f == "release":
+            if holder == p:
+                holder = None
+                h.append(ok_op(p, f, None))
+            else:
+                h.append(fail_op(p, f, None))
+        else:
+            h.append(info_op(p, f, None))
+    return h

@@ -26,3 +26,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (excluded from the tier-1 "
                    "'not slow' gate)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one "
+                   "(run on the card with -m cuda)")

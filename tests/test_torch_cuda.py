@@ -1,0 +1,79 @@
+"""The port on the card: the CUDA level-loop kernel against its plain
+version, and the device search through it.  Every test needs an NVIDIA
+GPU and skips without one.  The file imports neither jax nor the JAX
+package, so it runs where they are absent:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import random
+
+import pytest
+import torch
+
+from jepsen_tpu_torch.checker import encode as enc
+from jepsen_tpu_torch.checker import level_kernel as lk
+from jepsen_tpu_torch.checker import step
+from jepsen_tpu_torch.checker.linearizable import search_opseq
+from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
+from jepsen_tpu_torch.models import cas_register, mutex
+from jepsen_tpu_torch.synth import (corrupt_read, register_history,
+                                    sim_mutex_history)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,bail", [(1, False), (2, False), (21, True)])
+def test_kernel_matches_reference(cuda, seed, bail):
+    model = cas_register()
+    rng = random.Random(seed)
+    h = register_history(rng, n_ops=64, n_procs=8 if bail else 4,
+                         overlap=7 if bail else 3, crash_p=0.06,
+                         max_crashes=3, n_values=2 if bail else 3)
+    if seed % 2:
+        h = corrupt_read(rng, h, at=0.85)
+    seq = encode_ops(h, model.f_codes)
+    es = enc.encode_search(seq)
+    dims = enc.choose_dims(es, model, device=cuda, frontier=16)
+    esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = enc.search_args(esp, es, device=cuda)
+    ck = cr = enc.carry_to_device(enc._init_carry(dims, model), cuda)
+    for _ in range(8):
+        before = lk.LAUNCHES
+        ck = lk.level_loop(model, dims, *args, 10**8, 8, bail, *ck)
+        assert lk.LAUNCHES == before + 1
+        cr = lk.level_loop_reference(model, dims, *args, 10**8, 8, bail,
+                                     *cr)
+        torch.cuda.synchronize()
+        n = int(cr[1])
+        assert [int(v) for v in ck[1:]] == [int(v) for v in cr[1:]]
+        assert torch.equal(ck[0][:n], cr[0][:n])
+        if int(cr[2]) != -1 or n == 0 or (bail and bool(cr[5])):
+            break
+
+
+@pytest.mark.cuda
+def test_search_runs_the_kernel_and_matches_the_host(cuda, monkeypatch):
+    model = mutex()
+    h = sim_mutex_history(random.Random(5), n_ops=300, n_procs=4,
+                          crash_p=0.02, max_crashes=4)
+    # an acquire chain longer than the crashed ops can explain
+    for p in range(100, 106):
+        h += [invoke_op(p, "acquire"), ok_op(p, "acquire")]
+    seq = encode_ops(h, model.f_codes)
+    before = lk.LAUNCHES
+    on_card = search_opseq(seq, model, device="cuda")
+    assert lk.LAUNCHES > before
+    assert on_card["engine"] == "device-bfs(cuda)"
+    # the card prunes all-pairs; pin the host to the same prune
+    monkeypatch.setattr(step, "_DOMINANCE_MODE", "allpairs")
+    on_host = search_opseq(seq, model, device="cpu")
+    for k in ("valid", "configs", "max_depth", "window"):
+        assert on_card[k] == on_host[k], k
+    assert on_card["valid"] is False

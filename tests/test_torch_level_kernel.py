@@ -1,0 +1,154 @@
+"""The fused level loop's plain version against the JAX package's Pallas
+kernel (interpret mode), in lockstep on the Pallas kernel's own test
+histories, and the wrapper's device rule.  The CUDA kernel itself is
+tested on the card by tests/test_torch_cuda.py."""
+
+import dataclasses
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import jepsen_tpu.checker.linearizable as lin
+from jepsen_tpu import models as jm
+from jepsen_tpu.checker import pallas_level as plev
+from jepsen_tpu.history import encode_ops
+from jepsen_tpu.synth import (corrupt_read, register_history,
+                              sim_mutex_history)
+from jepsen_tpu_torch import models as tm
+from jepsen_tpu_torch.checker import encode as enc
+from jepsen_tpu_torch.checker import level_kernel as lk
+from jepsen_tpu_torch.checker.linearizable import linearizable, search_opseq
+from jepsen_tpu_torch.history import encode_ops as t_encode_ops
+from jepsen_tpu_torch.synth import register_history as t_register_history
+
+_PALLAS: dict = {}
+
+
+def _pallas(model, dims):
+    """One interpreted Pallas step per (model, dims): cases that share
+    dims share a compile."""
+    key = (model.name, dims)
+    if key not in _PALLAS:
+        _PALLAS[key] = jax.jit(plev.build_pallas_step_fn(model, dims,
+                                                         interpret=True))
+    return _PALLAS[key]
+
+
+def _history(kind, seed):
+    rng = random.Random(seed)
+    if kind == "mutex":
+        return jm.mutex(), tm.mutex(), sim_mutex_history(
+            rng, n_ops=60, n_procs=3, crash_p=0.06, max_crashes=4)
+    if kind == "overflow":
+        return jm.cas_register(), tm.cas_register(), register_history(
+            rng, n_ops=64, n_procs=8, overlap=7, crash_p=0.05,
+            max_crashes=3, n_values=2)
+    h = register_history(rng, n_ops=56, n_procs=4, overlap=3, crash_p=0.08,
+                         max_crashes=4, n_values=3)
+    if seed % 2:
+        h = corrupt_read(rng, h, at=0.85)
+    return jm.cas_register(), tm.cas_register(), h
+
+
+def _prepare(jmodel, h, frontier):
+    seq = encode_ops(h, jmodel.f_codes)
+    es = lin.encode_search(seq)
+    dims = lin.choose_dims(es, jmodel, frontier=frontier)
+    esp = lin.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    return es, dims, esp
+
+
+def _lockstep(kind, seed, *, bail, slices=6, lvl_cap=16, budget=10**8):
+    jmodel, tmodel, h = _history(kind, seed)
+    es, dims, esp = _prepare(jmodel, h, 16)
+    tdims = enc.SearchDims(**dataclasses.asdict(dims))
+    assert plev.eligible(jmodel, dims) and lk.eligible(tmodel, tdims)
+    pal = _pallas(jmodel, dims)
+    jargs = lin.search_args(esp, es)
+    targs, tc = enc.from_reference(dataclasses.asdict(esp),
+                                   lin._init_carry(dims, jmodel), "cpu")
+    targs = targs[:15] + (es.n_det, es.n_crash) + targs[17:]
+    jc = tuple(jnp.asarray(c) for c in lin._init_carry(dims, jmodel))
+    for s in range(slices):
+        jc = pal(*jargs, jnp.int32(budget), jnp.int32(lvl_cap),
+                 jnp.bool_(bail), *jc)
+        tc = lk.level_loop_reference(tmodel, tdims, *targs, budget,
+                                     lvl_cap, bail, *tc)
+        fj, *scal_j = [np.asarray(v) for v in jc]
+        ft, *scal_t = enc.to_numpy(tc)
+        assert [int(v) for v in scal_j] == [int(v) for v in scal_t], \
+            f"slice {s}"
+        n = int(scal_j[0])
+        assert np.array_equal(fj[:n], ft[:n]), f"slice {s} frontier"
+        if int(scal_j[1]) != -1 or n == 0 or (bail and bool(scal_j[4])):
+            break
+    return [int(v) for v in scal_j]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
+def test_reference_matches_pallas_cas_with_crashes(seed):
+    _lockstep("cas-crash", seed, bail=False)
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_reference_matches_pallas_mutex(seed):
+    _lockstep("mutex", seed, bail=False)
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_reference_matches_pallas_overflow_and_bail(seed):
+    *_, ovf = _lockstep("overflow", seed, bail=True)
+    assert ovf
+    _lockstep("overflow", seed, bail=False)
+
+
+def _cpu_case():
+    model = tm.cas_register()
+    h = t_register_history(random.Random(2), n_ops=40, n_procs=4,
+                           overlap=3, crash_p=0.08, max_crashes=3,
+                           n_values=3)
+    seq = t_encode_ops(h, model.f_codes)
+    es = enc.encode_search(seq)
+    dims = enc.choose_dims(es, model, device="cpu", frontier=16)
+    esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = enc.search_args(esp, es, device="cpu")
+    carry = enc.carry_to_device(enc._init_carry(dims, model), "cpu")
+    return model, seq, dims, args, carry
+
+
+def test_wrapper_takes_plain_path_for_cpu_tensors():
+    model, _seq, dims, args, carry = _cpu_case()
+    before = lk.LAUNCHES
+    out = lk.level_loop(model, dims, *args, 10**8, 8, False, *carry)
+    ref = lk.level_loop_reference(model, dims, *args, 10**8, 8, False,
+                                  *carry)
+    assert lk.LAUNCHES == before
+    n = int(ref[1])
+    assert [int(v) for v in out[1:]] == [int(v) for v in ref[1:]]
+    assert torch.equal(out[0][:n], ref[0][:n])
+    fn = lk.build_level_loop_fn(model, dims)
+    again = fn(*args, 10**8, 8, False, *carry)
+    assert [int(v) for v in again[1:]] == [int(v) for v in ref[1:]]
+
+
+def test_eligibility_bounds():
+    model = tm.cas_register()
+    base = dict(n_det_pad=64, n_crash_pad=32, window=64, k=16,
+                state_width=1, frontier=64)
+    assert lk.eligible(model, enc.SearchDims(**base))
+    for key, val in (("frontier", 128), ("window", 96),
+                     ("n_crash_pad", 96), ("state_width", 5)):
+        assert not lk.eligible(model, enc.SearchDims(**{**base, key: val}))
+
+
+def test_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, seq, *_ = _cpu_case()
+    with pytest.raises(RuntimeError, match="cuda"):
+        search_opseq(seq, model, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        linearizable(model, algorithm="device").check({}, seq)

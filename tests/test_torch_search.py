@@ -1,0 +1,135 @@
+"""The port's search and checker entry points against the JAX package's,
+on the same synth histories: ``search_opseq`` (verdict, configs, depth,
+final frontier width, window), ``Linearizable`` with the device and host
+algorithms, and the host WGL oracle ``check_opseq``.  The JAX side runs
+with its lint, happens-before, DPOR and audit passes off, which the port
+does not have yet."""
+
+import random
+
+import pytest
+
+import jepsen_tpu.checker.linearizable as lin
+from jepsen_tpu import models as jm
+from jepsen_tpu import synth as js
+from jepsen_tpu.checker import seq as jseq
+from jepsen_tpu.history import encode_ops as j_encode_ops
+from jepsen_tpu_torch import models as tm
+from jepsen_tpu_torch import synth as ts
+from jepsen_tpu_torch.checker import linearizable as tlin
+from jepsen_tpu_torch.checker import seq as tseq
+from jepsen_tpu_torch.history import encode_ops as t_encode_ops
+
+OFF = dict(lint=False, hb=False, dpor=False, audit=False)
+
+
+@pytest.fixture(autouse=True)
+def _deterministic_driver(monkeypatch):
+    """The width ladder's downshift timing follows the adaptive level
+    cap, which follows wall time; a huge slice target pins the cap
+    schedule so both packages take the same rungs.  The JAX checker's
+    host confirmation reads the reduction knobs from the environment."""
+    monkeypatch.setattr(lin, "_SLICE_TARGET_S", 1e9)
+    monkeypatch.setattr(tlin, "_SLICE_TARGET_S", 1e9)
+    monkeypatch.setenv("JEPSEN_TPU_HB", "0")
+    monkeypatch.setenv("JEPSEN_TPU_DPOR", "0")
+
+
+def _pair(kind, seed, *, corrupt):
+    """(jax seq, jax model, port seq, port model) from one seed."""
+    out = []
+    for synth, models, encode in ((js, jm, j_encode_ops),
+                                  (ts, tm, t_encode_ops)):
+        rng = random.Random(seed)
+        if kind == "mutex":
+            h = synth.sim_mutex_history(rng, n_ops=80, n_procs=4,
+                                        crash_p=0.05, max_crashes=4)
+            model = models.mutex()
+        else:
+            cas = kind == "cas-register"
+            h = synth.register_history(rng, n_ops=90, n_procs=5, overlap=4,
+                                       crash_p=0.04, max_crashes=4,
+                                       n_values=3, cas=cas)
+            model = models.cas_register() if cas else models.register(0)
+        if corrupt:
+            h = synth.corrupt_read(rng, h, at=0.7)
+        out += [encode(h, model.f_codes), model]
+    return out
+
+
+CASES = [("register", 1, True), ("register", 4, False),
+         ("cas-register", 3, True), ("cas-register", 5, True),
+         ("mutex", 1, False), ("mutex", 3, False)]
+
+KEYS = ("valid", "configs", "max_depth", "frontier", "window",
+        "concurrency")
+
+
+@pytest.mark.parametrize("kind,seed,corrupt", CASES)
+def test_search_opseq_matches_reference(kind, seed, corrupt):
+    sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
+    oj = lin.search_opseq(sj, mj, **OFF)
+    ot = tlin.search_opseq(st, mt, device="cpu")
+    assert {k: ot.get(k) for k in KEYS} == {k: oj.get(k) for k in KEYS}
+    # this host has no card: the port's search never ran the kernel
+    assert ot["engine"] == oj["engine"]
+    for k in ("linearization", "witness_dropped", "frontier_dropped"):
+        assert ot.get(k) == oj.get(k), k
+
+
+def test_search_cases_cover_device_verdicts():
+    """The parity cases above reach the device search (not only the
+    greedy witness), with both verdicts and a widened frontier."""
+    seen = set()
+    for kind, seed, corrupt in CASES:
+        _, _, st, mt = _pair(kind, seed, corrupt=corrupt)
+        out = tlin.search_opseq(st, mt, device="cpu")
+        seen.add((out["engine"], out["valid"]))
+        seen.add(("wide", out.get("frontier", 0) > 16))
+    assert {("device-bfs", True), ("device-bfs", False),
+            ("wide", True)} <= seen
+
+
+@pytest.mark.parametrize("algorithm", ["device", "host"])
+@pytest.mark.parametrize("kind,seed,corrupt", CASES[:4])
+def test_linearizable_matches_reference(kind, seed, corrupt, algorithm):
+    sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
+    oj = lin.linearizable(mj, algorithm=algorithm, **OFF).check({}, sj)
+    ot = tlin.linearizable(mt, algorithm=algorithm,
+                           device="cpu").check({}, st)
+    for k in ("valid", "configs", "max_depth", "engine", "final_ops",
+              "linearization", "device_configs", "witness_prefix_ops"):
+        assert ot.get(k) == oj.get(k), k
+
+
+@pytest.mark.parametrize("kind,seed,corrupt", CASES)
+def test_host_oracle_matches_reference(kind, seed, corrupt):
+    sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
+    oj = jseq.check_opseq(sj, mj, lint=False, hb=False, dpor=False)
+    ot = tseq.check_opseq(st, mt)
+    for k in ("valid", "configs", "max_depth", "linearization",
+              "final_ops", "final_paths"):
+        assert ot.get(k) == oj.get(k), k
+
+
+def test_routes_of_later_slices_refuse():
+    _, _, st, mt = _pair("register", 1, corrupt=True)
+    big = tlin.linearizable(mt, device="cpu", host_threshold=10)
+    with pytest.raises(NotImplementedError, match="A5"):
+        big.check({}, st)
+    with pytest.raises(NotImplementedError, match="A5"):
+        tlin.linearizable(mt, algorithm="competition",
+                          device="cpu").check({}, st)
+    for flag in ("lint", "hb", "dpor", "audit", "decompose"):
+        with pytest.raises(NotImplementedError):
+            tlin.linearizable(mt, device="cpu", **{flag: True})
+    with pytest.raises(NotImplementedError):
+        tlin.search_opseq(st, mt, device="cpu", dpor=True)
+    small = tlin.linearizable(mt, device="cpu", host_threshold=10**6)
+    out = small.check({}, st)
+    assert out["engine"] == "host-oracle" and out["valid"] is False
+
+
+def test_engine_label():
+    assert tlin._engine_label(False) == "device-bfs"
+    assert tlin._engine_label(True) == "device-bfs(cuda)"
