@@ -4,14 +4,17 @@ Counterpart of the JAX package's Pallas kernel
 (``jepsen_tpu/checker/pallas_level.py::build_pallas_step_fn``).  The
 kernel (``csrc/level_loop.cu``) runs ``lvl_cap`` levels of mask phase,
 crash closure, successor compaction and exact all-pairs dominance prune
-inside one thread block, for the narrow, depth-bound rungs where a level
-of plain torch ops costs dozens of launches.
+inside one thread block, on every rung where the card's torch step
+prunes all-pairs (``F <= 2048``), with the history tables in shared
+memory where they fit.
 
   * :func:`eligible` — which searches the kernel takes;
   * :func:`level_loop_reference` — the plain version: the torch step
     (``step.py``) pinned to the all-pairs prune;
   * :func:`level_loop` — the wrapper: the plain version for CPU tensors,
     the kernel for CUDA tensors (or an exception; never a fallback);
+  * :func:`launch_plan` — where a launch at these dims keeps its tables
+    (shared or device memory) and how much scratch it needs;
   * :data:`LAUNCHES` — kernel launches so far (plain version excluded).
 
 Both take ``(model, dims, *step_args)`` where ``step_args`` are the 28
@@ -21,10 +24,12 @@ first two.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
+from . import step
 from .encode import SearchDims
 from .step import build_search_step_fn
 
@@ -34,13 +39,24 @@ SAFE_MODELS = frozenset({"register", "cas-register", "mutex", "noop"})
 #: kernel launches so far; each launch adds one
 LAUNCHES = 0
 
+_CUDA = torch.device("cuda")
+
 
 def eligible(model, dims: SearchDims) -> bool:
+    """The kernel takes a search when its model is one of
+    :data:`SAFE_MODELS`, its masks fit one 64-bit word each, its state
+    four words, and the card's torch step would prune all-pairs at both
+    of its sites (``2F`` closure rows, ``4F`` successor rows) under the
+    default prune mode: the kernel prunes all-pairs, so it never takes a
+    rung where the card's step would prune by sort.  That holds for
+    ``F <= 2048``."""
+    F = dims.frontier
     return (model.name in SAFE_MODELS
-            and dims.frontier <= 64
             and dims.window <= 64
             and dims.n_crash_pad <= 64
-            and dims.state_width <= 4)
+            and dims.state_width <= 4
+            and step._use_allpairs(2 * F, _CUDA, mode="auto")
+            and step._use_allpairs(4 * F, _CUDA, mode="auto"))
 
 
 _REFERENCE_STEPS: dict = {}
@@ -62,6 +78,10 @@ def level_loop_reference(model, dims: SearchDims, *args):
 
 _N_TABLES = 10  # det_f .. crash_inv
 
+#: launch-plan bits: which regions of the kernel's working set sit in
+#: shared memory (the rest go to the scratch buffer in device memory)
+_IN_SMEM = {"frontier": 1, "tables": 2, "successors": 4, "hash": 8}
+
 
 def _check_tables(dims: SearchDims, tables, frontier):
     want = ([dims.n_det_pad] * 5 + [dims.n_det_pad + 1]
@@ -73,12 +93,51 @@ def _check_tables(dims: SearchDims, tables, frontier):
                 f"level_loop: table {i} must be a contiguous int32 "
                 f"[{n}] tensor on {frontier.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"level_loop: table {i} must start on a 16-byte boundary "
+                "(the kernel's bulk copies need it)")
     if (frontier.dtype != torch.int32 or not frontier.is_contiguous()
             or tuple(frontier.shape) != (dims.frontier, dims.words)):
         raise ValueError(
             f"level_loop: frontier must be a contiguous int32 "
             f"[{dims.frontier}, {dims.words}] tensor, got "
             f"{frontier.dtype} {tuple(frontier.shape)}")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"level_loop {what} failed: "
+                           f"{lib.jtt_error_string(rc).decode()} ({rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dims: SearchDims, device_index: int) -> dict:
+    from .._build import library
+
+    lib = library("level_loop")
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device_index):
+        rc = lib.jtt_level_loop_plan(dims.frontier, dims.window,
+                                     dims.n_crash_pad, dims.state_width,
+                                     dims.n_det_pad, out)
+    _raise_on(lib, rc, "plan")
+    smem, bits, threads, scratch = (int(v) for v in out)
+    return {"smem_bytes": smem, "threads": threads, "scratch_bytes": scratch,
+            "in_smem": [k for k, b in _IN_SMEM.items() if bits & b],
+            "tables": "shared" if bits & _IN_SMEM["tables"] else "device"}
+
+
+def launch_plan(dims: SearchDims, device=None) -> dict:
+    """The kernel's launch plan at ``dims`` on a CUDA ``device``:
+    ``smem_bytes`` of dynamic shared memory, ``threads``,
+    ``scratch_bytes`` of device memory, the regions ``in_smem``, and
+    ``tables``: "shared" (brought in by bulk copies at launch) or
+    "device" (read from device memory)."""
+    dev = torch.device(device or "cuda")
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return _plan(dims, index)
 
 
 def level_loop(model, dims: SearchDims, *args):
@@ -99,10 +158,13 @@ def level_loop(model, dims: SearchDims, *args):
     n_det, n_crash = int(args[15]), int(args[16])
     budget, lvl_cap, bail = int(args[19]), int(args[20]), bool(args[21])
     dev = frontier.device
+    plan = launch_plan(dims, dev)
     scal_in = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
                            for v in args[23:28]])
     frontier_out = torch.empty_like(frontier)
     scal_out = torch.empty(5, dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(16, plan["scratch_bytes"]), dtype=torch.uint8,
+                          device=dev)
 
     from .._build import library
 
@@ -112,12 +174,11 @@ def level_loop(model, dims: SearchDims, *args):
         rc = lib.jtt_level_loop(
             *[t.data_ptr() for t in tables], frontier.data_ptr(),
             scal_in.data_ptr(), frontier_out.data_ptr(),
-            scal_out.data_ptr(), dims.frontier, dims.window,
-            dims.n_crash_pad, dims.state_width, n_det, n_crash, budget,
-            lvl_cap, int(bail), model.kernel_id, stream)
-    if rc != 0:
-        raise RuntimeError("level_loop kernel launch failed: "
-                           f"{lib.jtt_error_string(rc).decode()} ({rc})")
+            scal_out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            dims.frontier, dims.window, dims.n_crash_pad, dims.state_width,
+            dims.n_det_pad, n_det, n_crash, budget, lvl_cap, int(bail),
+            model.kernel_id, stream)
+    _raise_on(lib, rc, "kernel launch")
     LAUNCHES += 1
     return (frontier_out, scal_out[0], scal_out[1], scal_out[2],
             scal_out[3], scal_out[4] != 0)

@@ -51,10 +51,14 @@ _ALLPAIRS_ELEMS = 1 << 28
 _MASK32 = 0xFFFFFFFF
 
 
-def _use_allpairs(M: int, device: torch.device) -> bool:
-    if _DOMINANCE_MODE == "allpairs":
+def _use_allpairs(M: int, device: torch.device,
+                  mode: str | None = None) -> bool:
+    """Whether the prune over M rows is all-pairs, under ``mode``
+    (default: the module's ``_DOMINANCE_MODE``)."""
+    mode = _DOMINANCE_MODE if mode is None else mode
+    if mode == "allpairs":
         return M * M <= _ALLPAIRS_ELEMS
-    if _DOMINANCE_MODE == "sort":
+    if mode == "sort":
         return False
     return (device.type == "cuda" and M <= _ALLPAIRS_MAX
             and M * M <= _ALLPAIRS_ELEMS)

@@ -3,53 +3,87 @@
 // Replaces jepsen_tpu/checker/pallas_level.py::build_pallas_step_fn (the
 // Pallas TPU kernel).  One launch runs one slice of one search: up to
 // lvl_cap levels of mask phase -> crash closure -> determinate successors
-// -> exact all-pairs dominance prune -> compaction, with the frontier held
-// in shared memory, and returns the packed carry.  It computes bit for bit
-// what jepsen_tpu_torch/checker/step.py computes with the all-pairs prune:
-// same survivor order (row-major, lane-ascending), same configs, same
-// overflow / bail / revert behaviour.
+// -> exact all-pairs dominance prune -> compaction, and returns the packed
+// carry.  It computes bit for bit what jepsen_tpu_torch/checker/step.py
+// computes with the all-pairs prune: same survivor order (row-major,
+// lane-ascending), same configs, same overflow / bail / revert behaviour,
+// for every frontier width F <= 2048, where the card's torch step prunes
+// all-pairs at both of its sites (4F <= 8192 rows).
 //
 // What bounds it: serial per-level latency on one SM.  A level is a chain
-// of dependent phases separated by __syncthreads over at most 256 rows; a
-// slice moves its tables and carry once (tens of KB) and does at most a
-// few hundred thousand integer compares per level, far below the card's
-// byte or operation rates.  The design keeps every level inside one block
-// (no launches, no device-memory round trips between levels) and keeps the
-// window and crash masks packed in one uint64 each, so bit tests are
-// shifts, counts are __popcll and the shift by trailing ones is
-// __ffsll(~w).  History tables are read straight from device memory
-// by absolute index (they are a few KB and stay in L2).  Compaction is warp
-// __ballot_sync + __popc with a block-level exclusive scan in shared
-// memory, which keeps the row-major, lane-ascending order exactly.  A
-// successor's model state is recomputed from (row, lane) when it is built
-// rather than stored per lane.
+// of dependent phases separated by block barriers; a slice moves its
+// tables and carry once (tens of KB) and does far fewer integer operations
+// per level than the card's rate would allow.  The design attacks the
+// latency of that chain:
 //
-// Right first: no wgmma, no TMA, one block per search.  Making it fast
-// (several searches per launch as a grid over keys, fewer barriers per
-// level) is later work.
+//   * Tables in shared memory, brought in by the Tensor Memory
+//     Accelerator: at launch one thread issues 1-D bulk copies
+//     (cp.async.bulk ... mbarrier::complete_tx) of the ten history tables,
+//     completed on an mbarrier, while the other threads load the carry.
+//     Every det_*, sfx and crash_* read of the mask phase and the
+//     successor build is then a shared-memory read.  Where the tables do
+//     not fit beside the frontier in the 227 KB a block may opt into, the
+//     same code reads them from device memory (chosen once per launch).
+//   * Work that follows the live rows: the mask phase and the successor
+//     build loop over `count` rows, the prune over the valid successor
+//     rows, never over F or the successor cap.
+//   * A prune whose work grows with the rows, not their square.  The
+//     all-pairs rule only ever drops row i in favour of a row j with the
+//     SAME (p, window, state): j's crash mask a strict subset of i's, or
+//     equal with j < i.  Rows are grouped by that key in a shared hash
+//     table (linear probing, exact key compares), each group chained
+//     through a link array, and the rule is tested only inside a group.
+//     The kept set is the all-pairs kept set by construction, and the
+//     compaction keeps the original index order, so the output is
+//     identical.
+//   * No frontier copies: three frontier buffers rotate by index.  A
+//     level's entry buffer is never written during the level, so the bail
+//     revert is a change of index (the level-entry snapshot costs nothing).
+//   * Block scans with double-buffered warp sums (one barrier each); the
+//     flags every thread needs (crash lanes alive, closure progress, goal
+//     found) ride on __syncthreads_or; all control scalars live in
+//     registers, the same value in every thread.
+//
+// The window and crash masks stay packed in one uint64 each, so bit tests
+// are shifts, counts are __popcll and the shift by trailing ones is
+// __ffsll(~w).  A successor's model state is recomputed from (row, lane)
+// when it is built.  No tensor cores: the level loop is bit tests,
+// popcounts, integer compares and scans; it has no product for wgmma, and
+// making one (the TPU kernel's one-hot gathers) is the detour this card
+// does not need.
+//
+// Later work, not here: a cluster of blocks over distributed shared memory
+// for the widest rungs, and many searches per launch (a grid over keys).
+//
+// Memory plan (plan_for): four regions -- the frontier (three buffers of F
+// rows plus per-row lane masks), the tables, the successor block (4F rows)
+// and the prune's hash table -- go to dynamic shared memory in that order
+// while they fit, the rest to a scratch buffer in device memory that the
+// caller allocates (jtt_level_loop_plan gives its size).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (jepsen_tpu_torch/_build.py).  Plain C interface,
 // loaded with ctypes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define MAXF 64                  // widest frontier the kernel takes
-#define MAXM (4 * MAXF)          // det successor cap SCAP = 4F
-#define NTHREADS 256             // one thread per row of the widest prune
-#define NWARPS (NTHREADS / 32)
+#define MAXF 2048                // widest frontier the kernel takes
+#define MAXT 1024                // most threads per block
 #define FULL 0xffffffffu
 #define INF32 0x7fffffff
 #define NIL ((int)0x80000000)
 
 typedef unsigned long long u64;
+typedef unsigned int u32;
 
 // one configuration: window and crash masks packed, p, model state
+template <int SW>
 struct Row {
   u64 win;
   u64 cr;
   int p;
-  int st[4];
+  int st[SW];
 };
 
 struct Tables {
@@ -58,28 +92,30 @@ struct Tables {
 };
 
 struct Dims {
-  int F, W, NC, SW, WW, CW;
-  int n_det, n_crash, budget, lvl_cap, bail, kid;
+  int F, W, NC, n_det_pad, n_det, n_crash, budget, lvl_cap, bail, kid;
 };
 
-struct Shared {
-  Row cur[MAXF];    // the live frontier
-  Row snap[MAXF];   // level-entry snapshot (bail revert)
-  Row nxt[MAXF];    // compaction output
-  Row succ[MAXM];   // successor block
-  u64 vdet[MAXF];   // valid det lanes per row (mask phase)
-  u64 vcr[MAXF];    // valid crash lanes per row
-  int off[MAXF];    // successor offset per row
-  int wsum[NWARPS];
-  int count, status, configs, md, ovf, run, found, revert, maxp;
-  int cnt0, cfg0, md0, ovf0;
+enum { R_FRONT, R_TABLES, R_SUCC, R_HASH, N_REGIONS };
+
+struct Plan {
+  long long off[N_REGIONS];  // byte offset of each region in its space
+  int in_smem;               // bit r: region r lies in shared memory
+  int smem_bytes;            // dynamic shared memory of the launch
+  long long scratch_bytes;   // device-memory scratch the launch needs
+  int threads;
+  int tmax;                  // hash table slots (power of two >= 8F, 32)
 };
+
+// ---------------------------------------------------------------------------
+// device helpers
+// ---------------------------------------------------------------------------
 
 // The model step (register 0, cas-register 1, mutex 2, noop 3), the same
 // semantics as jepsen_tpu_torch/models.py's tstep.
+template <int SW>
 __device__ __forceinline__ bool model_step(int kid, const int* st, int f,
-                                           int v1, int v2, int* out,
-                                           int SW) {
+                                           int v1, int v2, int* out) {
+#pragma unroll
   for (int i = 0; i < SW; ++i) out[i] = st[i];
   int val = st[0];
   switch (kid) {
@@ -102,28 +138,34 @@ __device__ __forceinline__ bool model_step(int kid, const int* st, int f,
   }
 }
 
-// Exclusive prefix sum of one int per thread over the block; *total gets
-// the block sum.  Every thread must call it.
-__device__ int block_excl_scan(int v, int* wsum, int* total) {
+// Exclusive prefix sum of one int per thread over the block; `total` gets
+// the block sum.  Every thread must call it.  `wsum` alternates between
+// two buffers from call to call, so one barrier suffices: the next call
+// that writes the same buffer is behind the other buffer's barrier.
+__device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int nw = blockDim.x >> 5;
   int x = v;
+#pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     int y = __shfl_up_sync(FULL, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) wsum[warp] = x;
   __syncthreads();
-  int before = 0, tot = 0;
-  for (int w = 0; w < NWARPS; ++w) {
-    if (w < warp) before += wsum[w];
-    tot += wsum[w];
+  int s = lane < nw ? wsum[lane] : 0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(FULL, s, o);
+    if (lane >= o) s += y;
   }
-  __syncthreads();
-  *total = tot;
-  return before + x - v;
+  total = __shfl_sync(FULL, s, nw - 1);
+  int before = __shfl_sync(FULL, s, (warp + 31) & 31);
+  return (warp ? before : 0) + x - v;
 }
 
 __device__ __forceinline__ void warp_argmin(int& v, int& i) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     int ov = __shfl_xor_sync(FULL, v, o);
     int oi = __shfl_xor_sync(FULL, i, o);
@@ -135,107 +177,178 @@ __device__ __forceinline__ void warp_argmin(int& v, int& i) {
 }
 
 __device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-// Mask phase over the current frontier, one warp per row: enabled det
-// lanes from the window's minimum return (lowest lane on ties), the
-// second minimum excluding only that lane and the suffix minimum at
-// min(p + W, n_det); enabled crash lanes; the model step on each; the
-// goal test (det lane: remaining <= 1, crash lane: remaining <= 0).
-// Writes vdet/vcr and ORs any goal into sh.found.
-__device__ void mask_phase(Shared& sh, const Tables& t, const Dims& d) {
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ u32 rotl32(u32 x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ u32 hash_mix(u32 h, u32 k) {
+  k *= 0xcc9e2d51u;
+  k = rotl32(k, 15);
+  k *= 0x1b873593u;
+  h ^= k;
+  h = rotl32(h, 13);
+  return h * 5u + 0xe6546b64u;
+}
+
+// hash of the prune key (p, window, state); the crash mask is not in it
+template <int SW>
+__device__ __forceinline__ u32 key_hash(const Row<SW>& R) {
+  u32 h = hash_mix(0x9e3779b1u, (u32)R.p);
+  h = hash_mix(h, (u32)R.win);
+  h = hash_mix(h, (u32)(R.win >> 32));
+#pragma unroll
+  for (int s = 0; s < SW; ++s) h = hash_mix(h, (u32)R.st[s]);
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  return h ^ (h >> 16);
+}
+
+template <int SW>
+__device__ __forceinline__ bool same_key(const Row<SW>& A, const Row<SW>& B) {
+  bool eq = A.p == B.p && A.win == B.win;
+#pragma unroll
+  for (int s = 0; s < SW; ++s) eq &= A.st[s] == B.st[s];
+  return eq;
+}
+
+// rows [0, nA) of the prune come from A, rows [nA, n) from B
+template <int SW>
+__device__ __forceinline__ const Row<SW>& row_at(const Row<SW>* A, int nA,
+                                                 const Row<SW>* B, int i) {
+  return i < nA ? A[i] : B[i - nA];
+}
+
+__device__ __forceinline__ int other_buf(int e, int c) {
+  return e == c ? (e + 1) % 3 : 3 - e - c;
+}
+
+// ---------------------------------------------------------------------------
+// phases
+// ---------------------------------------------------------------------------
+
+// Mask phase over the live rows, one warp per row: enabled det lanes from
+// the window's minimum return (lowest lane on ties), the second minimum
+// excluding only that lane and the suffix minimum at min(p + W, n_det);
+// enabled crash lanes; the model step on each; the goal test (det lane:
+// remaining <= 1, crash lane: remaining <= 0).  Every table load of a row
+// is issued before the warp's reductions, so none waits on another.
+// Writes vdet/vcr; ORs a goal into `found` and live crash lanes into
+// `crash_any` (per thread; the caller reduces).
+template <int SW>
+__device__ void mask_phase(const Row<SW>* cur, int count, u64* vdet,
+                           u64* vcr, const Tables& t, const Dims& d,
+                           bool& found, bool& crash_any) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int count = sh.count;
-  for (int r = warp; r < d.F; r += NWARPS) {
-    if (r >= count) {
-      if (lane == 0) sh.vdet[r] = sh.vcr[r] = 0;
-      continue;
-    }
-    const Row& R = sh.cur[r];
+  int nw = blockDim.x >> 5;
+  for (int r = warp; r < count; r += nw) {
+    const Row<SW> R = cur[r];
     int p = R.p;
-    int wret[2];
-    int best = INF32, bidx = 1 << 20;
+    int ret[2], inv[2], df[2], dv1[2], dv2[2];
+    bool open[2];
+    int cinv[2], cf[2], cv1[2], cv2[2];
+    bool copen[2];
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
       int l = lane + 32 * h;
-      int v = INF32;
-      if (l < d.W) {
-        int pos = p + l;
-        if (pos < d.n_det && !((R.win >> l) & 1ull)) v = t.det_ret[pos];
-        if (v < best || (v == best && l < bidx)) {
-          best = v;
-          bidx = l;
-        }
+      int pos = p + l;
+      open[h] = l < d.W && pos < d.n_det && !((R.win >> l) & 1ull);
+      ret[h] = open[h] ? t.det_ret[pos] : INF32;
+      inv[h] = open[h] ? t.det_inv[pos] : INF32;
+      df[h] = open[h] ? t.det_f[pos] : 0;
+      dv1[h] = open[h] ? t.det_v1[pos] : 0;
+      dv2[h] = open[h] ? t.det_v2[pos] : 0;
+      copen[h] = l < d.NC && l < d.n_crash && !((R.cr >> l) & 1ull);
+      cinv[h] = copen[h] ? t.crash_inv[l] : INF32;
+      cf[h] = copen[h] ? t.crash_f[l] : 0;
+      cv1[h] = copen[h] ? t.crash_v1[l] : 0;
+      cv2[h] = copen[h] ? t.crash_v2[l] : 0;
+    }
+    int sfx = t.sfx[min(p + d.W, d.n_det)];
+    int best = INF32, bidx = 1 << 20;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int l = lane + 32 * h;
+      if (l < d.W && (ret[h] < best || (ret[h] == best && l < bidx))) {
+        best = ret[h];
+        bidx = l;
       }
-      wret[h] = v;
     }
     warp_argmin(best, bidx);
     int m1 = best, am = bidx;
     int m2 = INF32;
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
       int l = lane + 32 * h;
-      if (l < d.W && l != am) m2 = min(m2, wret[h]);
+      if (l < d.W && l != am) m2 = min(m2, ret[h]);
     }
     m2 = warp_min(m2);
-    int sfx = t.sfx[min(p + d.W, d.n_det)];
     int m1_tot = min(m1, sfx);
     u64 dbits = 0, cbits = 0;
-    int ns[4];
+    int ns[SW];
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
       int l = lane + 32 * h;
-      bool valid = false;
-      if (l < d.W) {
-        int pos = p + l;
-        if (pos < d.n_det && !((R.win >> l) & 1ull)) {
-          int excl = min(l == am ? m2 : m1, sfx);
-          if (t.det_inv[pos] < excl)
-            valid = model_step(d.kid, R.st, t.det_f[pos], t.det_v1[pos],
-                               t.det_v2[pos], ns, d.SW);
-        }
-      }
+      bool valid = open[h] && inv[h] < min(l == am ? m2 : m1, sfx) &&
+                   model_step<SW>(d.kid, R.st, df[h], dv1[h], dv2[h], ns);
       dbits |= (u64)__ballot_sync(FULL, valid) << (32 * h);
-      int c = l;
-      valid = false;
-      if (c < d.NC && c < d.n_crash && !((R.cr >> c) & 1ull) &&
-          t.crash_inv[c] < m1_tot)
-        valid = model_step(d.kid, R.st, t.crash_f[c], t.crash_v1[c],
-                           t.crash_v2[c], ns, d.SW);
+      valid = copen[h] && cinv[h] < m1_tot &&
+              model_step<SW>(d.kid, R.st, cf[h], cv1[h], cv2[h], ns);
       cbits |= (u64)__ballot_sync(FULL, valid) << (32 * h);
     }
     if (lane == 0) {
-      sh.vdet[r] = dbits;
-      sh.vcr[r] = cbits;
-      int remaining = d.n_det - (p + __popcll(R.win));
-      if ((dbits && remaining <= 1) || (cbits && remaining <= 0))
-        sh.found = 1;
+      vdet[r] = dbits;
+      vcr[r] = cbits;
     }
+    int remaining = d.n_det - (p + __popcll(R.win));
+    found |= (dbits && remaining <= 1) || (cbits && remaining <= 0);
+    crash_any |= cbits != 0ull;
   }
-  __syncthreads();
 }
 
-// Successors of the current frontier's valid det (det=true) or crash
-// lanes, in row-major, lane-ascending order, the first `cap` of them into
-// sh.succ.  Returns the uncapped total.
-__device__ int build_succ(Shared& sh, const Tables& t, const Dims& d,
-                          bool det, int cap) {
-  int tid = threadIdx.x;
-  int c = 0;
-  if (tid < d.F) c = __popcll(det ? sh.vdet[tid] : sh.vcr[tid]);
+// Successors of the live rows' valid det (det=true) or crash lanes, in
+// row-major, lane-ascending order, the first `cap` of them into `succ`.
+// Each thread takes a contiguous run of rows; one block scan places its
+// successors.  Returns the uncapped total.  With `maxp`, also folds the
+// rows' largest p into *maxp.
+template <int SW>
+__device__ int build_succ(const Row<SW>* cur, int count, const u64* vmask,
+                          bool det, Row<SW>* succ, int cap, const Tables& t,
+                          const Dims& d, int* wsum, int* maxp) {
+  int nt = blockDim.x;
+  int per = (count + nt - 1) / nt;
+  int r0 = threadIdx.x * per, r1 = min(r0 + per, count);
+  int n = 0, mp = 0;
+  for (int r = r0; r < r1; ++r) {
+    n += __popcll(vmask[r]);
+    if (maxp) mp = max(mp, cur[r].p);
+  }
+  if (maxp) {
+    mp = warp_max(mp);
+    if ((threadIdx.x & 31) == 0 && mp > 0) atomicMax(maxp, mp);
+  }
   int total;
-  int off = block_excl_scan(c, sh.wsum, &total);
-  if (tid < d.F) sh.off[tid] = off;
-  __syncthreads();
-  int lane = tid & 31, warp = tid >> 5;
-  for (int r = warp; r < d.F; r += NWARPS) {
-    u64 bits = det ? sh.vdet[r] : sh.vcr[r];
-    const Row& R = sh.cur[r];
-    for (int h = 0; h < 2; ++h) {
-      int l = lane + 32 * h;
-      if (!((bits >> l) & 1ull)) continue;
-      int idx = sh.off[r] + __popcll(bits & ((1ull << l) - 1ull));
-      if (idx >= cap) continue;
-      Row& S = sh.succ[idx];
+  int idx = block_scan(n, wsum, total);
+  for (int r = r0; r < r1 && idx < cap; ++r) {
+    u64 bits = vmask[r];
+    if (!bits) continue;
+    const Row<SW> R = cur[r];
+    while (bits && idx < cap) {
+      int l = __ffsll((long long)bits) - 1;
+      bits &= bits - 1ull;
+      Row<SW> S;
       int f, v1, v2;
       if (det) {
         int pos = R.p + l;
@@ -256,210 +369,445 @@ __device__ int build_succ(Shared& sh, const Tables& t, const Dims& d,
         S.p = R.p;
         S.cr = R.cr | (1ull << l);
       }
-      model_step(d.kid, R.st, f, v1, v2, S.st, d.SW);
+      model_step<SW>(d.kid, R.st, f, v1, v2, S.st);
+      succ[idx++] = S;
     }
   }
-  __syncthreads();
   return total;
 }
 
-// Rows of the prune: the closure merges the live frontier (rows [0, F))
-// with the crash successors (rows [F, 2F)); the det prune runs over the
-// successor block alone.
-__device__ __forceinline__ const Row& row_at(const Shared& sh, bool closure,
-                                             int F, int i) {
-  return closure ? (i < F ? sh.cur[i] : sh.succ[i - F]) : sh.succ[i];
+struct Hash {
+  int* head;  // per slot: the group's key row, or -1
+  int* chain; // per slot: the group's last member, or -1
+  int* link;  // per row: the group's previous member, or -1
+  int* slot;  // per row: its group's slot
+};
+
+// Exact all-pairs dominance prune over rows [0, n) (rows [0, nA) from A,
+// the rest from B), then compaction of the first F kept rows, in order,
+// into `out`.  Row i is dropped when a valid row j has the same (p,
+// window, state) and j's crash mask is a strict subset of i's, or is
+// equal with j < i; only rows of one key group are compared.  Returns the
+// kept count (uncapped).  The closing barrier ORs `flag` -- or, when
+// `progress` is set, whether a kept row lies at index >= nA -- into
+// *any.  The hash table is all -1 on entry and on return.
+template <int SW>
+__device__ int prune_compact(const Row<SW>* A, int nA, const Row<SW>* B,
+                             int n, Row<SW>* out, int F, const Hash& hs,
+                             int tsize, int* wsum, bool progress, bool flag,
+                             int* any) {
+  int tid = threadIdx.x, nt = blockDim.x;
+  __syncthreads();  // the rows are written
+  for (int i = tid; i < n; i += nt) {
+    const Row<SW>& R = row_at(A, nA, B, i);
+    int h = (int)(key_hash(R) & (u32)(tsize - 1));
+    while (true) {
+      int r = atomicCAS(&hs.head[h], -1, i);
+      if (r < 0 || same_key(row_at(A, nA, B, r), R)) break;
+      h = (h + 1) & (tsize - 1);
+    }
+    hs.link[i] = atomicExch(&hs.chain[h], i);
+    hs.slot[i] = h;
+  }
+  __syncthreads();
+  int per = (n + nt - 1) / nt;  // <= 32: n <= 4F <= 32 * threads
+  int r0 = tid * per, r1 = min(r0 + per, n);
+  u32 kept = 0;
+  for (int i = r0; i < r1; ++i) {
+    u64 cri = row_at(A, nA, B, i).cr;
+    bool keep = true;
+    for (int j = hs.chain[hs.slot[i]]; j >= 0 && keep; j = hs.link[j]) {
+      if (j == i) continue;
+      u64 crj = row_at(A, nA, B, j).cr;
+      if ((crj != cri && (crj & ~cri) == 0ull) || (crj == cri && j < i))
+        keep = false;
+    }
+    if (keep) kept |= 1u << (i - r0);
+  }
+  int nk;
+  int rank = block_scan(__popc(kept), wsum, nk);
+  bool prog = false;
+  for (int i = r0; i < r1; ++i) {
+    if (!((kept >> (i - r0)) & 1u)) continue;
+    if (rank < F) out[rank] = row_at(A, nA, B, i);
+    ++rank;
+    prog |= i >= nA;
+  }
+  // leave the table empty for the next prune: every slot that was taken
+  // is the slot of some row
+  for (int i = tid; i < n; i += nt) {
+    int h = hs.slot[i];
+    hs.head[h] = -1;
+    hs.chain[h] = -1;
+  }
+  *any = __syncthreads_or(progress ? prog : flag);
+  return nk;
 }
 
-__device__ __forceinline__ bool row_valid(const Shared& sh, bool closure,
-                                          int F, int n_succ, int i) {
-  if (closure) return i < F ? i < sh.count : i - F < n_succ;
-  return i < n_succ;
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ u32 smem_addr(const void* p) {
+  return (u32)__cvta_generic_to_shared(p);
 }
 
-// Exact all-pairs dominance prune over M rows, then compaction of the
-// first F kept rows (in order) into sh.nxt.  Row i is dropped when a valid
-// row j has the same (p, window, state) and j's crash mask is a strict
-// subset of i's, or is equal with j < i.  Returns the kept count
-// (uncapped); *progress is set when a kept row lies at index >= F.
-__device__ int prune_compact(Shared& sh, const Dims& d, bool closure, int M,
-                             int n_succ, int* progress) {
-  int tid = threadIdx.x;
-  bool kept = false;
-  if (tid < M && row_valid(sh, closure, d.F, n_succ, tid)) {
-    const Row& A = row_at(sh, closure, d.F, tid);
-    kept = true;
-    for (int j = 0; j < M && kept; ++j) {
-      if (j == tid || !row_valid(sh, closure, d.F, n_succ, j)) continue;
-      const Row& B = row_at(sh, closure, d.F, j);
-      if (B.p != A.p || B.win != A.win) continue;
-      bool same = true;
-      for (int s = 0; s < d.SW; ++s) same &= A.st[s] == B.st[s];
-      if (!same) continue;
-      bool eq_cr = A.cr == B.cr;
-      if ((!eq_cr && (B.cr & ~A.cr) == 0ull) || (eq_cr && j < tid))
-        kept = false;
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         u32 bytes, u64* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <int SW>
+__global__ void __launch_bounds__(MAXT)
+level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
+                  const int* __restrict__ scal_in, int* __restrict__ fout,
+                  int* __restrict__ scal_out, unsigned char* scratch) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  __shared__ __align__(8) u64 tma_bar;
+  __shared__ int wsum[2][32];
+  __shared__ int maxp[2];
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int F = d.F, WW = d.W / 32, CW = d.NC / 32;
+  const int WORDS = 1 + WW + CW + SW, SCAP = 4 * F;
+  unsigned char* base[N_REGIONS];
+#pragma unroll
+  for (int r = 0; r < N_REGIONS; ++r)
+    base[r] = ((pl.in_smem >> r) & 1 ? dsm : scratch) + pl.off[r];
+
+  Row<SW>* buf[3];
+  buf[0] = (Row<SW>*)base[R_FRONT];
+  buf[1] = buf[0] + F;
+  buf[2] = buf[1] + F;
+  u64* vdet = (u64*)(buf[2] + F);
+  u64* vcr = vdet + F;
+  Row<SW>* succ = (Row<SW>*)base[R_SUCC];
+  Hash hs;
+  hs.head = (int*)base[R_HASH];
+  hs.chain = hs.head + pl.tmax;
+  hs.link = hs.chain + pl.tmax;
+  hs.slot = hs.link + SCAP;
+
+  const bool tables_smem = (pl.in_smem >> R_TABLES) & 1;
+  Tables t = tg;
+  if (tables_smem) {
+    const int nd = d.n_det_pad, nc = d.NC;
+    int* s = (int*)base[R_TABLES];
+    int* sfx = s + 5 * nd;
+    int* cr = sfx + nd + 4;
+    t = Tables{s, s + nd, s + 2 * nd, s + 3 * nd, s + 4 * nd, sfx,
+               cr, cr + nc, cr + 2 * nc, cr + 3 * nc};
+    if (tid == 0) {
+      // ten bulk copies on one mbarrier: the five det tables, sfx's first
+      // n_det_pad entries (its last one is not a multiple of 16 bytes
+      // and goes by a plain load) and the four crash tables
+      u32 det_b = (u32)nd * 4u, cr_b = (u32)nc * 4u;
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(&tma_bar)),
+                   "r"(1u)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(&tma_bar)),
+          "r"(6u * det_b + 4u * cr_b)
+          : "memory");
+      const int* src[10] = {tg.det_f,   tg.det_v1,   tg.det_v2, tg.det_inv,
+                            tg.det_ret, tg.sfx,      tg.crash_f,
+                            tg.crash_v1, tg.crash_v2, tg.crash_inv};
+      const int* dst[10] = {t.det_f,   t.det_v1,   t.det_v2, t.det_inv,
+                            t.det_ret, t.sfx,      t.crash_f,
+                            t.crash_v1, t.crash_v2, t.crash_inv};
+#pragma unroll
+      for (int k = 0; k < 10; ++k)
+        bulk_g2s((void*)dst[k], src[k], k < 6 ? det_b : cr_b, &tma_bar);
+      sfx[nd] = tg.sfx[nd];
     }
   }
-  int lane = tid & 31, warp = tid >> 5;
-  unsigned b = __ballot_sync(FULL, kept);
-  if (lane == 0) sh.wsum[warp] = __popc(b);
-  __syncthreads();
-  int before = 0, tot = 0;
-  for (int w = 0; w < NWARPS; ++w) {
-    if (w < warp) before += sh.wsum[w];
-    tot += sh.wsum[w];
-  }
-  int rank = before + __popc(b & ((1u << lane) - 1u));
-  if (kept && rank < d.F) sh.nxt[rank] = row_at(sh, closure, d.F, tid);
-  int prog = __syncthreads_or(kept && tid >= d.F);
-  if (progress) *progress = prog;
-  return tot;
-}
 
-__device__ __forceinline__ Row zero_row() {
-  Row z;
-  z.win = z.cr = 0ull;
-  z.p = 0;
-  z.st[0] = z.st[1] = z.st[2] = z.st[3] = 0;
-  return z;
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-level_loop_kernel(Tables t, Dims d, const int* __restrict__ fin,
-                  const int* __restrict__ scal_in, int* __restrict__ fout,
-                  int* __restrict__ scal_out) {
-  __shared__ Shared sh;
-  int tid = threadIdx.x;
-  const int F = d.F, WORDS = 1 + d.WW + d.CW + d.SW, SCAP = 4 * d.F;
-  for (int r = tid; r < F; r += NTHREADS) {
-    const int* w = fin + r * WORDS;
-    Row R;
+  // the carry, while the tables are in flight
+  int count = scal_in[0];
+  int status = scal_in[1];
+  int configs = scal_in[2];
+  int md = scal_in[3];
+  bool ovf = scal_in[4] != 0;
+  count = min(count, F);
+  for (int r = tid; r < count; r += nt) {
+    const int* w = fin + (size_t)r * WORDS;
+    Row<SW> R;
     R.p = w[0];
     R.win = (u64)(unsigned)w[1];
-    if (d.WW == 2) R.win |= (u64)(unsigned)w[2] << 32;
-    const int* cw = w + 1 + d.WW;
+    if (WW == 2) R.win |= (u64)(unsigned)w[2] << 32;
+    const int* cw = w + 1 + WW;
     R.cr = (u64)(unsigned)cw[0];
-    if (d.CW == 2) R.cr |= (u64)(unsigned)cw[1] << 32;
-    for (int s = 0; s < 4; ++s) R.st[s] = s < d.SW ? cw[d.CW + s] : 0;
-    sh.cur[r] = R;
+    if (CW == 2) R.cr |= (u64)(unsigned)cw[1] << 32;
+#pragma unroll
+    for (int s = 0; s < SW; ++s) R.st[s] = cw[CW + s];
+    buf[0][r] = R;
   }
-  if (tid == 0) {
-    sh.count = scal_in[0];
-    sh.status = scal_in[1];
-    sh.configs = scal_in[2];
-    sh.md = scal_in[3];
-    sh.ovf = scal_in[4] != 0;
-    sh.run = sh.status == -1 && sh.count > 0 && sh.configs < d.budget &&
-             !(d.bail && sh.ovf);
-  }
+  for (int s = tid; s < pl.tmax; s += nt) hs.head[s] = hs.chain[s] = -1;
+  if (tid == 0) maxp[0] = maxp[1] = 0;
   __syncthreads();
-
-  for (int lvl = 0; lvl < d.lvl_cap && sh.run; ++lvl) {
-    for (int r = tid; r < F; r += NTHREADS) sh.snap[r] = sh.cur[r];
-    if (tid == 0) {
-      sh.cnt0 = sh.count;
-      sh.cfg0 = sh.configs;
-      sh.md0 = sh.md;
-      sh.ovf0 = sh.ovf;
-      sh.found = 0;
-      sh.maxp = 0;
+  if (tables_smem) {
+    u32 done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_addr(&tma_bar)), "r"(0u)
+          : "memory");
     }
-    __syncthreads();
-    mask_phase(sh, t, d);
+  }
+
+  int c = 0;    // the current frontier buffer
+  int ph = 0;   // scan buffer parity
+  int mph = 0;  // maxp parity
+  int any;
+  for (int lvl = 0; lvl < d.lvl_cap; ++lvl) {
+    if (!(status == -1 && count > 0 && configs < d.budget &&
+          !(d.bail && ovf)))
+      break;
+    // level entry: buffer e is not written during the level, so the
+    // snapshot for a bail revert is (e, the entry scalars)
+    const int e = c, cnt0 = count, cfg0 = configs, md0 = md;
+    const bool ovf0 = ovf;
+    bool found = false, crash = false;
+    mask_phase<SW>(buf[c], count, vdet, vcr, t, d, found, crash);
+    bool go = __syncthreads_or(crash);
+    // every thread is past the last level's read of maxp[mph ^ 1]
+    if (tid == 0) maxp[mph ^ 1] = 0;
 
     // crash closure: at most n_crash + 1 rounds while successors survive
-    int go = __syncthreads_or(tid < F && sh.vcr[tid] != 0ull);
-    for (int round = 0; go && round < d.n_crash + 1; ++round) {
-      int total = build_succ(sh, t, d, false, F);
-      int progress;
-      int nk = prune_compact(sh, d, true, 2 * F, min(total, F), &progress);
-      Row z = zero_row();
-      for (int r = tid; r < F; r += NTHREADS) sh.cur[r] = r < nk ? sh.nxt[r] : z;
-      if (tid == 0) {
-        if (total > F || nk > F) sh.ovf = 1;
-        sh.count = min(nk, F);
+    bool progress = false;
+    int rounds = 0;
+    while (go) {
+      int total = build_succ<SW>(buf[c], count, vcr, false, succ, F, t, d,
+                                 wsum[ph], nullptr);
+      ph ^= 1;
+      if (total > F) ovf = true;
+      int ns = min(total, F);
+      int o = other_buf(e, c);
+      int tsize = max(32, 1 << (32 - __clz(2 * (count + ns) - 1)));
+      int nk = prune_compact<SW>(buf[c], count, succ, count + ns, buf[o], F,
+                                 hs, tsize, wsum[ph], true, false, &any);
+      ph ^= 1;
+      progress = any;
+      if (nk > F) ovf = true;
+      count = min(nk, F);
+      c = o;
+      crash = false;
+      mask_phase<SW>(buf[c], count, vdet, vcr, t, d, found, crash);
+      bool crash_any = __syncthreads_or(crash);
+      ++rounds;
+      go = rounds < d.n_crash + 1 && progress;
+      if (go && !crash_any) {
+        // the next round would merge an empty successor block into an
+        // already pruned frontier: it keeps every row and ends with no
+        // progress, so take its outcome without running it
+        progress = false;
+        go = false;
       }
-      __syncthreads();
-      mask_phase(sh, t, d);
-      go = progress;
     }
     // leaving by the round cap while still adding rows: not proven
     // closed, which degrades like an overflow
-    if (tid == 0 && go) sh.ovf = 1;
+    if (progress) ovf = true;
 
     // determinate successors into the next level
-    int total = build_succ(sh, t, d, true, SCAP);
-    int nk = prune_compact(sh, d, false, SCAP, min(total, SCAP), nullptr);
-    if (tid < sh.count) atomicMax(&sh.maxp, sh.cur[tid].p);
-    __syncthreads();
-    if (tid == 0) {
-      if (total > SCAP || nk > F) sh.ovf = 1;
-      sh.configs += sh.count;
-      sh.md = max(sh.md, sh.maxp);
-      if (sh.found) sh.status = 2;
-      // uncommit an overflowing level when a wider re-run is coming and
-      // no goal was found
-      sh.revert = d.bail && sh.ovf && !sh.ovf0 && !sh.found;
-      if (sh.revert) {
-        sh.count = sh.cnt0;
-        sh.configs = sh.cfg0;
-        sh.md = sh.md0;
-      } else {
-        sh.count = min(nk, F);
-      }
-      sh.run = sh.status == -1 && sh.count > 0 && sh.configs < d.budget &&
-               !(d.bail && sh.ovf);
+    int total = build_succ<SW>(buf[c], count, vdet, true, succ, SCAP, t, d,
+                               wsum[ph], &maxp[mph]);
+    ph ^= 1;
+    if (total > SCAP) ovf = true;
+    int ns = min(total, SCAP);
+    int o = other_buf(e, c);
+    int tsize = max(32, 1 << (32 - __clz(2 * max(ns, 1) - 1)));
+    int nk = prune_compact<SW>(succ, ns, nullptr, ns, buf[o], F, hs, tsize,
+                               wsum[ph], false, found, &any);
+    ph ^= 1;
+    found = any;
+    if (nk > F) ovf = true;
+    configs += count;
+    md = max(md, maxp[mph]);
+    mph ^= 1;
+    if (found) status = 2;
+    // uncommit an overflowing level when a wider re-run is coming and no
+    // goal was found
+    if (d.bail && ovf && !ovf0 && !found) {
+      count = cnt0;
+      configs = cfg0;
+      md = md0;
+      c = e;
+    } else {
+      count = min(nk, F);
+      c = o;
     }
-    __syncthreads();
-    Row z = zero_row();
-    for (int r = tid; r < F; r += NTHREADS)
-      sh.cur[r] = sh.revert ? sh.snap[r] : (r < nk ? sh.nxt[r] : z);
-    __syncthreads();
   }
 
-  for (int r = tid; r < F; r += NTHREADS) {
-    const Row& R = sh.cur[r];
-    int* w = fout + r * WORDS;
-    w[0] = R.p;
-    w[1] = (int)(unsigned)(R.win & 0xffffffffull);
-    if (d.WW == 2) w[2] = (int)(unsigned)(R.win >> 32);
-    int* cw = w + 1 + d.WW;
-    cw[0] = (int)(unsigned)(R.cr & 0xffffffffull);
-    if (d.CW == 2) cw[1] = (int)(unsigned)(R.cr >> 32);
-    for (int s = 0; s < d.SW; ++s) cw[d.CW + s] = R.st[s];
+  const Row<SW>* cur = buf[c];
+  for (int r = tid; r < F; r += nt) {
+    int* w = fout + (size_t)r * WORDS;
+    int* cw = w + 1 + WW;
+    if (r < count) {
+      const Row<SW> R = cur[r];
+      w[0] = R.p;
+      w[1] = (int)(unsigned)(R.win & 0xffffffffull);
+      if (WW == 2) w[2] = (int)(unsigned)(R.win >> 32);
+      cw[0] = (int)(unsigned)(R.cr & 0xffffffffull);
+      if (CW == 2) cw[1] = (int)(unsigned)(R.cr >> 32);
+#pragma unroll
+      for (int s = 0; s < SW; ++s) cw[CW + s] = R.st[s];
+    } else {
+      for (int k = 0; k < WORDS; ++k) w[k] = 0;
+    }
   }
   if (tid == 0) {
-    scal_out[0] = sh.count;
-    scal_out[1] = sh.status;
-    scal_out[2] = sh.configs;
-    scal_out[3] = sh.md;
-    scal_out[4] = sh.ovf;
+    scal_out[0] = count;
+    scal_out[1] = status;
+    scal_out[2] = configs;
+    scal_out[3] = md;
+    scal_out[4] = ovf;
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+static long long round16(long long x) { return (x + 15) & ~15ll; }
+
+static int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+static bool dims_ok(int F, int W, int NC, int SW, int n_det_pad) {
+  return F >= 1 && F <= MAXF && (W == 32 || W == 64) &&
+         (NC == 32 || NC == 64) && SW >= 1 && SW <= 4 && n_det_pad >= 16 &&
+         n_det_pad % 4 == 0;
+}
+
+template <int SW>
+static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, level_loop_kernel<SW>);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, optin = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long rb = (long long)sizeof(Row<SW>);
+  pl->tmax = next_pow2(8 * F < 32 ? 32 : 8 * F);
+  long long size[N_REGIONS] = {
+      round16(3 * F * rb) + round16(16ll * F),
+      6ll * 4 * n_det_pad + 16 + 4ll * 4 * NC,
+      round16(4 * F * rb),
+      round16(4ll * (2ll * pl->tmax + 8ll * F)),
+  };
+  long long room = (long long)optin - (long long)attr.sharedSizeBytes;
+  long long smem = 0, scratch = 0;
+  pl->in_smem = 0;
+  for (int r = 0; r < N_REGIONS; ++r) {
+    if (smem + size[r] <= room) {
+      pl->in_smem |= 1 << r;
+      pl->off[r] = smem;
+      smem += size[r];
+    } else {
+      pl->off[r] = scratch;
+      scratch += size[r];
+    }
+  }
+  pl->smem_bytes = (int)smem;
+  pl->scratch_bytes = scratch;
+  int threads = (2 * F + 31) / 32 * 32;
+  pl->threads = threads < 256 ? 256 : (threads > MAXT ? MAXT : threads);
+  return 0;
+}
+
+static int plan_for(int F, int NC, int SW, int n_det_pad, Plan* pl) {
+  switch (SW) {
+    case 1: return plan_sw<1>(F, NC, n_det_pad, pl);
+    case 2: return plan_sw<2>(F, NC, n_det_pad, pl);
+    case 3: return plan_sw<3>(F, NC, n_det_pad, pl);
+    default: return plan_sw<4>(F, NC, n_det_pad, pl);
+  }
+}
+
+template <int SW>
+static int launch_sw(const Tables& t, const Dims& d, const Plan& pl,
+                     const int* fin, const int* scal_in, int* fout,
+                     int* scal_out, unsigned char* scratch,
+                     cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      level_loop_kernel<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pl.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  level_loop_kernel<SW><<<1, pl.threads, pl.smem_bytes, stream>>>(
+      t, d, pl, fin, scal_in, fout, scal_out, scratch);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Launch one slice on `stream`.  Returns cudaGetLastError() after the
-// launch (0 on success); does not synchronise.
+// The launch plan for these dims on the current device: out[0] dynamic
+// shared bytes, out[1] the regions in shared memory (bit 0 frontier,
+// 1 tables, 2 successor block, 3 hash table), out[2] threads, out[3]
+// scratch bytes the caller must allocate.  Returns a CUDA error code.
+int jtt_level_loop_plan(int F, int W, int NC, int SW, int n_det_pad,
+                        long long* out) {
+  if (!dims_ok(F, W, NC, SW, n_det_pad)) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
+  if (rc) return rc;
+  out[0] = pl.smem_bytes;
+  out[1] = pl.in_smem;
+  out[2] = pl.threads;
+  out[3] = pl.scratch_bytes;
+  return 0;
+}
+
+// Launch one slice on `stream`.  Every table pointer must be 16-byte
+// aligned (the bulk copies need it) and `scratch` must hold the plan's
+// scratch bytes.  Returns cudaGetLastError() after the launch (0 on
+// success); does not synchronise.
 int jtt_level_loop(const int* det_f, const int* det_v1, const int* det_v2,
                    const int* det_inv, const int* det_ret, const int* sfx,
                    const int* crash_f, const int* crash_v1,
                    const int* crash_v2, const int* crash_inv,
                    const int* frontier_in, const int* scal_in,
-                   int* frontier_out, int* scal_out, int F, int W, int NC,
-                   int SW, int n_det, int n_crash, int budget, int lvl_cap,
-                   int bail, int kid, void* stream) {
-  if (F < 1 || F > MAXF || W < 32 || W > 64 || W % 32 || NC < 32 ||
-      NC > 64 || NC % 32 || SW < 1 || SW > 4)
+                   int* frontier_out, int* scal_out, void* scratch,
+                   long long scratch_bytes, int F, int W, int NC, int SW,
+                   int n_det_pad, int n_det, int n_crash, int budget,
+                   int lvl_cap, int bail, int kid, void* stream) {
+  if (!dims_ok(F, W, NC, SW, n_det_pad) || n_det < 0 ||
+      n_det > n_det_pad || n_crash < 0 || n_crash > NC)
     return (int)cudaErrorInvalidValue;
   Tables t = {det_f, det_v1, det_v2, det_inv, det_ret, sfx,
               crash_f, crash_v1, crash_v2, crash_inv};
-  Dims d = {F, W, NC, SW, W / 32, NC / 32,
-            n_det, n_crash, budget, lvl_cap, bail, kid};
-  level_loop_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(
-      t, d, frontier_in, scal_in, frontier_out, scal_out);
-  return (int)cudaGetLastError();
+  const int* ptrs[10] = {det_f,   det_v1,   det_v2,   det_inv,  det_ret,
+                         sfx,     crash_f,  crash_v1, crash_v2, crash_inv};
+  for (int k = 0; k < 10; ++k)
+    if ((uintptr_t)ptrs[k] % 16) return (int)cudaErrorMisalignedAddress;
+  Plan pl;
+  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
+  if (rc) return rc;
+  if (scratch_bytes < pl.scratch_bytes) return (int)cudaErrorInvalidValue;
+  Dims d = {F, W, NC, n_det_pad, n_det, n_crash, budget, lvl_cap, bail, kid};
+  unsigned char* s = (unsigned char*)scratch;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (SW) {
+    case 1: return launch_sw<1>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
+    case 2: return launch_sw<2>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
+    case 3: return launch_sw<3>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
+    default: return launch_sw<4>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
+  }
 }
 
 const char* jtt_error_string(int code) {

@@ -13,6 +13,7 @@ import torch
 
 from jepsen_tpu_torch.checker import encode as enc
 from jepsen_tpu_torch.checker import level_kernel as lk
+from jepsen_tpu_torch.checker import linearizable as lin
 from jepsen_tpu_torch.checker import step
 from jepsen_tpu_torch.checker.linearizable import search_opseq
 from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
@@ -28,34 +29,57 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,bail", [(1, False), (2, False), (21, True)])
-def test_kernel_matches_reference(cuda, seed, bail):
-    model = cas_register()
-    rng = random.Random(seed)
-    h = register_history(rng, n_ops=64, n_procs=8 if bail else 4,
-                         overlap=7 if bail else 3, crash_p=0.06,
-                         max_crashes=3, n_values=2 if bail else 3)
-    if seed % 2:
-        h = corrupt_read(rng, h, at=0.85)
-    seq = encode_ops(h, model.f_codes)
+def _lockstep(model, seq, frontier, bail, device, *, slices=8, lvl_cap=8):
+    """Kernel and plain version from the root, slice by slice: the live
+    rows and the five scalars must be identical."""
     es = enc.encode_search(seq)
-    dims = enc.choose_dims(es, model, device=cuda, frontier=16)
+    dims = enc.choose_dims(es, model, device=device, frontier=frontier)
     esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
-    args = enc.search_args(esp, es, device=cuda)
-    ck = cr = enc.carry_to_device(enc._init_carry(dims, model), cuda)
-    for _ in range(8):
+    args = enc.search_args(esp, es, device=device)
+    ck = cr = enc.carry_to_device(enc._init_carry(dims, model), device)
+    for _ in range(slices):
         before = lk.LAUNCHES
-        ck = lk.level_loop(model, dims, *args, 10**8, 8, bail, *ck)
+        ck = lk.level_loop(model, dims, *args, 10**8, lvl_cap, bail, *ck)
         assert lk.LAUNCHES == before + 1
-        cr = lk.level_loop_reference(model, dims, *args, 10**8, 8, bail,
-                                     *cr)
+        cr = lk.level_loop_reference(model, dims, *args, 10**8, lvl_cap,
+                                     bail, *cr)
         torch.cuda.synchronize()
         n = int(cr[1])
         assert [int(v) for v in ck[1:]] == [int(v) for v in cr[1:]]
         assert torch.equal(ck[0][:n], cr[0][:n])
         if int(cr[2]) != -1 or n == 0 or (bail and bool(cr[5])):
             break
+    return dims
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier", [16, 128, 512])
+@pytest.mark.parametrize("seed,bail", [(1, False), (2, False), (21, True)])
+def test_kernel_matches_reference(cuda, seed, bail, frontier):
+    model = cas_register()
+    rng = random.Random(seed)
+    wide = frontier > 16
+    h = register_history(rng, n_ops=200 if wide else 64,
+                         n_procs=12 if wide else (8 if bail else 4),
+                         overlap=10 if wide else (7 if bail else 3),
+                         crash_p=0.06, max_crashes=6 if wide else 3,
+                         n_values=2 if bail else 3)
+    if seed % 2:
+        h = corrupt_read(rng, h, at=0.85)
+    _lockstep(model, encode_ops(h, model.f_codes), frontier, bail, cuda)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_device_tables_when_they_do_not_fit(cuda):
+    """A history whose tables (n_det_pad 16384) exceed shared memory: the
+    kernel takes its device-memory table path, still bit-identical."""
+    model = mutex()
+    h = sim_mutex_history(random.Random(7), n_ops=9000, n_procs=6,
+                          crash_p=0.001, max_crashes=3)
+    seq = encode_ops(h, model.f_codes)
+    dims = _lockstep(model, seq, 64, False, cuda, slices=3)
+    assert dims.n_det_pad == 16384
+    assert lk.launch_plan(dims, cuda)["tables"] == "device"
 
 
 @pytest.mark.cuda
@@ -77,3 +101,24 @@ def test_search_runs_the_kernel_and_matches_the_host(cuda, monkeypatch):
     for k in ("valid", "configs", "max_depth", "window"):
         assert on_card[k] == on_host[k], k
     assert on_card["valid"] is False
+
+
+@pytest.mark.cuda
+def test_1k_tier_search_runs_only_the_kernel(cuda, monkeypatch):
+    """The 1k bench tier at its real size: every slice of the search, on
+    every rung the ladder takes, runs the CUDA level loop."""
+    from chip_smoke import REFERENCE, tier_history
+
+    routes = []
+    use_kernel = lin._use_kernel
+
+    def traced(model, dims, device):
+        routes.append((dims.frontier, use_kernel(model, dims, device)))
+        return routes[-1][1]
+
+    monkeypatch.setattr(lin, "_use_kernel", traced)
+    seq, model = tier_history("1k")
+    out = search_opseq(seq, model, device="cuda")
+    assert routes and all(k for _f, k in routes), routes
+    assert (out["valid"], out["configs"], out["max_depth"]) == \
+        REFERENCE["1k"]

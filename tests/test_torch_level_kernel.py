@@ -21,6 +21,7 @@ from jepsen_tpu.synth import (corrupt_read, register_history,
 from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch.checker import encode as enc
 from jepsen_tpu_torch.checker import level_kernel as lk
+from jepsen_tpu_torch.checker import step as tstep
 from jepsen_tpu_torch.checker.linearizable import linearizable, search_opseq
 from jepsen_tpu_torch.history import encode_ops as t_encode_ops
 from jepsen_tpu_torch.synth import register_history as t_register_history
@@ -135,14 +136,58 @@ def test_wrapper_takes_plain_path_for_cpu_tensors():
     assert [int(v) for v in again[1:]] == [int(v) for v in ref[1:]]
 
 
-def test_eligibility_bounds():
+_BASE_DIMS = dict(n_det_pad=64, n_crash_pad=32, window=64, k=16,
+                  state_width=1, frontier=64)
+
+
+@pytest.mark.parametrize("frontier,ok", [(16, True), (64, True),
+                                         (128, True), (512, True),
+                                         (2048, True), (4096, False)])
+def test_eligibility_bounds(frontier, ok):
+    """The kernel takes every rung where the card's torch step prunes
+    all-pairs at both of its sites (2F and 4F rows), and no other."""
     model = tm.cas_register()
-    base = dict(n_det_pad=64, n_crash_pad=32, window=64, k=16,
-                state_width=1, frontier=64)
-    assert lk.eligible(model, enc.SearchDims(**base))
-    for key, val in (("frontier", 128), ("window", 96),
-                     ("n_crash_pad", 96), ("state_width", 5)):
-        assert not lk.eligible(model, enc.SearchDims(**{**base, key: val}))
+    dims = enc.SearchDims(**{**_BASE_DIMS, "frontier": frontier})
+    assert lk.eligible(model, dims) is ok
+    cuda = torch.device("cuda")
+    assert ok == (tstep._use_allpairs(2 * frontier, cuda)
+                  and tstep._use_allpairs(4 * frontier, cuda))
+
+
+def test_kernel_source_takes_the_eligible_range():
+    """The C entry point's own frontier bound (MAXF in level_loop.cu)
+    is the widest rung :func:`eligible` takes on the width grid."""
+    import re
+    from pathlib import Path
+
+    src = (Path(lk.__file__).resolve().parents[1] / "csrc"
+           / "level_loop.cu").read_text()
+    maxf = int(re.search(r"^#define MAXF (\d+)", src, re.M).group(1))
+    model = tm.cas_register()
+    widths = [16 << i for i in range(10)]
+    took = [f for f in widths
+            if lk.eligible(model, enc.SearchDims(**{**_BASE_DIMS,
+                                                   "frontier": f}))]
+    assert max(took) == maxf
+
+
+@pytest.mark.parametrize("key,val", [("window", 96), ("n_crash_pad", 96),
+                                     ("state_width", 5)])
+def test_eligibility_refuses_wide_masks(key, val):
+    model = tm.cas_register()
+    assert not lk.eligible(model,
+                           enc.SearchDims(**{**_BASE_DIMS, key: val}))
+
+
+@pytest.mark.parametrize("mode", ["allpairs", "sort"])
+def test_eligibility_follows_the_default_prune_mode(monkeypatch, mode):
+    """A test that pins the step's prune mode does not move the kernel's
+    range: eligibility is a function of the model and the dims only."""
+    model = tm.cas_register()
+    monkeypatch.setattr(tstep, "_DOMINANCE_MODE", mode)
+    for frontier, ok in ((64, True), (2048, True), (4096, False)):
+        dims = enc.SearchDims(**{**_BASE_DIMS, "frontier": frontier})
+        assert lk.eligible(model, dims) is ok
 
 
 def test_cuda_without_card_raises(monkeypatch):

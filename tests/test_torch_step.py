@@ -95,6 +95,23 @@ def test_step_lockstep_overflow_under_bail(mode):
     assert ovf
 
 
+@pytest.mark.parametrize("bail", [True, False])
+@pytest.mark.parametrize("frontier", [128, 256])
+def test_step_lockstep_wide_allpairs(frontier, bail):
+    """The rungs the CUDA level loop took over from the torch step: the
+    port's step pinned to all-pairs (the kernel's oracle) against the JAX
+    package's step, on a 12-process cas-register history with crashes
+    whose frontier fills hundreds of rows."""
+    rng = random.Random(31)
+    h = register_history(rng, n_ops=200, n_procs=12, overlap=10,
+                         crash_p=0.06, max_crashes=6, n_values=3)
+    h = corrupt_read(rng, h, at=0.85)
+    count, status, _configs, _depth, ovf = _lockstep(
+        jm.cas_register(), tm.cas_register(), h, frontier=frontier,
+        bail=bail, mode="allpairs", slices=6)
+    assert ovf and status == -1 and count > 0
+
+
 def test_prune_selection_follows_device():
     import torch
 
