@@ -7,16 +7,24 @@ Builds the CUDA level-loop kernel from ``jepsen_tpu_torch/csrc`` with
 nvcc and holds it against its plain torch version slice by slice on the
 card (F=16 to 512 from the root, a history whose tables only fit in
 device memory).  Then checks the two bench-tier histories ("1k": 1000-op
-cas-register, "mutex2k": 1999-op mutex with crashed ops) through
-``linearizable(..., algorithm="device", device="cuda")``, requiring both
-invalid with the reference's configs and depth and every slice of both
-searches on the kernel; holds the kernel against its plain version again
-from carries the 1k search reached at F=512 and F=2048; and times both at
-every shape the main path uses.  Every phase prints one line; the line
-before the last is the per-kernel JSON record and the last line the
-device record.  Any failed phase exits nonzero.  Exits nonzero without a
-result when no CUDA device is present or the package is not beside this
-script.
+cas-register, "mutex2k": 1999-op mutex with crashed ops) down two main
+paths: the default entry point ``linearizable(model, device="cuda")``
+(the competition race of the two host engines against the device
+search, the host confirmation, the failure report) and
+``algorithm="device"`` (the device search, its host confirmation).
+Both must be invalid, the kernel must have launched on each path, and
+the device search's configs and depth must be the reference's wherever
+it finished.  Beside them, the device search alone before the race
+(cold) and after (warm, every slice on the kernel), and the race again
+with a shorter switch interval; then the kernel against its plain version
+again from carries the 1k search reached at F=512 and F=2048; the
+default entry point on three more histories (valid but not decided by
+the greedy witness, past the device encoding, BASELINE config 1 with
+its shrink); and the kernel timed at every shape the main path uses.
+Every phase prints one line per case; the line before the last is the
+per-kernel JSON record and the last line the device record.  Any failed
+phase exits nonzero.  Exits nonzero without a result when no CUDA device
+is present or the package is not beside this script.
 
 The script imports torch, numpy and the port only.
 """
@@ -24,9 +32,11 @@ The script imports torch, numpy and the port only.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,6 +57,10 @@ REFERENCE = {"1k": (False, 97218, 975), "mutex2k": (False, 15863, 1971)}
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 OPS_PER_LANE = 8
+
+#: the interpreter's switch interval in the control race: a tenth of
+#: the 5 ms default, so a thread that wants the GIL back waits less
+CONTROL_SWITCH_S = 0.0005
 
 
 class SmokeFailure(Exception):
@@ -143,6 +157,39 @@ def big_mutex_history():
     h = sim_mutex_history(random.Random(7), n_ops=9000, n_procs=6,
                           crash_p=0.001, max_crashes=3)
     return encode_ops(h, m.f_codes), m
+
+
+def extra_histories():
+    """(label, OpSeq, model, want) for the default entry point beyond the
+    tiers: a 997-op cas-register history the greedy witness cannot
+    decide (a crashed write took effect), valid; a 470-op register
+    history with 70 crashed ops (past the device encoding), invalid; and
+    BASELINE config 1, an etcd cas-register history of 183 ops (10
+    processes, 5 values, crashed ops, one corrupted read), invalid."""
+    from jepsen_tpu_torch.history import encode_ops
+    from jepsen_tpu_torch.models import cas_register, register
+    from jepsen_tpu_torch.synth import (corrupt_read,
+                                        crash_heavy_register_history,
+                                        register_history)
+
+    out = []
+    m = cas_register()
+    h = register_history(random.Random("valid-26"), n_ops=1350, n_procs=32,
+                         overlap=8, crash_p=0.002, max_crashes=8,
+                         n_values=4)
+    out.append(("valid-1k", encode_ops(h, m.f_codes), m, True))
+    m = register(0)
+    h = crash_heavy_register_history(
+        random.Random("past-encoding"), n_ops=400, n_procs=8, overlap=6,
+        n_values=4, n_crash=70, corrupt=True)
+    out.append(("past-encoding", encode_ops(h, m.f_codes), m, False))
+    m = cas_register()
+    rng = random.Random("baseline-1")
+    h = register_history(rng, n_ops=270, n_procs=10, overlap=10,
+                         crash_p=0.02, max_crashes=8, n_values=5)
+    h = corrupt_read(rng, h, at=0.8)
+    out.append(("baseline-1", encode_ops(h, m.f_codes), m, False))
+    return out
 
 
 def lockstep_cases():
@@ -464,54 +511,230 @@ def _traced_search(seq, model):
         lin.get_kernel = get_kernel
 
 
-def phase_main_path():
-    """Both tiers through the checker entry point on the card (the
-    counted main path), then the device search alone for its own wall
-    time, final frontier width and per-rung trace (not counted), which
-    must have run every slice on the kernel."""
-    from jepsen_tpu_torch.checker import level_kernel as lk
-    from jepsen_tpu_torch.checker.linearizable import linearizable
+class _Spy:
+    """Wraps functions of the port for one run: per name, the seconds
+    spent in them, their calls and their last result."""
 
-    results = {}
+    def __init__(self, *targets):
+        self.targets = targets  # (owner, attribute name) pairs
+        self.seconds: dict = {}
+        self.calls: dict = {}
+        self.last: dict = {}
+        self._saved: list = []
+
+    def _wrap(self, name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+                self.calls[name] = self.calls.get(name, 0) + 1
+            self.last[name] = out
+            return out
+        return run
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _default_route(label, seq, model, store_base, *, algorithm="auto",
+                   path="auto"):
+    """One history through ``linearizable(model, device="cuda")`` with
+    ``algorithm``, its stages timed; the kernel launch count is set to 0
+    just before and read just after.  ``path`` names the run in its
+    ``main[...]`` line.  Returns (result, stats)."""
+    from jepsen_tpu_torch.analyze import shrink
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linear_report
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    spy = _Spy((lin, "check_competition"), (lin, "search_opseq"),
+               (lin.Linearizable, "_render_failure"),
+               (shrink, "shrink_invalid"),
+               (linear_report, "write_linear_html"))
+    test = {"name": label, "store_base": store_base}
+    with spy:
+        lk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = lin.linearizable(model, algorithm=algorithm,
+                               device="cuda").check(test, seq)
+        wall = time.perf_counter() - t0
+        launches = lk.LAUNCHES
+    sec = spy.seconds
+    st = {"wall": wall, "launches": launches,
+          "race_s": sec.get("check_competition", 0.0),
+          "device_leg_s": sec.get("search_opseq"),
+          "device_leg": spy.last.get("search_opseq"),
+          "render_s": sec.get("_render_failure", 0.0),
+          "shrink_s": sec.get("shrink_invalid"),
+          "report_s": sec.get("write_linear_html")}
+    # what the entry spent outside the search or race and the report:
+    # the host confirmation of a device or WGL verdict
+    st["confirm_s"] = wall - st["race_s"] - st["render_s"]
+    if algorithm == "device":
+        st["confirm_s"] -= st["device_leg_s"] or 0.0
+    dev = st["device_leg"]
+    sh = out.get("shrink")
+    print(f"main[{path}] {label}: ops={len(seq)} valid={out['valid']} "
+          f"engine={out['engine']} "
+          f"device_configs={out.get('device_configs')} "
+          f"wall_s={wall:.3f} race_s={st['race_s']:.3f} "
+          f"device_leg_s="
+          + ("skipped" if dev is None else f"{st['device_leg_s']:.3f}")
+          + " device_leg="
+          + ("-" if dev is None else
+             f"{dev['engine']}:{dev['valid']}/{dev['configs']}/"
+             f"{dev['max_depth']} ("
+             f"{_us_per_level(st['device_leg_s'], dev)} us/level)")
+          + f" confirm_s={st['confirm_s']:.3f} render_s={st['render_s']:.3f}"
+          f" shrink=" + ("-" if sh is None else
+                         f"{sh['n_from']}->{sh['n_to']} in "
+                         f"{st['shrink_s']:.3f} s ({sh['checks']} checks, "
+                         f"minimal={sh['minimal']}, "
+                         f"brute_force={sh['brute_force']})")
+          + " report_s=" + ("-" if st["report_s"] is None
+                            else f"{st['report_s']:.4f}")
+          + f" report_file={out.get('report_file')} launches={launches}",
+          flush=True)
+    if out["valid"] is False:
+        report = out.get("report_file")
+        check(report and os.path.isfile(report),
+              f"{label}: invalid verdict wrote no linear.html")
+        with open(report) as fh:
+            check("Linearizability failure" in fh.read(),
+                  f"{label}: {report} is not a failure report")
+    if dev is not None and dev["engine"].startswith("device-bfs"):
+        check(launches > 0, f"{label}: the device leg ran and the kernel "
+              "never launched")
+        check("cuda" in dev["engine"],
+              f"{label}: device leg's engine label lacks the cuda tag")
+    return out, st
+
+
+def _us_per_level(seconds, res) -> str:
+    """Microseconds of wall per level the search reached."""
+    return f"{seconds / max(1, res['max_depth']) * 1e6:.1f}"
+
+
+def _check_search(name, what, res, want):
+    check((res["valid"], res["configs"], res["max_depth"]) == want,
+          f"{name}: {what} gave {res['valid']}, {res['configs']} configs, "
+          f"depth {res['max_depth']}; the JAX package gives {want}")
+
+
+def _check_race(name, out, st, want):
+    """The race's verdict, and the device leg's where it finished."""
+    dev = st["device_leg"]
+    check(out["valid"] is False, f"{name}: verdict {out['valid']}, "
+          "want False")
+    check(dev is not None and st["launches"] > 0,
+          f"{name}: the device leg never ran the kernel")
+    if dev["valid"] != "unknown":
+        _check_search(name, "the device leg", dev, want)
+    if out["engine"].startswith("competition(device)"):
+        check(out.get("device_configs") == want[1],
+              f"{name}: device_configs {out.get('device_configs')}, "
+              f"want {want[1]}")
+
+
+def phase_main_path(store_base):
+    """Both tiers down the two counted main paths on the card, each run
+    with the launch count set to 0 just before it and read just after:
+    the default entry point (the competition race, then the host
+    confirmation of a device or WGL win) and ``algorithm="device"`` (the
+    device search, then the host confirmation of its verdict).  Around
+    them, not counted: the device search alone before the race, the
+    tier's first search in the process (cold); the race again with the
+    interpreter's switch interval cut to :data:`CONTROL_SWITCH_S`, a
+    control for the device leg's wait on the GIL; and the device search
+    alone after them (warm) with its per-rung trace, which must have run
+    every slice on the kernel."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    launches = {"auto": {}, "device": {}}
     captured = {}
     for name, _, _ in TIERS:
         seq, model = tier_history(name)
-        lk.LAUNCHES = 0  # counts only this tier's main-path launches
+        want = REFERENCE[name]
         t0 = time.perf_counter()
-        out = linearizable(model, algorithm="device",
-                           device="cuda").check({}, seq)
-        wall = time.perf_counter() - t0
-        launches = lk.LAUNCHES
-        results[name] = (out, launches)
-        print(f"main {name}: ops={len(seq)} valid={out['valid']} "
-              f"configs={out['configs']} "
-              f"device_configs={out.get('device_configs')} "
-              f"max_depth={out['max_depth']} engine={out['engine']} "
-              f"wall_s={wall:.3f} launches={launches}", flush=True)
-        check(out["valid"] is False, f"{name}: verdict {out['valid']}, "
-              "want False")
+        cold = lin.search_opseq(seq, model, device="cuda")
+        cold_s = time.perf_counter() - t0
+        _check_search(name, "the device search (cold)", cold, want)
+
+        out, st = _default_route(name, seq, model, store_base)
+        launches["auto"][name] = st["launches"]
+        _check_race(name, out, st, want)
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(CONTROL_SWITCH_S)
+        try:
+            out_c, st_c = _default_route(
+                name, seq, model, store_base,
+                path=f"auto,switch={CONTROL_SWITCH_S * 1e3:g}ms")
+        finally:
+            sys.setswitchinterval(interval)
+        _check_race(name, out_c, st_c, want)
+
+        out, st_d = _default_route(name, seq, model, store_base,
+                                   algorithm="device", path="device")
+        launches["device"][name] = st_d["launches"]
+        check(out["valid"] is False, f"{name}: algorithm='device' gave "
+              f"{out['valid']}, want False")
+        check(out["engine"] == "device-bfs(cuda)+host-witness",
+              f"{name}: algorithm='device' engine {out['engine']}, want "
+              "the host-confirmed device verdict")
+        check(out.get("device_configs") == want[1],
+              f"{name}: device_configs {out.get('device_configs')}, "
+              f"want {want[1]}")
+        check(st_d["launches"] > 0,
+              f"{name}: algorithm='device' never launched the kernel")
+        _check_search(name, "the device search", st_d["device_leg"], want)
+
         t0 = time.perf_counter()
         dev, slices, captured[name] = _traced_search(seq, model)
         wall = time.perf_counter() - t0
         print(f"search {name}: valid={dev['valid']} "
               f"configs={dev['configs']} max_depth={dev['max_depth']} "
               f"engine={dev['engine']} frontier={dev['frontier']} "
-              f"window={dev['window']} wall_s={wall:.3f}", flush=True)
+              f"window={dev['window']} wall_s={wall:.3f} "
+              f"({_us_per_level(wall, dev)} us/level); cold, before the "
+              f"race: {cold_s:.3f} s ({_us_per_level(cold_s, cold)} "
+              f"us/level)", flush=True)
         print(f"slices {name}: " + "; ".join(
             f"{route} F={f}: {n} slices, depth +{d}, configs +{c}, "
             f"{t:.3f} s" for (route, f), (n, d, c, t) in slices.items()),
             flush=True)
-        want = REFERENCE[name]
-        check((dev["valid"], dev["configs"], dev["max_depth"]) == want,
-              f"{name}: device search gave {dev['valid']}, "
-              f"{dev['configs']} configs, depth {dev['max_depth']}; the "
-              f"JAX package gives {want}")
+        _check_search(name, "the device search (warm)", dev, want)
         off = sorted(f for route, f in slices if route != "cuda")
         check(not off, f"{name}: slices at F={off} ran the torch step")
-        check(results[name][1] > 0, f"{name}: the kernel never launched")
-        check("cuda" in results[name][0]["engine"],
+        check("cuda" in dev["engine"],
               f"{name}: engine label lacks the cuda tag")
-    return results, captured
+    return launches, captured
+
+
+def phase_default_route(store_base):
+    """The default entry point on histories beyond the tiers, each with
+    its expected verdict; past the device encoding the host legs must
+    decide alone."""
+    for label, seq, model, want in extra_histories():
+        out, st = _default_route(label, seq, model, store_base)
+        check(out["valid"] is want,
+              f"{label}: verdict {out['valid']}, want {want}")
+        if label == "past-encoding":
+            check(out["engine"].endswith("+device-skipped(encoding limits)")
+                  and st["device_leg"] is None,
+                  f"{label}: engine {out['engine']}, want the host legs "
+                  "alone")
 
 
 def main() -> int:
@@ -549,8 +772,10 @@ def main() -> int:
         print(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}",
               flush=True)
         worst = phase_lockstep(device)
-        results, captured = phase_main_path()
-        worst = max(worst, phase_lockstep_captured(captured))
+        with tempfile.TemporaryDirectory() as store_base:
+            launches, captured = phase_main_path(store_base)
+            worst = max(worst, phase_lockstep_captured(captured))
+            phase_default_route(store_base)
         shapes = phase_timing(device, captured)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -561,8 +786,9 @@ def main() -> int:
         "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/level_loop.cu",
         "replaces": "jepsen_tpu/checker/pallas_level.py:132",
-        "launches": sum(v[1] for v in results.values()),
-        "launches_by_tier": {k: v[1] for k, v in results.items()},
+        "launches": sum(n for by_tier in launches.values()
+                        for n in by_tier.values()),
+        "launches_by_path": launches,
         "max_abs_err": max([worst] + [t["max_abs_err"] for t in shapes]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

@@ -1,0 +1,294 @@
+"""The ``linear`` host engine: a memoized, dominance-pruned level sweep.
+
+The exact host checker beside the WGL oracle (``seq.py``), for the
+histories that make a depth-first search expensive:
+
+* **Compact configurations.**  The device search's (prefix, window
+  bitmask) encoding of the linearized determinate set (``encode.py``),
+  so set operations are small-int operations whatever the history's
+  length.
+* **Per-(p, window) frames.**  Which determinate ops may linearize next,
+  and the least outstanding return that gates crashed ops, depend only
+  on (p, win); the scan runs once per distinct (p, win) and serves every
+  state and crash set.
+* **Crash-set dominance.**  Crashed (:info) ops never block others and
+  never have to linearize, so of two configurations with the same
+  (p, win, state) the one with the smaller linearized-crash set covers
+  the other; each (p, win, state) keeps an antichain of minimal crash
+  masks.
+* **Level-synchronous sweep.**  Depth is the number of determinate ops
+  linearized; crashed ops linearize inside a level (the crash closure).
+  Dedup never crosses levels, so memory follows the widest level.
+
+Exact like the WGL oracle: "unknown" only past ``max_configs``, a
+``deadline`` or ``cancel``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..history import OpSeq
+from .encode import INF32, encode_search
+
+#: the parent-table bound for callers that want a witness (the
+#: user-facing ``linear`` route and the competition leg); past it the
+#: witness is dropped with a stated reason and the verdict is unaffected
+DEFAULT_WITNESS_CAP = 2_000_000
+
+_NOT_PORTED = "not ported yet (ROADMAP queue {item})"
+
+
+def _refuse(flag, name: str, item: str = "A7") -> None:
+    """The passes and options of later queue items accept only off."""
+    if flag:
+        raise NotImplementedError(
+            f"{name}={flag!r}: {_NOT_PORTED.format(item=item)}")
+
+
+def _advance(p: int, win: int, bit: int, n_det: int):
+    """Set ``bit`` (window-relative) in ``win``, then slide the prefix
+    over the run of low set bits.  Returns ``(p', win')``."""
+    win |= 1 << bit
+    t = ((~win) & (win + 1)).bit_length() - 1  # trailing ones
+    return p + t, win >> t
+
+
+class _Frame:
+    """Per-(p, win) expansion data, independent of state and crash set."""
+
+    __slots__ = ("det", "crash", "goal")
+
+    def __init__(self, det, crash, goal):
+        self.det = det      # [(window bit, f, v1, v2)]
+        self.crash = crash  # [(crash index, f, v1, v2)]
+        self.goal = goal    # every determinate op linearized
+
+
+def check_opseq_linear(seq: OpSeq, model, *,
+                       max_configs: int = 50_000_000,
+                       deadline: float | None = None,
+                       cancel=None,
+                       witness_cap: int = 0,
+                       checkpoint_path: str | None = None,
+                       resume_from: str | None = None,
+                       decompose: bool = False,
+                       lint: bool | None = None,
+                       audit: bool | None = None,
+                       hb: bool | None = None,
+                       dpor: bool | None = None) -> dict:
+    """Exact linearizability check.  Returns ``{"valid": True|False|
+    "unknown", "configs", "max_depth", ...}``; an invalid verdict carries
+    ``final_ops``, the candidate rows of (up to ten) configurations of
+    the deepest level, where the sweep died.
+
+    With ``witness_cap`` > 0 a valid verdict carries its
+    ``linearization`` (rows in order) while the parent table stays under
+    the cap; otherwise it carries ``witness_dropped``, the reason.  Off
+    by default: verdict-only callers keep the level-local memory.
+
+    ``deadline`` (``time.perf_counter()`` clock) and ``cancel`` (a
+    ``threading.Event``) are tested every 1024 steps and give "unknown"
+    with ``info`` "exceeded deadline" or "cancelled".
+
+    ``lint``, ``audit``, ``hb``, ``dpor`` and ``decompose`` take None or
+    False (off), ``checkpoint_path`` and ``resume_from`` None."""
+    for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
+                       (dpor, "dpor")):
+        _refuse(flag, name)
+    _refuse(decompose, "decompose", "A8")
+    _refuse(checkpoint_path, "checkpoint_path", "A3")
+    _refuse(resume_from, "resume_from", "A3")
+
+    es = encode_search(seq)
+    n_det, n_crash, W = es.n_det, es.n_crash, es.window
+    if n_det == 0 and n_crash == 0:
+        return {"valid": True, "configs": 0, "max_depth": 0,
+                "linearization": []}
+
+    det_inv = [int(x) for x in es.det_inv]
+    det_ret = [int(x) for x in es.det_ret]
+    det_f = [int(x) for x in es.det_f]
+    det_v1 = [int(x) for x in es.det_v1]
+    det_v2 = [int(x) for x in es.det_v2]
+    sfx = [int(x) for x in es.suffix_min_ret]  # len n_det + 1
+    crash_inv = [int(x) for x in es.crash_inv]
+    crash_f = [int(x) for x in es.crash_f]
+    crash_v1 = [int(x) for x in es.crash_v1]
+    crash_v2 = [int(x) for x in es.crash_v2]
+    ok = np.asarray(seq.ok, dtype=bool)
+    det_rows = np.nonzero(ok)[0]
+    crash_rows = np.nonzero(~ok)[0]
+
+    pystep = model.pystep
+    INF = int(INF32)
+
+    frames: dict[tuple, _Frame] = {}
+
+    def frame(p: int, win: int) -> _Frame:
+        fr = frames.get((p, win))
+        if fr is not None:
+            return fr
+        if len(frames) > 2_000_000:
+            frames.clear()  # cap the memo; frames are cheap to rebuild
+        # returns of the unlinearized determinate ops in [p, p+W)
+        hi = min(p + W, n_det)
+        w_ret = [INF if (win >> (j - p)) & 1 else det_ret[j]
+                 for j in range(p, hi)]
+        tail = sfx[hi] if hi < len(sfx) else INF
+        # least and second-least return over w_ret and the tail
+        m1 = tail
+        m2 = INF + 1
+        m1_at = -1
+        for i, r in enumerate(w_ret):
+            if r < m1:
+                m2 = m1
+                m1 = r
+                m1_at = i
+            elif r < m2:
+                m2 = r
+        det_cands = []
+        for i in range(hi - p):
+            if (win >> i) & 1:
+                continue
+            j = p + i
+            excl = m2 if i == m1_at else m1
+            if det_inv[j] < excl:
+                det_cands.append((i, det_f[j], det_v1[j], det_v2[j]))
+        crash_cands = [(c, crash_f[c], crash_v1[c], crash_v2[c])
+                       for c in range(n_crash) if crash_inv[c] < m1]
+        fr = _Frame(det_cands, crash_cands,
+                    p + bin(win).count("1") >= n_det)
+        frames[(p, win)] = fr
+        return fr
+
+    # level: {(p, win, state): [antichain of minimal crash masks]}
+    root = ((0, 0, model.init), 0)
+    level: dict[tuple, list[int]] = {root[0]: [0]}
+    configs = 0
+    depth = 0
+    t_check = 0
+    #: why a valid verdict will carry no witness (None: witness live)
+    witness_drop = None if witness_cap else \
+        "witness tracking disabled (witness_cap=0)"
+    # (key, cmask) -> (op row, parent (key, cmask)); None once capped
+    parents: dict | None = {root: None} if witness_cap else None
+
+    def remember(child_key, child_cm, op_row, par_key, par_cm):
+        nonlocal parents, witness_drop
+        if parents is None:
+            return
+        if len(parents) >= witness_cap:
+            parents = None  # witness off; the verdict is unaffected
+            witness_drop = (f"parent table exceeded "
+                            f"witness_cap={witness_cap}")
+            return
+        parents.setdefault((child_key, child_cm),
+                           (op_row, (par_key, par_cm)))
+
+    def walk(key, cm):
+        if parents is None:
+            return None
+        lin: list[int] = []
+        node = (key, cm)
+        while node != root:
+            # a live table is whole: every kept configuration was
+            # remembered, and the cap drops the table entirely
+            op_row, node = parents[node]
+            lin.append(op_row)
+        lin.reverse()
+        return lin
+
+    def over_budget() -> str | None:
+        nonlocal t_check
+        t_check += 1
+        if configs > max_configs:
+            return f"exceeded max_configs={max_configs}"
+        if t_check % 1024 == 0:
+            if deadline is not None and time.perf_counter() > deadline:
+                return "exceeded deadline"
+            if cancel is not None and cancel.is_set():
+                return "cancelled"
+        return None
+
+    def insert(d: dict, key: tuple, cmask: int) -> bool:
+        """Dominance-pruned insert; True if the configuration was kept."""
+        ac = d.get(key)
+        if ac is None:
+            d[key] = [cmask]
+            return True
+        for cm in ac:
+            if cm & cmask == cm:  # cm is a subset of cmask: dominated
+                return False
+        d[key] = [cm for cm in ac if cm & cmask != cmask] + [cmask]
+        return True
+
+    while True:
+        # crash closure within the level (depth unchanged)
+        work = [(k, cm) for k, ac in level.items() for cm in ac]
+        while work:
+            why = over_budget()
+            if why:
+                return {"valid": "unknown", "configs": configs,
+                        "max_depth": depth, "info": why}
+            (p, win, state), cmask = work.pop()
+            for c, f, v1, v2 in frame(p, win).crash:
+                if (cmask >> c) & 1:
+                    continue
+                ns = pystep(state, f, v1, v2)
+                if ns is None:
+                    continue
+                configs += 1
+                nk = (p, win, ns)
+                ncm = cmask | (1 << c)
+                if insert(level, nk, ncm):
+                    remember(nk, ncm, int(crash_rows[c]), (p, win, state),
+                             cmask)
+                    work.append((nk, ncm))
+
+        # goal test
+        for (p, win, s), ac in level.items():
+            if frame(p, win).goal:
+                out = {"valid": True, "configs": configs,
+                       "max_depth": depth}
+                lin = walk((p, win, s), ac[0])
+                if lin is not None:
+                    out["linearization"] = lin
+                else:
+                    out["witness_dropped"] = witness_drop
+                return out
+
+        # expand determinate candidates into the next level
+        nxt: dict[tuple, list[int]] = {}
+        for (p, win, state), ac in level.items():
+            for i, f, v1, v2 in frame(p, win).det:
+                ns = pystep(state, f, v1, v2)
+                if ns is None:
+                    continue
+                nk = (*_advance(p, win, i, n_det), ns)
+                for cmask in ac:
+                    configs += 1
+                    if insert(nxt, nk, cmask):
+                        remember(nk, cmask, int(det_rows[p + i]),
+                                 (p, win, state), cmask)
+            why = over_budget()
+            if why:
+                return {"valid": "unknown", "configs": configs,
+                        "max_depth": depth, "info": why}
+        if not nxt:
+            # the sweep died: report the blocked candidates
+            final_ops: list[int] = []
+            seen = set()
+            for (p, win, _s) in list(level)[:10]:
+                fr = frame(p, win)
+                for r in ([int(det_rows[p + i]) for i, *_ in fr.det]
+                          + [int(crash_rows[c]) for c, *_ in fr.crash]):
+                    if r not in seen:
+                        seen.add(r)
+                        final_ops.append(r)
+            return {"valid": False, "configs": configs, "max_depth": depth,
+                    "final_ops": sorted(final_ops)}
+        level = nxt
+        depth += 1

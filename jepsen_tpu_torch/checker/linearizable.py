@@ -11,20 +11,25 @@ resumes 4x wider from it; a frontier that stays narrow truncates one
 rung down.  Narrow rungs of the four elementwise models run the fused
 CUDA level loop (``level_kernel.py``); the rest run the torch step.
 
-An overflow at the widest rung or an exhausted budget reports
-"unknown", never a wrong verdict.  :class:`Linearizable`
-confirms invalid device verdicts on the host oracle (``seq.py``) over
-the shortest sound prefix, which also yields a certificate.
+An overflow at the widest rung, an exhausted budget, a passed deadline
+or a stop request reports "unknown", never a wrong verdict.  Histories
+past the device encoding go to the host ``linear`` sweep (``linear.py``).
 
-Not in this module yet: the ``linear`` host sweep and the
-``competition`` race (histories past the device encoding limits, and
-``algorithm="auto"`` above ``host_threshold``), the history lint, the
-happens-before and DPOR reductions, certificate audit, decomposition,
-failure reports and checkpoints.
+:func:`check_competition` races the two exact host engines against the
+device search, the default route of :class:`Linearizable` above
+``host_threshold`` ops.  :class:`Linearizable` confirms invalid device
+verdicts on the host oracle (``seq.py``) over the shortest sound
+prefix, which also yields a certificate, and reports every invalid
+verdict in ``linear.html`` (``linear_report.py``), led by its shrunk
+core (``analyze/shrink.py``).
+
+Not in this module yet: the history lint, the happens-before and DPOR
+reductions, certificate audit, decomposition and checkpoints.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -36,6 +41,7 @@ from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, SearchDims,
                      _grid_width, _init_carry, _widen_carry,
                      carry_to_device, choose_dims, encode_search,
                      pad_search, search_args)
+from .linear import DEFAULT_WITNESS_CAP, _refuse, check_opseq_linear
 from .step import build_search_step_fn
 
 #: statuses
@@ -48,7 +54,9 @@ _SLICE_LEVELS0 = 32
 _SLICE_TARGET_S = 2.0
 _SLICE_MAX = 16384
 
-_NOT_PORTED = "not ported yet (ROADMAP queue A{item})"
+#: configurations each host leg of the race may visit, before the
+#: memory cap of :func:`check_competition`
+COMPETITION_MAX_CONFIGS = 50_000_000
 
 
 def _resolve_device(device) -> torch.device:
@@ -61,13 +69,6 @@ def _resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the host")
     return dev
-
-
-def _refuse(flag: bool | None, name: str) -> None:
-    """The reductions and passes of later slices accept only off."""
-    if flag:
-        raise NotImplementedError(
-            f"{name}=True: {_NOT_PORTED.format(item=7)}")
 
 
 def _adapt_lvl_cap(lvl_cap: int, dt: float,
@@ -109,13 +110,16 @@ def get_kernel(model, dims: SearchDims, device: torch.device):
     return fn
 
 
-def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device):
+def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
+                deadline: float | None = None, stop=None):
     """Drive the sliced search to completion with an adaptive width.
 
     Escalation climbs two grid steps (4x) from the level that
     overflowed (the slice uncommits it under ``bail``); the downshift
     settles one step at a time, after two consecutive slices fit the
-    lower rung.
+    lower rung.  ``deadline`` (``time.perf_counter()`` clock) and
+    ``stop`` (a ``threading.Event``) are tested after every slice and
+    end the search as "unknown".
 
     Returns (status, configs, max_depth, dims, used_kernel): status is
     final (-1 never escapes), dims carries the final width, and
@@ -127,6 +131,7 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device):
     first = True
     low_streak = 0  # consecutive slices whose live width fit a lower rung
     used_kernel = False
+    timed_out = False
     while True:
         bail = F < MAX_FRONTIER
         used_kernel = used_kernel or _use_kernel(model, dims, device)
@@ -139,6 +144,12 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device):
         configs = int(carry[3])
         ovf = bool(carry[5])
         if status != -1 or count <= 0 or configs >= budget:
+            break
+        if deadline is not None and time.perf_counter() > deadline:
+            timed_out = True
+            break
+        if stop is not None and stop.is_set():
+            timed_out = True
             break
         if bail and ovf:
             # the carry is the last clean state: resume 4x wider from it
@@ -173,8 +184,8 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device):
                 first = True
     if status == -1:
         # died out with no goal: invalid unless it ever overflowed;
-        # budget exhausted: unknown
-        status = UNKNOWN if count > 0 or ovf else INVALID
+        # budget exhausted, deadline passed or stopped: unknown
+        status = UNKNOWN if timed_out or count > 0 or ovf else INVALID
     return status, configs, int(carry[4]), dims, used_kernel
 
 
@@ -217,15 +228,22 @@ def _engine_label(used_kernel: bool) -> str:
 
 def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                  dims: SearchDims | None = None, device="cuda",
+                 deadline: float | None = None, stop=None,
                  lint: bool | None = None, audit: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None) -> dict:
     """Check one columnar history on ``device``.  Returns
     ``{"valid": True|False|"unknown", "configs", "max_depth", "engine",
     "frontier", "window", "concurrency"}`` plus certificate fields:
     greedy and trivial verdicts carry their ``linearization``, device
-    verdicts ``witness_dropped``/``frontier_dropped`` reasons.
+    verdicts ``witness_dropped``/``frontier_dropped`` reasons.  A
+    history past the device encoding (``MAX_WINDOW``, ``MAX_CRASH``)
+    is checked by the host ``linear`` sweep, engine
+    "host-linear(fallback)".
 
-    ``lint``, ``audit``, ``hb`` and ``dpor`` take None or False (off)."""
+    ``deadline`` (``time.perf_counter()`` clock) and ``stop`` (a
+    ``threading.Event``, how the competition race retires the device
+    leg) end the search as "unknown" between slices.  ``lint``,
+    ``audit``, ``hb`` and ``dpor`` take None or False (off)."""
     for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
                        (dpor, "dpor")):
         _refuse(flag, name)
@@ -239,14 +257,15 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                 "engine": "greedy-witness",
                 "linearization": greedy_linearization(seq)}
     if es.window > MAX_WINDOW or es.n_crash > MAX_CRASH:
-        raise NotImplementedError(
-            f"window {es.window} / {es.n_crash} crashed ops exceed the "
-            f"device encoding; the host `linear` sweep is "
-            f"{_NOT_PORTED.format(item=5)}")
+        # the linear sweep has no window or crash caps, and dominates the
+        # WGL search on the crash-heavy histories that land here
+        out = check_opseq_linear(seq, model, deadline=deadline, cancel=stop)
+        out["engine"] = "host-linear(fallback)"
+        return out
     dims = dims or choose_dims(es, model, device=dev)
     esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
     status, configs, max_depth, dims, used_kernel = _run_kernel(
-        esp, es, model, dims, budget, dev)
+        esp, es, model, dims, budget, dev, deadline=deadline, stop=stop)
     out = {"valid": _STATUS[status], "configs": configs,
            "max_depth": max_depth, "engine": _engine_label(used_kernel),
            "frontier": dims.frontier, "window": es.window,
@@ -256,6 +275,115 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
     elif out["valid"] is False:
         out["frontier_dropped"] = FRONTIER_DROPPED_DEVICE
     return out
+
+
+def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
+                      device="cuda",
+                      lint: bool | None = None, audit: bool | None = None,
+                      hb: bool | None = None,
+                      dpor: bool | None = None) -> dict:
+    """Race the two exact host engines against the device search; the
+    first conclusive verdict wins and retires the losers (knossos'
+    ``competition``).  The WGL DFS (``seq.py``) can dive straight to a
+    witness on a well-behaved history, the ``linear`` sweep decides
+    crash-heavy histories, the device search sweeps wide state spaces.
+
+    The host legs run in daemon threads and lose quietly when they
+    raise; the device leg runs in the calling thread, and its exception
+    (a kernel that fails to build or launch) retires the host legs and
+    propagates: they never win in its place.  ``device`` is resolved
+    before any host leg starts.  Past the device encoding the host legs
+    decide alone.  The winner's certificate comes with its verdict.
+
+    ``lint``, ``audit``, ``hb`` and ``dpor`` take None or False (off)."""
+    from . import seq as seqmod
+
+    for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
+                       (dpor, "dpor")):
+        _refuse(flag, name)
+    dev = _resolve_device(device)
+
+    # the WGL DFS memoizes each configuration twice (visited and
+    # parents) as a (bigint set, state) pair: cap it to about 4 GB, so a
+    # loser thread cannot eat the host while the device works
+    per_cfg = 2 * (len(seq) // 8 + 200)
+    max_configs = min(COMPETITION_MAX_CONFIGS, 4_000_000_000 // per_cfg)
+
+    done = threading.Event()
+    lock = threading.Lock()
+    result: dict = {}
+
+    def submit(r: dict, engine: str) -> bool:
+        """Claim the race for a conclusive verdict."""
+        if r.get("valid") == "unknown":
+            return False
+        with lock:
+            if result:
+                return False
+            result.update(r)
+            result["engine"] = engine
+            done.set()
+            return True
+
+    def wgl_leg():
+        try:
+            r = seqmod.check_opseq(seq, model, max_configs=max_configs,
+                                   cancel=done)
+        except Exception:  # noqa: BLE001 — a loser's error must not win
+            return
+        submit(r, "competition(host-wgl)")
+
+    def linear_leg():
+        try:
+            r = check_opseq_linear(seq, model, max_configs=max_configs,
+                                   cancel=done,
+                                   witness_cap=DEFAULT_WITNESS_CAP)
+        except Exception:  # noqa: BLE001
+            return
+        submit(r, "competition(host-linear)")
+
+    threads = [threading.Thread(target=wgl_leg, daemon=True,
+                                name="competition-host-wgl"),
+               threading.Thread(target=linear_leg, daemon=True,
+                                name="competition-host-linear")]
+    for t in threads:
+        t.start()
+
+    es = encode_search(seq)
+    if es.window > MAX_WINDOW or es.n_crash > MAX_CRASH:
+        # the device leg would fall back to the host sweep itself
+        for t in threads:
+            t.join()
+        with lock:
+            if result:
+                out = dict(result)
+                out["engine"] += "+device-skipped(encoding limits)"
+                return out
+        return {"valid": "unknown", "configs": 0,
+                "engine": "competition(exhausted; device encoding limits)"}
+
+    try:
+        dev_out = search_opseq(seq, model, budget=budget, device=dev,
+                               stop=done)
+    except BaseException:
+        done.set()
+        for t in threads:
+            t.join(timeout=5.0)
+        raise
+    submit(dev_out, "competition(device)")
+    if not result:
+        # the device leg gave up: the race ends when the hosts' own
+        # bounded searches end too
+        for t in threads:
+            t.join()
+    else:
+        done.set()  # retire the losers
+        for t in threads:
+            t.join(timeout=5.0)
+    with lock:
+        if result:
+            return dict(result)
+    return {**dev_out, "engine": "competition(exhausted)"}
 
 
 def truncate_to_failure(seq: OpSeq, depth: int, window: int
@@ -286,21 +414,32 @@ def truncate_to_failure(seq: OpSeq, depth: int, window: int
 
 
 class Linearizable:
-    """Linearizability checker backed by the device search.
+    """Linearizability checker: the knossos ``linearizable`` checker.
 
-    ``algorithm``: ``device``/``tpu`` (the device search, with invalid
-    verdicts confirmed on the host oracle over the shortest sound
-    prefix up to ``witness_threshold`` ops), ``host``/``wgl`` (the host
-    WGL oracle), ``auto`` (the host oracle up to ``host_threshold`` ops;
-    above it the competition race, not ported yet).  ``model`` may be
-    given here or ride in ``test["model"]``.  ``device`` follows the
-    package rule: "cuda" by default, "cpu" only when asked for."""
+    ``algorithm``: ``auto`` (the default: the host WGL oracle up to
+    ``host_threshold`` ops, above it :func:`check_competition`),
+    ``competition``, ``device``/``tpu`` (the device search alone),
+    ``linear`` (the host sweep, with a witness) or ``host``/``wgl`` (the
+    host WGL oracle).  An invalid verdict of the device search or of the
+    WGL leg of the race is confirmed on the host oracle over the
+    shortest sound prefix, up to ``witness_threshold`` ops.  Every
+    invalid verdict is reported in ``linear.html`` under the test's
+    store directory (``report_file``), led by its delta-debugged core
+    (``shrink``; histories up to :attr:`SHRINK_MAX_OPS` rows;
+    ``shrink=False`` turns it off).  ``model`` may be given here or ride
+    in ``test["model"]``.  ``device`` follows the package rule: "cuda"
+    by default, "cpu" only when asked for."""
 
     name = "linearizable"
 
     ALGORITHMS = {"auto": "auto", "device": "device", "tpu": "device",
                   "linear": "linear", "host": "host", "wgl": "host",
                   "competition": "competition"}
+
+    #: delta-debug failure reports only up to this many rows: each probe
+    #: is a bounded re-search, and a report should not cost more than
+    #: its verdict
+    SHRINK_MAX_OPS = 400
 
     def __init__(self, model=None, *, budget: int = 20_000_000,
                  host_threshold: int = 48, witness_threshold: int = 3000,
@@ -310,9 +449,10 @@ class Linearizable:
                  hb: bool | None = None, dpor: bool | None = None,
                  device="cuda"):
         for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
-                           (dpor, "dpor"), (decompose, "decompose"),
-                           (explain, "explain"), (shrink, "shrink")):
+                           (dpor, "dpor")):
             _refuse(flag, name)
+        _refuse(decompose, "decompose", "A8")
+        _refuse(explain, "explain", "A12")
         try:
             self.algorithm = self.ALGORITHMS[algorithm]
         except KeyError:
@@ -322,6 +462,7 @@ class Linearizable:
         self.budget = budget
         self.host_threshold = host_threshold
         self.witness_threshold = witness_threshold
+        self.shrink = shrink
         self.device = device
 
     def check(self, test, history, opts=None):
@@ -330,24 +471,38 @@ class Linearizable:
             raise ValueError("linearizable checker needs a model")
         seq = history if isinstance(history, OpSeq) else \
             encode_ops(history, model.f_codes)
-        return self._check_direct(seq, model)
+        return self._check_direct(test, seq, model, opts)
 
-    def _check_direct(self, seq: OpSeq, model) -> dict:
+    def _check_direct(self, test, seq: OpSeq, model, opts) -> dict:
         from . import seq as seqmod
 
         if self.algorithm == "host" or (self.algorithm == "auto"
                                         and len(seq) <= self.host_threshold):
             out = seqmod.check_opseq(seq, model)
             out["engine"] = "host-oracle"
+            if out["valid"] is False:
+                self._render_failure(test, seq, out, opts, model)
             return out
-        if self.algorithm != "device":
-            raise NotImplementedError(
-                f"algorithm {self.algorithm!r} on {len(seq)} ops: the "
-                f"host `linear` sweep and the competition race are "
-                f"{_NOT_PORTED.format(item=5)}")
-        out = search_opseq(seq, model, budget=self.budget,
-                           device=self.device)
+        if self.algorithm == "linear":
+            out = check_opseq_linear(seq, model,
+                                     witness_cap=DEFAULT_WITNESS_CAP)
+            out["engine"] = "host-linear"
+            if out["valid"] is False:
+                self._render_failure(test, seq, out, opts, model)
+            return out
+        if self.algorithm in ("auto", "competition"):
+            out = check_competition(seq, model, budget=self.budget,
+                                    device=self.device)
+        else:
+            out = search_opseq(seq, model, budget=self.budget,
+                               device=self.device)
         if out["valid"] is False:
+            eng = out.get("engine", "")
+            if "host-oracle" in eng or "host-linear" in eng:
+                # an exact host engine decided, with its frontier:
+                # confirming would repeat the same search
+                self._render_failure(test, seq, out, opts, model)
+                return out
             # exact confirmation + witness on the shortest sound prefix
             # covering the failure region
             target = truncate_to_failure(seq, out.get("max_depth", 0),
@@ -360,8 +515,33 @@ class Linearizable:
                     confirm["engine"] = out["engine"] + "+host-witness"
                     confirm["device_configs"] = out["configs"]
                     confirm["witness_prefix_ops"] = len(target)
+                    self._render_failure(test, target, confirm, opts,
+                                         model)
                     return confirm
+                # the prefix came back valid: the obstruction lies past
+                # the cut, and the full verdict stands
         return out
+
+    def _render_failure(self, test, seq: OpSeq, result: dict, opts,
+                        model) -> None:
+        """Shrink an invalid verdict and write its linear.html; reporting
+        never changes the verdict."""
+        from . import linear_report
+
+        if (result.get("shrink") is None and 0 < len(seq)
+                <= self.SHRINK_MAX_OPS
+                and (self.shrink is None or self.shrink)):
+            from ..analyze.shrink import shrink_invalid, shrink_summary
+
+            try:
+                result["shrink"] = shrink_summary(
+                    seq, shrink_invalid(seq, model))
+            except Exception:  # noqa: BLE001 — reporting only
+                pass
+        path = linear_report.write_linear_html(test or {}, seq, result,
+                                               opts)
+        if path is not None:
+            result["report_file"] = path
 
     def __call__(self, test, history, opts=None):
         return self.check(test, history, opts)

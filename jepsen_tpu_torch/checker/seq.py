@@ -8,11 +8,14 @@ iff a configuration holding every ok op is reachable; crashed (:info) ops
 never block and may linearize any time after invocation, or never.
 
 DFS with a visited memo on (linearized-set bitmask, state).  Used for
-short histories and to confirm invalid device verdicts with a
-certificate.  ``max_configs`` bounds the work ("unknown" past it).
+short histories, as a leg of the competition race, and to confirm
+invalid device verdicts with a certificate.  ``max_configs``,
+``deadline`` and ``cancel`` bound the work ("unknown" past them).
 """
 
 from __future__ import annotations
+
+import time
 
 from ..history import INF_RET, OpSeq
 
@@ -31,12 +34,19 @@ def _walk_parents(parent_of: dict, key) -> list[int]:
 
 
 def check_opseq(seq: OpSeq, model, *,
-                max_configs: int = 5_000_000) -> dict:
+                max_configs: int = 5_000_000,
+                deadline: float | None = None,
+                cancel=None) -> dict:
     """Search a columnar history.  Returns ``valid`` (True, False or
     "unknown"), ``configs`` explored and ``max_depth``; a valid verdict
     carries its ``linearization`` (rows in order), an invalid one the
     candidate rows at the deepest frontier (``final_ops``) and up to ten
-    deepest partial linearizations (``final_paths``)."""
+    deepest partial linearizations (``final_paths``).
+
+    ``deadline`` (``time.perf_counter()`` clock) and ``cancel`` (a
+    ``threading.Event``, how the competition race retires a loser) are
+    tested every 4096 configs and give "unknown" with ``info``
+    "exceeded deadline" or "cancelled"."""
     n = len(seq)
     if n == 0:
         return {"valid": True, "configs": 0, "linearization": [],
@@ -72,6 +82,13 @@ def check_opseq(seq: OpSeq, model, *,
             return {"valid": "unknown", "configs": configs,
                     "max_depth": max_depth,
                     "info": f"exceeded max_configs={max_configs}"}
+        if configs % 4096 == 0:
+            if deadline is not None and time.perf_counter() > deadline:
+                return {"valid": "unknown", "configs": configs,
+                        "max_depth": max_depth, "info": "exceeded deadline"}
+            if cancel is not None and cancel.is_set():
+                return {"valid": "unknown", "configs": configs,
+                        "max_depth": max_depth, "info": "cancelled"}
         if (mask & ok_mask) == ok_mask:
             lin = _walk_parents(parent_of, key)
             return {"valid": True, "configs": configs,

@@ -44,6 +44,17 @@ class Op:
     index: int | None = None
     error: Any = None
 
+    def to_dict(self) -> dict:
+        d = {"process": self.process, "type": self.type, "f": self.f,
+             "value": self.value}
+        if self.time is not None:
+            d["time"] = self.time
+        if self.index is not None:
+            d["index"] = self.index
+        if self.error is not None:
+            d["error"] = self.error
+        return d
+
 
 def invoke_op(process, f, value=None, **kw) -> Op:
     return Op(process=process, type=INVOKE, f=f, value=value, **kw)

@@ -88,6 +88,29 @@ def register_history(rng: random.Random, *, n_ops: int, n_procs: int,
     return h
 
 
+def crash_heavy_register_history(rng: random.Random, *, n_ops: int,
+                                 n_procs: int, overlap: int, n_values: int,
+                                 n_crash: int, n_writes: int = 4,
+                                 corrupt: bool = False) -> list[Op]:
+    """A write/read register history (:func:`register_history`,
+    optionally with a corrupted read at 0.7 of the way through) with
+    ``n_crash`` crashed ops inserted at seeded places, each from a
+    process of its own numbered from 100: the first ``n_writes`` are
+    writes, the rest reads.  Far more crashed ops than a real run makes,
+    so it lies past the device encoding's crash limit."""
+    h = register_history(rng, n_ops=n_ops, n_procs=n_procs,
+                         overlap=overlap, n_values=n_values, cas=False)
+    if corrupt:
+        h = corrupt_read(rng, h, at=0.7)
+    for i in range(n_crash):
+        pos = rng.randrange(len(h) + 1)
+        f, v = (("write", rng.randrange(n_values)) if i < n_writes
+                else ("read", None))
+        h = h[:pos] + [invoke_op(100 + i, f, v),
+                       info_op(100 + i, f, v)] + h[pos:]
+    return h
+
+
 def swap_read_values(rng: random.Random, h: list[Op], *,
                      min_gap: int | None = None) -> list[Op]:
     """Swap the values of two ok reads of different values at least
