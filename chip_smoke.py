@@ -7,21 +7,26 @@ Builds the CUDA level-loop kernel from ``jepsen_tpu_torch/csrc`` with
 nvcc and holds it against its plain torch version slice by slice on the
 card (F=16 to 512 from the root, a history whose tables only fit in
 device memory).  Then checks the two bench-tier histories ("1k": 1000-op
-cas-register, "mutex2k": 1999-op mutex with crashed ops) down two main
-paths: the default entry point ``linearizable(model, device="cuda")``
-(the competition race of the two host engines against the device
-search, the host confirmation, the failure report) and
-``algorithm="device"`` (the device search, its host confirmation).
-Both must be invalid, the kernel must have launched on each path, and
-the device search's configs and depth must be the reference's wherever
-it finished.  Beside them, the device search alone before the race
-(cold) and after (warm, every slice on the kernel), and the race again
-with a shorter switch interval; then the kernel against its plain version
-again from carries the 1k search reached at F=512 and F=2048; the
-default entry point on three more histories (valid but not decided by
-the greedy witness, past the device encoding, BASELINE config 1 with
-its shrink); and the kernel timed at every shape the main path uses.
-Every phase prints one line per case; the line before the last is the
+cas-register, "mutex2k": 1999-op mutex with crashed ops) down three
+counted paths: the default entry point ``linearizable(model,
+device="cuda")`` with its defaults (the lint, the static prepass, DPOR;
+the competition race of the two host engines against the device search,
+the host confirmation, the failure report), ``algorithm="device"`` with
+the defaults, and ``algorithm="device"`` with the prepass and DPOR off.
+mutex2k is decided by the prepass with no search; 1k's device search
+runs on the kernel, which drops the reductions.  Beside them, with the
+reductions off and held to the reference's counts: the device search
+alone before the race (cold) and after (warm, every slice on the
+kernel), and the race again with a shorter switch interval.  A control
+runs 1k's device search with the reductions on the torch step instead
+(the masked step on the card).  Then the kernel against its plain
+version again from carries the 1k search reached at F=512 and F=2048;
+the default entry point on three more histories (valid but not decided
+by the greedy witness, past the device encoding, BASELINE config 1 with
+its shrink) and on a fifo-queue and an unordered-queue history (state 16
+words wide: the torch step); and the kernel timed at every shape the
+main path uses.  Every phase prints one line per case, timed lines with
+the card's name and power limit; the line before the last is the
 per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
 is present or the package is not beside this script.
@@ -38,6 +43,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -51,6 +57,21 @@ TIERS = (("1k", 1000, 32), ("mutex2k", 2000, 16))
 #: the CPU, lint/hb/dpor/audit off)
 REFERENCE = {"1k": (False, 97218, 975), "mutex2k": (False, 15863, 1971)}
 
+#: the same search with the JAX package's defaults (lint, prepass and
+#: dpor on), also on the CPU, where the masked, deduplicated step runs:
+#: 1k's prepass applies without deciding; mutex2k is decided by it
+#: ("lock-overhold") with no search.  On the card the kernel takes 1k's
+#: search and drops the reductions, so 1k gives REFERENCE's counts
+#: there, and these only with the kernel kept out (the control)
+REFERENCE_REDUCED = {"1k": (False, 65682, 975), "mutex2k": (False, 0, 0)}
+PREPASS_REASON = {"1k": None, "mutex2k": "lock-overhold"}
+
+#: queue histories through the default entry point, and the JAX
+#: package's verdict on each (``linearizable(model)`` on the CPU, no
+#: JEPSEN_TPU_* variable set); the fifo one is valid and not decided by
+#: the prepass, so a device leg runs the torch step at state width 16
+QUEUES = (("fifo-queue-6", True, True), ("unordered-queue-8", False, False))
+
 #: H100 SXM peaks for the kernel's bound (NVIDIA data sheet): memory
 #: rate, and the float32 rate outside the tensor cores standing in for
 #: 32-bit integer work (the card's int32 rate is at most that)
@@ -63,8 +84,18 @@ OPS_PER_LANE = 8
 CONTROL_SWITCH_S = 0.0005
 
 
+#: the card's name and power limit as nvidia-smi prints them, set in
+#: main; every timed line ends with it
+CARD = "?"
+
+
 class SmokeFailure(Exception):
     pass
+
+
+def emit(line: str) -> None:
+    """Print a timed line with the card's name and power limit."""
+    print(f"{line} | card: {CARD}", flush=True)
 
 
 def check(cond, msg):
@@ -190,6 +221,38 @@ def extra_histories():
     h = corrupt_read(rng, h, at=0.8)
     out.append(("baseline-1", encode_ops(h, m.f_codes), m, False))
     return out
+
+
+def queue_history(name: str, *, fifo: bool):
+    """(OpSeq, model): a queue history of six rounds of 50 enqueue/
+    dequeue ops (``synth.sim_queue_history``, crashed ops included),
+    each round on processes and values of its own and followed by
+    dequeues of what it left, so the queue stays within 16 lanes; the
+    unordered one then has two dequeues' values swapped."""
+    from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
+    from jepsen_tpu_torch.models import fifo_queue, unordered_queue
+    from jepsen_tpu_torch.synth import sim_queue_history, swap_dequeues
+
+    rng = random.Random(name)
+    h = []
+    for r in range(6):
+        sub = [replace(op, process=op.process + 5 * r,
+                       value=None if op.value is None
+                       else op.value + 1000 * r)
+               for op in sim_queue_history(rng, 50, 4, crash_p=0.03,
+                                           fifo=fifo)]
+        taken = {op.value for op in sub
+                 if op.type == "ok" and op.f == "dequeue"}
+        for op in list(sub):
+            if op.type == "ok" and op.f == "enqueue" \
+                    and op.value not in taken:
+                sub += [invoke_op(5 * r + 4, "dequeue", None),
+                        ok_op(5 * r + 4, "dequeue", op.value)]
+        h += sub
+    if not fifo:
+        h = swap_dequeues(random.Random(name + "-swap"), h)
+    model = (fifo_queue if fifo else unordered_queue)(16)
+    return encode_ops(h, model.f_codes), model
 
 
 def lockstep_cases():
@@ -321,7 +384,7 @@ def _lockstep_one(label, model, dims, args, carry, bail, slices, lvl_cap):
               f"{[int(v) for v in cr[1:]]}, max abs err {err})")
         if int(cr[2]) != -1 or int(cr[1]) == 0 or (bail and bool(cr[5])):
             break
-    print(f"lockstep {label}: F={dims.frontier} W={dims.window} "
+    emit(f"lockstep {label}: F={dims.frontier} W={dims.window} "
           f"NC={dims.n_crash_pad} n_det_pad={dims.n_det_pad} "
           f"tables={plan['tables']} smem={plan['smem_bytes']} B "
           f"({'+'.join(plan['in_smem'])}) scratch={plan['scratch_bytes']} B "
@@ -329,7 +392,7 @@ def _lockstep_one(label, model, dims, args, carry, bail, slices, lvl_cap):
           f"live_in={int(carry[1])} slices={s + 1} identical; "
           f"status={int(ck[2])} configs={int(ck[3])} depth={int(ck[4])} "
           f"ovf={int(ck[5])}; kernel ms/slice {[round(t, 3) for t in t_k]} "
-          f"plain ms/slice {[round(t, 1) for t in t_r]}", flush=True)
+          f"plain ms/slice {[round(t, 1) for t in t_r]}")
     return worst
 
 
@@ -431,14 +494,14 @@ def _time_shape(label, model, dims, args, carry, lvl_cap, bail, reps=20,
     ms = sorted(ms_k)[len(ms_k) // 2]
     plain_ms = sorted(ms_r)[len(ms_r) // 2]
     plan = lk.launch_plan(dims, carry[0].device)
-    print(f"timing {label} F={dims.frontier} W={dims.window} "
+    emit(f"timing {label} F={dims.frontier} W={dims.window} "
           f"NC={dims.n_crash_pad} lvl_cap={lvl_cap} bail={int(bail)} "
           f"live_in={int(carry[1])} tables={plan['tables']}: "
           f"levels={levels} configs={configs} kernel {ms:.4f} ms/slice "
           f"({ms / max(1, levels) * 1e3:.2f} us/level, min {min(ms_k):.4f} "
           f"max {max(ms_k):.4f} over {reps}); plain {plain_ms:.1f} "
           f"ms/slice; bound: bytes {bytes_ms:.3e} ms ({n_bytes} B), "
-          f"operations {ops_ms:.3e} ms ({n_ops} int32 ops)", flush=True)
+          f"operations {ops_ms:.3e} ms ({n_ops} int32 ops)")
     return {"shape": f"{label} F={dims.frontier}", "levels": levels,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -482,8 +545,8 @@ def _traced_search(seq, model):
     captured: dict = {}
     get_kernel = lin.get_kernel
 
-    def traced(model, dims, device):
-        fn = get_kernel(model, dims, device)
+    def traced(model, dims, device, **reduction):
+        fn = get_kernel(model, dims, device, **reduction)
         route = ("cuda" if lin._use_kernel(model, dims, device)
                  else "torch")
 
@@ -506,7 +569,8 @@ def _traced_search(seq, model):
 
     lin.get_kernel = traced
     try:
-        return lin.search_opseq(seq, model, device="cuda"), rows, captured
+        return (lin.search_opseq(seq, model, device="cuda", hb=False,
+                                 dpor=False), rows, captured)
     finally:
         lin.get_kernel = get_kernel
 
@@ -548,11 +612,11 @@ class _Spy:
 
 
 def _default_route(label, seq, model, store_base, *, algorithm="auto",
-                   path="auto"):
-    """One history through ``linearizable(model, device="cuda")`` with
-    ``algorithm``, its stages timed; the kernel launch count is set to 0
-    just before and read just after.  ``path`` names the run in its
-    ``main[...]`` line.  Returns (result, stats)."""
+                   path="auto", **flags):
+    """One history through ``linearizable(model, device="cuda",
+    **flags)`` with ``algorithm``, its stages timed; the kernel launch
+    count is set to 0 just before and read just after.  ``path`` names
+    the run in its ``main[...]`` line.  Returns (result, stats)."""
     from jepsen_tpu_torch.analyze import shrink
     from jepsen_tpu_torch.checker import level_kernel as lk
     from jepsen_tpu_torch.checker import linear_report
@@ -566,8 +630,8 @@ def _default_route(label, seq, model, store_base, *, algorithm="auto",
     with spy:
         lk.LAUNCHES = 0
         t0 = time.perf_counter()
-        out = lin.linearizable(model, algorithm=algorithm,
-                               device="cuda").check(test, seq)
+        out = lin.linearizable(model, algorithm=algorithm, device="cuda",
+                               **flags).check(test, seq)
         wall = time.perf_counter() - t0
         launches = lk.LAUNCHES
     sec = spy.seconds
@@ -585,40 +649,69 @@ def _default_route(label, seq, model, store_base, *, algorithm="auto",
         st["confirm_s"] -= st["device_leg_s"] or 0.0
     dev = st["device_leg"]
     sh = out.get("shrink")
-    print(f"main[{path}] {label}: ops={len(seq)} valid={out['valid']} "
-          f"engine={out['engine']} "
-          f"device_configs={out.get('device_configs')} "
-          f"wall_s={wall:.3f} race_s={st['race_s']:.3f} "
-          f"device_leg_s="
-          + ("skipped" if dev is None else f"{st['device_leg_s']:.3f}")
-          + " device_leg="
-          + ("-" if dev is None else
-             f"{dev['engine']}:{dev['valid']}/{dev['configs']}/"
-             f"{dev['max_depth']} ("
-             f"{_us_per_level(st['device_leg_s'], dev)} us/level)")
-          + f" confirm_s={st['confirm_s']:.3f} render_s={st['render_s']:.3f}"
-          f" shrink=" + ("-" if sh is None else
-                         f"{sh['n_from']}->{sh['n_to']} in "
-                         f"{st['shrink_s']:.3f} s ({sh['checks']} checks, "
-                         f"minimal={sh['minimal']}, "
-                         f"brute_force={sh['brute_force']})")
-          + " report_s=" + ("-" if st["report_s"] is None
-                            else f"{st['report_s']:.4f}")
-          + f" report_file={out.get('report_file')} launches={launches}",
-          flush=True)
+    emit(f"main[{path}] {label}: ops={len(seq)} valid={out['valid']} "
+         f"engine={out['engine']} configs={out.get('configs')} "
+         f"device_configs={out.get('device_configs')} "
+         f"wall_s={wall:.3f} race_s={st['race_s']:.3f} "
+         f"device_leg_s="
+         + ("skipped" if dev is None else f"{st['device_leg_s']:.3f}")
+         + " device_leg="
+         + ("-" if dev is None else
+            f"{dev['engine']}:{dev['valid']}/{dev['configs']}/"
+            f"{dev['max_depth']} ("
+            f"{_us_per_level(st['device_leg_s'], dev)} us/level)"
+            f" dpor={dev.get('dpor')}")
+         + f" prepass={_prepass(out)}"
+         + f" confirm_s={st['confirm_s']:.3f} render_s={st['render_s']:.3f}"
+         f" shrink=" + ("-" if sh is None else
+                        f"{sh['n_from']}->{sh['n_to']} in "
+                        f"{st['shrink_s']:.3f} s ({sh['checks']} checks, "
+                        f"minimal={sh['minimal']}, "
+                        f"brute_force={sh['brute_force']})")
+         + " report_s=" + ("-" if st["report_s"] is None
+                           else f"{st['report_s']:.4f}")
+         + f" report_file={out.get('report_file')} launches={launches}")
     if out["valid"] is False:
         report = out.get("report_file")
-        check(report and os.path.isfile(report),
-              f"{label}: invalid verdict wrote no linear.html")
-        with open(report) as fh:
-            check("Linearizability failure" in fh.read(),
-                  f"{label}: {report} is not a failure report")
+        if report is None:
+            # as in the reference, a verdict the prepass decided is
+            # confirmed on the failure prefix, and no report is written
+            # when that prefix comes back valid
+            check(_prepass_stats(out).get("decided") is False,
+                  f"{label}: invalid verdict wrote no linear.html")
+        else:
+            check(os.path.isfile(report), f"{label}: {report} is missing")
+            with open(report) as fh:
+                check("Linearizability failure" in fh.read(),
+                      f"{label}: {report} is not a failure report")
     if dev is not None and dev["engine"].startswith("device-bfs"):
-        check(launches > 0, f"{label}: the device leg ran and the kernel "
-              "never launched")
-        check("cuda" in dev["engine"],
-              f"{label}: device leg's engine label lacks the cuda tag")
+        # the kernel takes the search of a kernel model whose
+        # reductions were dropped; the torch step all others
+        red = dev.get("dpor") or {}
+        kernel = (model.name in lk.SAFE_MODELS
+                  and not red.get("device_masked") and not red.get("dedup"))
+        check(("cuda" in dev["engine"]) == kernel,
+              f"{label}: device leg's engine {dev['engine']}, want the "
+              f"{'kernel' if kernel else 'torch step'}")
+        check(launches > 0 or not kernel,
+              f"{label}: the device leg ran and the kernel never launched")
     return out, st
+
+
+def _prepass_stats(res) -> dict:
+    return res.get("hb") or res.get("constraints") or {}
+
+
+def _prepass(res) -> str:
+    """The prepass's summary on a result: decided and why, or the
+    must-order edges it handed the engines."""
+    st = _prepass_stats(res)
+    if not st:
+        return "-"
+    return (f"{st.get('solver', 'hb')}:applies={st.get('applies')},"
+            f"decided={st.get('decided')},reason={st.get('reason')},"
+            f"must_edges={st.get('must_edges')},"
+            f"dup_edges={(st.get('dpor') or {}).get('dup_edges')}")
 
 
 def _us_per_level(seconds, res) -> str:
@@ -647,40 +740,68 @@ def _check_race(name, out, st, want):
               f"want {want[1]}")
 
 
+def _check_reduced(name, out, st, path):
+    """A tier through ``path`` with the defaults: mutex2k decided by the
+    prepass with no search and no launch; 1k's device search on the
+    kernel, its reductions dropped, with the unreduced counts."""
+    dev = st["device_leg"]
+    check(out["valid"] is False, f"{name}: {path} gave {out['valid']}")
+    reason = PREPASS_REASON[name]
+    stats = _prepass_stats(out)
+    check(stats.get("applies") and stats.get("reason") == reason
+          if reason else stats.get("decided") is None,
+          f"{name}: {path}: prepass {_prepass(out)}, want {reason}")
+    if reason:
+        check(dev is not None and dev["engine"] == "constraint-decide"
+              and dev["configs"] == 0 and st["launches"] == 0,
+              f"{name}: {path}: the device leg searched a decided "
+              f"history ({dev and dev['engine']}, {st['launches']} "
+              "launches)")
+        return
+    if dev is not None and dev["valid"] != "unknown":
+        _check_search(name, f"the device search ({path})", dev,
+                      REFERENCE[name])
+        check(dev["dpor"]["device_masked"] is False,
+              f"{name}: {path}: the kernel's search kept its mask")
+
+
 def phase_main_path(store_base):
-    """Both tiers down the two counted main paths on the card, each run
-    with the launch count set to 0 just before it and read just after:
-    the default entry point (the competition race, then the host
-    confirmation of a device or WGL win) and ``algorithm="device"`` (the
-    device search, then the host confirmation of its verdict).  Around
-    them, not counted: the device search alone before the race, the
-    tier's first search in the process (cold); the race again with the
+    """Both tiers down the three counted main paths on the card, each
+    run with the launch count set to 0 just before it and read just
+    after: the default entry point with its defaults (the lint, the
+    prepass and DPOR; the competition race, then the host confirmation
+    of a device or WGL win), ``algorithm="device"`` with the defaults,
+    and ``algorithm="device"`` with the prepass and DPOR off (held to
+    :data:`REFERENCE`).  Around them, not counted and with the prepass
+    and DPOR off: the device search alone before the race, the tier's
+    first search in the process (cold); the race again with the
     interpreter's switch interval cut to :data:`CONTROL_SWITCH_S`, a
     control for the device leg's wait on the GIL; and the device search
     alone after them (warm) with its per-rung trace, which must have run
     every slice on the kernel."""
     from jepsen_tpu_torch.checker import linearizable as lin
 
-    launches = {"auto": {}, "device": {}}
+    off = {"hb": False, "dpor": False}
+    launches = {"auto": {}, "device": {}, "device,off": {}}
     captured = {}
     for name, _, _ in TIERS:
         seq, model = tier_history(name)
         want = REFERENCE[name]
         t0 = time.perf_counter()
-        cold = lin.search_opseq(seq, model, device="cuda")
+        cold = lin.search_opseq(seq, model, device="cuda", **off)
         cold_s = time.perf_counter() - t0
         _check_search(name, "the device search (cold)", cold, want)
 
         out, st = _default_route(name, seq, model, store_base)
         launches["auto"][name] = st["launches"]
-        _check_race(name, out, st, want)
+        _check_reduced(name, out, st, "the default route")
 
         interval = sys.getswitchinterval()
         sys.setswitchinterval(CONTROL_SWITCH_S)
         try:
             out_c, st_c = _default_route(
                 name, seq, model, store_base,
-                path=f"auto,switch={CONTROL_SWITCH_S * 1e3:g}ms")
+                path=f"auto,off,switch={CONTROL_SWITCH_S * 1e3:g}ms", **off)
         finally:
             sys.setswitchinterval(interval)
         _check_race(name, out_c, st_c, want)
@@ -688,6 +809,17 @@ def phase_main_path(store_base):
         out, st_d = _default_route(name, seq, model, store_base,
                                    algorithm="device", path="device")
         launches["device"][name] = st_d["launches"]
+        _check_reduced(name, out, st_d, "algorithm='device'")
+        if PREPASS_REASON[name] is None:
+            check(st_d["launches"] > 0 and out.get("device_configs")
+                  == want[1], f"{name}: algorithm='device' launched "
+                  f"{st_d['launches']} times, device_configs "
+                  f"{out.get('device_configs')}, want {want[1]}")
+
+        out, st_o = _default_route(name, seq, model, store_base,
+                                   algorithm="device", path="device,off",
+                                   **off)
+        launches["device,off"][name] = st_o["launches"]
         check(out["valid"] is False, f"{name}: algorithm='device' gave "
               f"{out['valid']}, want False")
         check(out["engine"] == "device-bfs(cuda)+host-witness",
@@ -696,30 +828,60 @@ def phase_main_path(store_base):
         check(out.get("device_configs") == want[1],
               f"{name}: device_configs {out.get('device_configs')}, "
               f"want {want[1]}")
-        check(st_d["launches"] > 0,
+        check(st_o["launches"] > 0,
               f"{name}: algorithm='device' never launched the kernel")
-        _check_search(name, "the device search", st_d["device_leg"], want)
+        _check_search(name, "the device search", st_o["device_leg"], want)
 
         t0 = time.perf_counter()
         dev, slices, captured[name] = _traced_search(seq, model)
         wall = time.perf_counter() - t0
-        print(f"search {name}: valid={dev['valid']} "
-              f"configs={dev['configs']} max_depth={dev['max_depth']} "
-              f"engine={dev['engine']} frontier={dev['frontier']} "
-              f"window={dev['window']} wall_s={wall:.3f} "
-              f"({_us_per_level(wall, dev)} us/level); cold, before the "
-              f"race: {cold_s:.3f} s ({_us_per_level(cold_s, cold)} "
-              f"us/level)", flush=True)
-        print(f"slices {name}: " + "; ".join(
+        emit(f"search {name}: valid={dev['valid']} "
+             f"configs={dev['configs']} max_depth={dev['max_depth']} "
+             f"engine={dev['engine']} frontier={dev['frontier']} "
+             f"window={dev['window']} wall_s={wall:.3f} "
+             f"({_us_per_level(wall, dev)} us/level); cold, before the "
+             f"race: {cold_s:.3f} s ({_us_per_level(cold_s, cold)} "
+             f"us/level)")
+        emit(f"slices {name}: " + "; ".join(
             f"{route} F={f}: {n} slices, depth +{d}, configs +{c}, "
-            f"{t:.3f} s" for (route, f), (n, d, c, t) in slices.items()),
-            flush=True)
+            f"{t:.3f} s" for (route, f), (n, d, c, t) in slices.items()))
         _check_search(name, "the device search (warm)", dev, want)
-        off = sorted(f for route, f in slices if route != "cuda")
-        check(not off, f"{name}: slices at F={off} ran the torch step")
+        torch_rungs = sorted(f for route, f in slices if route != "cuda")
+        check(not torch_rungs,
+              f"{name}: slices at F={torch_rungs} ran the torch step")
         check("cuda" in dev["engine"],
               f"{name}: engine label lacks the cuda tag")
     return launches, captured
+
+
+def phase_masked_control():
+    """1k's device search with the defaults and the kernel kept out
+    (``linearizable._use_kernel`` patched): the masked, deduplicated
+    torch step on the card must give :data:`REFERENCE_REDUCED`, the
+    reference's CPU answer."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    seq, model = tier_history("1k")
+    use_kernel = lin._use_kernel
+    lin._use_kernel = lambda *a, **kw: False
+    try:
+        lk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = lin.search_opseq(seq, model, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        lin._use_kernel = use_kernel
+    emit(f"control 1k[masked torch step]: valid={out['valid']} "
+         f"configs={out['configs']} max_depth={out['max_depth']} "
+         f"engine={out['engine']} frontier={out['frontier']} "
+         f"dpor={out['dpor']} wall_s={wall:.3f} "
+         f"({_us_per_level(wall, out)} us/level) launches={lk.LAUNCHES}")
+    _check_search("1k", "the masked torch step", out,
+                  REFERENCE_REDUCED["1k"])
+    check(out["dpor"]["device_masked"] and out["dpor"]["dedup"]
+          and out["engine"] == "device-bfs" and lk.LAUNCHES == 0,
+          "1k: the control did not run the masked torch step")
 
 
 def phase_default_route(store_base):
@@ -731,10 +893,30 @@ def phase_default_route(store_base):
         check(out["valid"] is want,
               f"{label}: verdict {out['valid']}, want {want}")
         if label == "past-encoding":
-            check(out["engine"].endswith("+device-skipped(encoding limits)")
+            check("+device-skipped(encoding limits)" in out["engine"]
                   and st["device_leg"] is None,
                   f"{label}: engine {out['engine']}, want the host legs "
                   "alone")
+
+
+def phase_queues(store_base):
+    """The queue histories through the default entry point: the
+    reference's verdict each; the one the prepass leaves undecided has
+    its device leg run the torch step at state width 16."""
+    launches = {}
+    for name, fifo, want in QUEUES:
+        seq, model = queue_history(name, fifo=fifo)
+        out, st = _default_route(name, seq, model, store_base)
+        launches[name] = st["launches"]
+        check(out["valid"] is want,
+              f"{name}: verdict {out['valid']}, want {want}")
+        dev = st["device_leg"]
+        if _prepass_stats(out).get("decided") is None:
+            check(dev is not None and dev["engine"] == "device-bfs"
+                  and dev["configs"] > 0 and model.state_width == 16,
+                  f"{name}: no device leg ran the torch step "
+                  f"({dev and dev['engine']})")
+    return launches
 
 
 def main() -> int:
@@ -761,6 +943,8 @@ def main() -> int:
     print(f"device: {name} x{torch.cuda.device_count()} torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
+    global CARD
+    CARD = smi
     device = torch.device("cuda", 0)
     try:
         from jepsen_tpu_torch import _build
@@ -769,25 +953,30 @@ def main() -> int:
         regs = [ln.strip() for ln in
                 _build.PTXAS_REPORT.get("level_loop", "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}",
-              flush=True)
+        emit(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}")
         worst = phase_lockstep(device)
         with tempfile.TemporaryDirectory() as store_base:
             launches, captured = phase_main_path(store_base)
+            phase_masked_control()
             worst = max(worst, phase_lockstep_captured(captured))
             phase_default_route(store_base)
+            launches["queues"] = phase_queues(store_base)
         shapes = phase_timing(device, captured)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     timing = shapes[0]  # the first port's shape: mutex2k, F=64
+    total = sum(n for by_tier in launches.values() for n in by_tier.values())
+    if total == 0:
+        print("chip_smoke: FAILED: B1 never launched on the main path",
+              file=sys.stderr)
+        return 1
     record = {"kernels": [{
         "name": "level_loop",
         "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/level_loop.cu",
         "replaces": "jepsen_tpu/checker/pallas_level.py:132",
-        "launches": sum(n for by_tier in launches.values()
-                        for n in by_tier.values()),
+        "launches": total,
         "launches_by_path": launches,
         "max_abs_err": max([worst] + [t["max_abs_err"] for t in shapes]),
         "ms": timing["ms"],

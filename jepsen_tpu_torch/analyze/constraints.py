@@ -1,0 +1,323 @@
+"""The constraint compiler: static order solving for the queue and lock
+families, in the prepass slot ``hb.maybe_hb`` dispatches to.
+
+  * **queue** (``unordered-queue-N``, ``fifo-queue-N``): an :ok dequeue
+    of v reads from the (unique-payload) enqueue of v, a forced edge;
+    under FIFO, real time between two enqueues forces the same order on
+    their dequeues.  Decided invalid: a dequeue of a value never
+    enqueued, a duplicate delivery, a dequeue wholly before its only
+    enqueue, a FIFO inversion, each with a certificate ``audit.py``
+    checks (W007/W008).  All-:ok unique-payload unordered-queue
+    histories decide valid with a completion-order schedule that is
+    replayed against the model first.
+  * **lock** (``mutex``): at any rank t, the acquires forced linearized
+    (:ok, returned by t) minus the releases that could have linearized
+    (invoked before t) bound the held count from below; two is a forced
+    double hold, and the dual sweep finds a release with no possible
+    acquire.  Crashed rows count as possible, never as forced.
+
+Undecided histories yield their forced edges as a must-order
+predecessor map; anything out of scope comes back ``applies=False``.
+"""
+
+from __future__ import annotations
+
+import bisect
+
+import numpy as np
+
+from ..history import NIL, OpSeq
+from .hb import (EDGE_CAP_FACTOR, EDGE_CAP_MIN, HBAnalysis, _edge,
+                 _must_pred, _prune_bound, _verify_witness)
+
+
+def family_of(model) -> str | None:
+    """The constraint family of a model, or None when the
+    register-family solver (or nothing) owns it."""
+    name = getattr(model, "name", "") or ""
+    if name.startswith("unordered-queue-"):
+        return "queue"
+    if name.startswith("fifo-queue-"):
+        return "fifo-queue"
+    if name == "mutex":
+        return "lock"
+    return None
+
+
+def analyze_prepass(seq: OpSeq, model) -> HBAnalysis:
+    """The static prepass by family: registers to the happens-before
+    solver, queues and locks to this compiler."""
+    from .hb import analyze_hb
+
+    if family_of(model) is None:
+        return analyze_hb(seq, model)
+    return analyze_constraints(seq, model)
+
+
+def _decided(valid, *, certificate: dict, stats: dict) -> dict:
+    stats["pruned_upper_bound"] = 0
+    stats["prune_ratio"] = 0.0
+    out = {"valid": valid, "configs": 0, "max_depth": 0,
+           "engine": "constraint-decide"}
+    out.update(certificate)
+    out["constraints"] = stats
+    return out
+
+
+def analyze_constraints(seq: OpSeq, model) -> HBAnalysis:
+    """The prepass for the queue and lock families."""
+    fam = family_of(model)
+    n = len(seq)
+    stats = {"solver": "constraints", "family": fam, "applies": False,
+             "decided": None, "reason": None,
+             "edges": {"rf": 0, "fifo": 0}, "must_edges": 0}
+    out = HBAnalysis(n=n, applies=False, decided=None, stats=stats)
+    if fam is None:
+        stats["reason"] = f"model {getattr(model, 'name', None)!r} " \
+                          f"out of scope"
+        return out
+    if n == 0:
+        stats["reason"] = "empty history"
+        return out
+    if fam == "lock":
+        return _analyze_lock(seq, model, out)
+    return _analyze_queue(seq, model, out, fifo=fam == "fifo-queue")
+
+
+class _QVal:
+    """One payload value's rows."""
+
+    __slots__ = ("enq", "enq_ok", "deq_ok", "deq_info")
+
+    def __init__(self):
+        self.enq: list[int] = []       # enqueue rows, ok and crashed
+        self.enq_ok: list[int] = []
+        self.deq_ok: list[int] = []
+        self.deq_info: list[int] = []
+
+
+def _analyze_queue(seq: OpSeq, model, out: HBAnalysis,
+                   *, fifo: bool) -> HBAnalysis:
+    from ..models import Q_DEQ, Q_EMPTY, Q_ENQ
+
+    stats = out.stats
+    n = len(seq)
+    if tuple(model.init) != (Q_EMPTY,) * model.state_width:
+        stats["reason"] = "non-empty initial queue state"
+        return out
+    f = np.asarray(seq.f)
+    if not bool(np.isin(f, (Q_ENQ, Q_DEQ)).all()):
+        stats["reason"] = "foreign op code"
+        return out
+    out.applies = True
+    stats["applies"] = True
+
+    v1 = [int(x) for x in seq.v1]
+    ok = [bool(x) for x in seq.ok]
+    inv = [int(x) for x in seq.inv]
+    ret = [int(x) for x in seq.ret]
+    fl = [int(x) for x in f]
+    vals: dict[int, _QVal] = {}
+    n_enq = 0
+    for i in range(n):
+        v = v1[i]
+        if v == NIL:
+            continue  # a NIL-valued row never constrains the multiset
+        q = vals.get(v)
+        if q is None:
+            q = vals[v] = _QVal()
+        if fl[i] == Q_ENQ:
+            n_enq += 1
+            q.enq.append(i)
+            if ok[i]:
+                q.enq_ok.append(i)
+        elif ok[i]:
+            q.deq_ok.append(i)
+        else:
+            q.deq_info.append(i)
+    stats["values"] = len(vals)
+
+    def rt(a: int, b: int) -> bool:
+        return ret[a] < inv[b]
+
+    # a dequeue of a value never enqueued
+    impossible = sorted(r for q in vals.values() if not q.enq
+                        for r in q.deq_ok)
+    if impossible:
+        stats["decided"] = False
+        stats["reason"] = "impossible-dequeue"
+        out.decided = _decided(False, certificate={
+            "final_ops": impossible,
+            "queue_evidence": {"family": "queue",
+                               "kind": "unexpected-dequeue",
+                               "rows": impossible}}, stats=stats)
+        return out
+
+    # more :ok dequeues of a value than enqueue rows of it
+    for q in vals.values():
+        if len(q.deq_ok) > len(q.enq):
+            stats["decided"] = False
+            stats["reason"] = "duplicate-delivery"
+            out.decided = _decided(False, certificate={
+                "final_ops": sorted(q.deq_ok),
+                "queue_dup": {"dequeues": sorted(q.deq_ok),
+                              "enqueues": sorted(q.enq)}}, stats=stats)
+            return out
+
+    # a dequeue wholly before the only enqueue that could feed it
+    for q in vals.values():
+        if len(q.enq) != 1:
+            continue
+        e = q.enq[0]
+        for d in q.deq_ok:
+            if rt(d, e):
+                stats["decided"] = False
+                stats["reason"] = "rf-cycle"
+                out.decided = _decided(False, certificate={
+                    "queue_cycle": [_edge(e, d, "rf"),
+                                    _edge(d, e, "rt")]}, stats=stats)
+                return out
+
+    # unique (enqueue, dequeue) pairs
+    pairs = [(q.enq[0], q.deq_ok[0]) for q in vals.values()
+             if len(q.enq) == 1 and len(q.deq_ok) == 1
+             and not q.deq_info]
+
+    if fifo and len(pairs) >= 2:
+        # a FIFO inversion: enq_i wholly before enq_j and deq_j wholly
+        # before deq_i.  Sweep j by enqueue invocation; the admitted
+        # prefix (ret(enq_i) < inv(enq_j)) only grows, and only its
+        # member with the latest dequeue invocation can witness it
+        by_einv = sorted(pairs, key=lambda p: inv[p[0]])
+        by_eret = sorted(pairs, key=lambda p: ret[p[0]])
+        k = 0
+        best = None  # (inv(deq_i), pair_i) over the admitted prefix
+        for (ej, dj) in by_einv:
+            while k < len(by_eret) and ret[by_eret[k][0]] < inv[ej]:
+                p = by_eret[k]
+                if best is None or inv[p[1]] > best[0]:
+                    best = (inv[p[1]], p)
+                k += 1
+            if best is not None and ret[dj] < best[0]:
+                ei, di = best[1]
+                if ei != ej:
+                    stats["decided"] = False
+                    stats["reason"] = "fifo-inversion"
+                    out.decided = _decided(False, certificate={
+                        "queue_cycle": [
+                            _edge(di, dj, "fifo", via=(ei, ej)),
+                            _edge(dj, di, "rt")]}, stats=stats)
+                    return out
+
+    # decided valid (unordered only): completion order with each
+    # enqueue pulled in front of its dequeue, replayed before it leaves
+    all_ok = all(ok)
+    unique = all(len(q.enq) <= 1 and len(q.deq_ok) <= 1
+                 for q in vals.values())
+    if not fifo and all_ok and unique and not any(v == NIL for v in v1) \
+            and model.state_width >= n_enq:
+        key = {}
+        for q in vals.values():
+            if q.enq and q.deq_ok:
+                e, d = q.enq[0], q.deq_ok[0]
+                key[e] = min(ret[e], ret[d])
+        order = sorted(range(n),
+                       key=lambda i: (key.get(i, ret[i]),
+                                      0 if fl[i] == Q_ENQ else 1, i))
+        if _verify_witness(seq, model, order):
+            stats["decided"] = True
+            stats["reason"] = "completion-schedule"
+            out.decided = _decided(True, certificate={
+                "linearization": [int(r) for r in order],
+                "max_depth": n}, stats=stats)
+            return out
+
+    # undecided: emit the prune
+    cap = max(EDGE_CAP_MIN, EDGE_CAP_FACTOR * n)
+    edges: list[tuple[int, int, str]] = []
+    for q in vals.values():
+        if len(q.enq) != 1:
+            continue  # no unique writer: no forced read-from
+        e = q.enq[0]
+        for d in (*q.deq_ok, *q.deq_info):
+            if not rt(e, d):
+                edges.append((e, d, "rf"))
+                if len(edges) >= cap:
+                    break
+        if len(edges) >= cap:
+            break
+    if fifo and len(edges) < cap and len(pairs) >= 2:
+        # one FIFO predecessor per dequeue: the least-returning enqueue
+        # wholly before it forces its dequeue first
+        by_einv = sorted(pairs, key=lambda p: inv[p[0]])
+        best = None  # (ret(enq), deq) with the least ret(enq) so far
+        for (e, d) in by_einv:
+            if best is not None and best[0] < inv[e] \
+                    and not rt(best[1], d):
+                edges.append((best[1], d, "fifo"))
+                if len(edges) >= cap:
+                    break
+            if best is None or ret[e] < best[0]:
+                best = (ret[e], d)
+    for (_s, _d, k) in edges:
+        stats["edges"][k] += 1
+    stats["must_edges"] = len(edges)
+    out.must_pred = _must_pred(edges)
+    _prune_bound(seq, edges, stats)
+    return out
+
+
+def _analyze_lock(seq: OpSeq, model, out: HBAnalysis) -> HBAnalysis:
+    from ..models import M_ACQUIRE, M_RELEASE
+
+    stats = out.stats
+    if tuple(model.init) != (0,):
+        stats["reason"] = "non-free initial lock state"
+        return out
+    f = np.asarray(seq.f)
+    if not bool(np.isin(f, (M_ACQUIRE, M_RELEASE)).all()):
+        stats["reason"] = "foreign op code"
+        return out
+    out.applies = True
+    stats["applies"] = True
+    ok = [bool(x) for x in seq.ok]
+    inv = [int(x) for x in seq.inv]
+    ret = [int(x) for x in seq.ret]
+    fl = [int(x) for x in f]
+    n = len(seq)
+    acq_rows = [i for i in range(n) if fl[i] == M_ACQUIRE]
+    rel_rows = [i for i in range(n) if fl[i] == M_RELEASE]
+    stats["acquires"] = len(acq_rows)
+    stats["releases"] = len(rel_rows)
+
+    # forced double hold: at the k-th :ok acquire completion, fewer
+    # than k-1 releases could have linearized
+    acq_ok = sorted((i for i in acq_rows if ok[i]), key=lambda i: ret[i])
+    rel_inv = sorted(inv[i] for i in rel_rows)
+    for k, i in enumerate(acq_ok, start=1):
+        possible_rel = bisect.bisect_left(rel_inv, ret[i])
+        if k - possible_rel >= 2:
+            stats["decided"] = False
+            stats["reason"] = "lock-overhold"
+            out.decided = _decided(False, certificate={
+                "final_ops": sorted(acq_ok[max(0, k - 2):k])},
+                stats=stats)
+            return out
+
+    # forced release of a free lock: at the k-th :ok release completion,
+    # fewer than k acquires could have linearized
+    rel_ok = sorted((i for i in rel_rows if ok[i]), key=lambda i: ret[i])
+    acq_inv = sorted(inv[i] for i in acq_rows)
+    for k, i in enumerate(rel_ok, start=1):
+        possible_acq = bisect.bisect_left(acq_inv, ret[i])
+        if k - possible_acq >= 1:
+            stats["decided"] = False
+            stats["reason"] = "release-unheld"
+            out.decided = _decided(False, certificate={
+                "final_ops": [i]}, stats=stats)
+            return out
+
+    # alternation has no unique-writer structure: no forced edges, and
+    # deciding valid stays with the engines
+    _prune_bound(seq, [], stats)
+    return out

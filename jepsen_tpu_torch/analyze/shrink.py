@@ -80,8 +80,9 @@ def brute_force_check(seq: OpSeq, model):
 def shrink_invalid(seq: OpSeq, model) -> dict:
     """ddmin an invalid history down to a minimal failing subhistory.
 
-    The WGL oracle, bounded to :data:`MAX_CONFIGS`, re-verdicts
-    candidates; a removal is kept only while the answer stays False.
+    The WGL oracle, bounded to :data:`MAX_CONFIGS` (its prepass and
+    reductions on, the lint off), re-verdicts candidates; a removal is
+    kept only while the answer stays False.
     Returns ``{"rows": kept rows, "n_from", "n_to", "checks": engine
     calls, "minimal": 1-minimality proven, "brute_force":
     True|False|None}``.  ``minimal`` is False when :data:`MAX_CHECKS`
@@ -97,7 +98,8 @@ def shrink_invalid(seq: OpSeq, model) -> dict:
         nonlocal checks
         checks += 1
         return check_opseq(subseq(seq, rows), model,
-                           max_configs=MAX_CONFIGS).get("valid") is False
+                           max_configs=MAX_CONFIGS,
+                           lint=False).get("valid") is False
 
     rows = list(range(len(seq)))
     out = {"rows": rows, "n_from": len(seq), "n_to": len(rows),

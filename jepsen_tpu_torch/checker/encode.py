@@ -10,6 +10,11 @@ which may linearize at any point after invocation or never, live in a
 separate bitmask of width ``<= 64``.  A configuration is then the int32
 row ``[p | window words | crash words | model state]``.
 
+The reduction planes (:func:`attach_reductions`) carry the prepass's
+must-order predecessors per row and the dead-value table; the masked
+and dedup step (``step.py``) reads them, the unreduced search receives
+them inert.
+
 The carry ``(frontier, count, status, configs, max_depth, ovf)`` is the
 whole search state and the exchange format with the JAX package:
 :func:`from_reference` and :func:`to_numpy` move encodings and carries
@@ -23,16 +28,20 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..decompose.canonical import NEVER_DEAD, dead_value_cutoffs
 from ..history import INF_RET, NIL, OpSeq
 
 #: int32 "+infinity" event rank on device
 INF32 = 2**31 - 1
 
-#: must-order predecessor slots per row in the (inert) reduction planes
+#: must-order predecessor slots per row shipped to the device; a row
+#: with more keeps its latest ones (a subset of the predecessors is a
+#: weaker prune, never a wrong one)
 MASK_PREDS = 4
 
-#: fill of the (inert) dead-value table: no value is ever dead
-NEVER_DEAD = 2**31 - 1
+#: widest dead-value table the device dedup carries (candidate state
+#: values only); wider value ranges skip the device rewrite
+DEAD_TABLE_MAX = 1 << 16
 
 #: refuse device search past these (host oracle instead)
 MAX_WINDOW = 512
@@ -45,9 +54,10 @@ MAX_FRONTIER = 1 << 18
 @dataclass
 class EncodedSearch:
     """Device-ready arrays for one history (numpy; padded by
-    :func:`pad_search`).  The ``*_mpred``/``*_cpredw``/``dead_*`` fields
-    are the state-space-reduction planes; this port carries them inert
-    (no predecessors, no dead values), as the unreduced search does."""
+    :func:`pad_search`).  The ``*_mpred``/``*_cpred``/``dead_*`` fields
+    are the reduction planes (:func:`attach_reductions`); ``masked`` and
+    ``dedup`` say whether the search must read them, and
+    :func:`pad_search` always materializes them (inert when off)."""
 
     det_f: np.ndarray  # int32 [n_det(_pad)]
     det_v1: np.ndarray
@@ -63,13 +73,23 @@ class EncodedSearch:
     n_crash: int
     window: int  # exact bound on the linearized-beyond-prefix span
     concurrency: int  # max simultaneously-enabled candidates
-    det_mpred: np.ndarray | None = None    # int32 [n_det_pad, P]
+    #: det positions of up to MASK_PREDS must-predecessors per row (-1
+    #: pads), and the crash-index predecessors as a bitmask
+    det_mpred: np.ndarray | None = None    # int32 [n_det(_pad), P]
+    det_cpred: np.ndarray | None = None    # uint64 [n_det]
+    crash_mpred: np.ndarray | None = None  # int32 [n_crash(_pad), P]
+    crash_cpred: np.ndarray | None = None  # uint64 [n_crash]
+    #: the crash-pred bitmasks packed into int32 words (pad_search)
     det_cpredw: np.ndarray | None = None   # int32 [n_det_pad, CW]
-    crash_mpred: np.ndarray | None = None  # int32 [n_crash_pad, P]
     crash_cpredw: np.ndarray | None = None  # int32 [n_crash_pad, CW]
+    #: dead-value table: the prefix position from which each value in
+    #: [dead_lo, dead_lo + VT) is dead, and the token it rewrites to
     dead_from: np.ndarray | None = None    # int32 [VT]
     dead_lo: int = 0
     dead_tok: int = 0
+    masked: bool = False
+    mask_has_crash: bool = False
+    dedup: bool = False
 
 
 def split_rows(seq: OpSeq):
@@ -132,6 +152,83 @@ def encode_search(seq: OpSeq) -> EncodedSearch:
         concurrency=max_enabled(seq))
 
 
+def attach_reductions(es: EncodedSearch, seq: OpSeq, model,
+                      must_pred: dict | None, *,
+                      dedup: bool = True) -> EncodedSearch:
+    """Attach the reduction planes to ``es`` (in place; returned).
+
+    ``must_pred`` is the prepass's row -> must-predecessor rows map,
+    split here into det-position and crash-index tables.  ``dedup``
+    also builds the dead-value table (``decompose/canonical.py``) when
+    the model and the value range allow."""
+    det_rows, crash_rows = split_rows(seq)
+    if must_pred:
+        det_pos_of = {int(r): p for p, r in enumerate(det_rows)}
+        crash_of = {int(r): c for c, r in enumerate(crash_rows)}
+        dmp = np.full((es.n_det, MASK_PREDS), -1, np.int32)
+        # unsigned: crash index 63 sets bit 63
+        dcp = np.zeros(es.n_det, np.uint64)
+        cmp_ = np.full((es.n_crash, MASK_PREDS), -1, np.int32)
+        ccp = np.zeros(es.n_crash, np.uint64)
+        any_mask = False
+        has_crash_pred = False
+        for dst, srcs in must_pred.items():
+            dp = sorted(det_pos_of[s] for s in srcs if s in det_pos_of)
+            cp = 0
+            for s in srcs:
+                c = crash_of.get(s)
+                if c is not None:
+                    cp |= 1 << c
+            if not dp and not cp:
+                continue
+            dp = dp[-MASK_PREDS:]  # keep the latest (they bind longest)
+            if dst in det_pos_of:
+                p = det_pos_of[dst]
+                dmp[p, :len(dp)] = dp
+                dcp[p] = cp
+            else:
+                c = crash_of[dst]
+                cmp_[c, :len(dp)] = dp
+                ccp[c] = cp
+            any_mask = True
+            has_crash_pred = has_crash_pred or bool(cp)
+        if any_mask:
+            es.det_mpred, es.det_cpred = dmp, dcp
+            es.crash_mpred, es.crash_cpred = cmp_, ccp
+            es.masked = True
+            es.mask_has_crash = has_crash_pred
+    if dedup and model.state_width == 1:
+        dv = dead_value_cutoffs(seq, model)
+        if dv is not None:
+            lo, hi = dv.value_range()
+            span = hi - lo + 1
+            if span <= DEAD_TABLE_MAX:
+                t = np.full(span, NEVER_DEAD, np.int32)
+                for v, c in dv.cutoffs.items():
+                    # compared-only values lie outside the candidate
+                    # span: no state holds them
+                    if lo <= v < lo + span:
+                        t[v - lo] = min(c, NEVER_DEAD)
+                es.dead_from = t
+                es.dead_lo = lo
+                es.dead_tok = dv.token
+                es.dedup = True
+    return es
+
+
+def _pack_cpred(bits: np.ndarray | None, n_rows: int,
+                cw: int) -> np.ndarray:
+    """uint64 crash-pred bitmasks per row -> int32 words [n_rows, cw]."""
+    out = np.zeros((n_rows, cw), np.int32)
+    if bits is not None:
+        b = bits.astype(np.uint64)
+        for w in range(min(cw, 2)):
+            out[:len(b), w] = ((b >> np.uint64(32 * w))
+                               & np.uint64(0xFFFFFFFF)).astype(
+                np.uint32).view(np.int32)
+    return out
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
@@ -142,9 +239,10 @@ def _round_up(x: int, m: int) -> int:
 
 def pad_search(es: EncodedSearch, n_det_pad: int,
                n_crash_pad: int) -> EncodedSearch:
-    """Pad every table to static shapes; the reduction planes are
-    materialized inert (all -1 predecessors, zero crash-pred words, an
-    all-NEVER_DEAD 8-entry dead table)."""
+    """Pad every table to static shapes.  The reduction planes are
+    always materialized (all -1 predecessors, zero crash-pred words and
+    an all-NEVER_DEAD table when absent); the dead table is padded to a
+    power of two, at least 8."""
 
     def pad(a, n, fill):
         out = np.full(n, fill, dtype=np.int32)
@@ -152,6 +250,17 @@ def pad_search(es: EncodedSearch, n_det_pad: int,
         return out
 
     cw = max(1, n_crash_pad // 32)
+    dmp = np.full((n_det_pad, MASK_PREDS), -1, np.int32)
+    if es.det_mpred is not None:
+        dmp[:len(es.det_mpred)] = es.det_mpred
+    cmp_ = np.full((n_crash_pad, MASK_PREDS), -1, np.int32)
+    if es.crash_mpred is not None:
+        cmp_[:len(es.crash_mpred)] = es.crash_mpred
+    dead_pad = (_next_pow2(len(es.dead_from))
+                if es.dead_from is not None else 8)
+    dead = np.full(max(8, dead_pad), NEVER_DEAD, np.int32)
+    if es.dead_from is not None:
+        dead[:len(es.dead_from)] = es.dead_from
     return EncodedSearch(
         det_f=pad(es.det_f, n_det_pad, 0),
         det_v1=pad(es.det_v1, n_det_pad, NIL),
@@ -165,11 +274,13 @@ def pad_search(es: EncodedSearch, n_det_pad: int,
         crash_inv=pad(es.crash_inv, n_crash_pad, INF32),
         n_det=es.n_det, n_crash=es.n_crash, window=es.window,
         concurrency=es.concurrency,
-        det_mpred=np.full((n_det_pad, MASK_PREDS), -1, np.int32),
-        det_cpredw=np.zeros((n_det_pad, cw), np.int32),
-        crash_mpred=np.full((n_crash_pad, MASK_PREDS), -1, np.int32),
-        crash_cpredw=np.zeros((n_crash_pad, cw), np.int32),
-        dead_from=np.full(8, NEVER_DEAD, np.int32))
+        det_mpred=dmp,
+        det_cpredw=_pack_cpred(es.det_cpred, n_det_pad, cw),
+        crash_mpred=cmp_,
+        crash_cpredw=_pack_cpred(es.crash_cpred, n_crash_pad, cw),
+        dead_from=dead, dead_lo=es.dead_lo, dead_tok=es.dead_tok,
+        masked=es.masked, mask_has_crash=es.mask_has_crash,
+        dedup=es.dedup)
 
 
 @dataclass(frozen=True)

@@ -8,11 +8,13 @@ inside one thread block, on every rung where the card's torch step
 prunes all-pairs (``F <= 2048``), with the history tables in shared
 memory where they fit.
 
-  * :func:`eligible` — which searches the kernel takes;
-  * :func:`level_loop_reference` — the plain version: the torch step
-    (``step.py``) pinned to the all-pairs prune;
+  * :func:`eligible` — which searches the kernel takes (never one with
+    reductions: the kernel computes the unreduced search);
+  * :func:`level_loop_reference` — the plain version: the unreduced
+    torch step (``step.py``) pinned to the all-pairs prune;
   * :func:`level_loop` — the wrapper: the plain version for CPU tensors,
     the kernel for CUDA tensors (or an exception; never a fallback);
+    both refuse reduction planes that are not inert;
   * :func:`launch_plan` — where a launch at these dims keeps its tables
     (shared or device memory) and how much scratch it needs;
   * :data:`LAUNCHES` — kernel launches so far (plain version excluded).
@@ -26,11 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
 from . import step
-from .encode import SearchDims
+from .encode import NEVER_DEAD, SearchDims
 from .step import build_search_step_fn
 
 #: models the kernel's ``model_step`` implements
@@ -42,16 +45,18 @@ LAUNCHES = 0
 _CUDA = torch.device("cuda")
 
 
-def eligible(model, dims: SearchDims) -> bool:
-    """The kernel takes a search when its model is one of
-    :data:`SAFE_MODELS`, its masks fit one 64-bit word each, its state
-    four words, and the card's torch step would prune all-pairs at both
-    of its sites (``2F`` closure rows, ``4F`` successor rows) under the
-    default prune mode: the kernel prunes all-pairs, so it never takes a
-    rung where the card's step would prune by sort.  That holds for
-    ``F <= 2048``."""
+def eligible(model, dims: SearchDims, *, masked: bool = False,
+             dedup: bool = False) -> bool:
+    """The kernel takes a search when it has no reductions (``masked``,
+    ``dedup``), its model is one of :data:`SAFE_MODELS`, its masks fit
+    one 64-bit word each, its state four words, and the card's torch
+    step would prune all-pairs at both of its sites (``2F`` closure
+    rows, ``4F`` successor rows) under the default prune mode: the
+    kernel prunes all-pairs, so it never takes a rung where the card's
+    step would prune by sort.  That holds for ``F <= 2048``."""
     F = dims.frontier
-    return (model.name in SAFE_MODELS
+    return (not masked and not dedup
+            and model.name in SAFE_MODELS
             and dims.window <= 64
             and dims.n_crash_pad <= 64
             and dims.state_width <= 4
@@ -77,6 +82,29 @@ def level_loop_reference(model, dims: SearchDims, *args):
 
 
 _N_TABLES = 10  # det_f .. crash_inv
+
+
+#: the plane tensors last found inert (weak references): every slice of
+#: one search passes the same ones, so a search pays the check once
+_INERT: list = []
+
+
+def _check_inert(args) -> None:
+    """Refuse reduction planes that are not inert: neither the kernel
+    nor its plain version reads them."""
+    planes = args[_N_TABLES:_N_TABLES + 5]
+    if len(_INERT) == 5 and all(r() is t for r, t in zip(_INERT, planes)):
+        return
+    det_mpred, det_cpredw, crash_mpred, crash_cpredw, dead_from = planes
+    live = torch.stack([(det_mpred != -1).any(), (det_cpredw != 0).any(),
+                        (crash_mpred != -1).any(),
+                        (crash_cpredw != 0).any(),
+                        (dead_from != NEVER_DEAD).any()])
+    if bool(live.any()):
+        raise ValueError(
+            "level_loop: the reduction planes are not inert; a masked or "
+            "dedup search runs the torch step (step.py)")
+    _INERT[:] = [weakref.ref(t) for t in planes]
 
 #: launch-plan bits: which regions of the kernel's working set sit in
 #: shared memory (the rest go to the scratch buffer in device memory)
@@ -146,6 +174,7 @@ def level_loop(model, dims: SearchDims, *args):
     ``(frontier, count, status, configs, max_depth, ovf)``."""
     global LAUNCHES
     frontier = args[22]
+    _check_inert(args)
     if frontier.device.type == "cpu":
         return level_loop_reference(model, dims, *args)
     if frontier.device.type != "cuda":

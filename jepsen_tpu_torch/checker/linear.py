@@ -20,6 +20,11 @@ histories that make a depth-first search expensive:
   linearized; crashed ops linearize inside a level (the crash closure).
   Dedup never crosses levels, so memory follows the widest level.
 
+* **Reductions.**  Behind the lint and the static prepass: decided
+  histories return at once; otherwise the frames mask candidates whose
+  must-order predecessors are not linearized, and the dead-value
+  quotient rewrites register states no remaining op can tell apart.
+
 Exact like the WGL oracle: "unknown" only past ``max_configs``, a
 ``deadline`` or ``cancel``.
 """
@@ -30,7 +35,7 @@ import time
 
 import numpy as np
 
-from ..history import OpSeq
+from ..history import NIL, OpSeq
 from .encode import INF32, encode_search
 
 #: the parent-table bound for callers that want a witness (the
@@ -41,8 +46,8 @@ DEFAULT_WITNESS_CAP = 2_000_000
 _NOT_PORTED = "not ported yet (ROADMAP queue {item})"
 
 
-def _refuse(flag, name: str, item: str = "A7") -> None:
-    """The passes and options of later queue items accept only off."""
+def _refuse(flag, name: str, item: str) -> None:
+    """The options of later queue items accept only off."""
     if flag:
         raise NotImplementedError(
             f"{name}={flag!r}: {_NOT_PORTED.format(item=item)}")
@@ -93,20 +98,34 @@ def check_opseq_linear(seq: OpSeq, model, *,
     ``threading.Event``) are tested every 1024 steps and give "unknown"
     with ``info`` "exceeded deadline" or "cancelled".
 
-    ``lint``, ``audit``, ``hb``, ``dpor`` and ``decompose`` take None or
-    False (off), ``checkpoint_path`` and ``resume_from`` None."""
-    for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
-                       (dpor, "dpor")):
-        _refuse(flag, name)
+    ``lint``, ``hb`` and ``dpor`` (None: on) and ``audit`` (None: off)
+    as in ``seq.check_opseq``; with dpor the result carries ``dpor``
+    stats.  ``decompose`` takes None or False, ``checkpoint_path`` and
+    ``resume_from`` None."""
+    from ..analyze.audit import maybe_audit
+    from ..analyze.dpor import resolve_dpor
+    from ..analyze.hb import attach, maybe_hb
+    from ..analyze.lint import maybe_lint
+
     _refuse(decompose, "decompose", "A8")
     _refuse(checkpoint_path, "checkpoint_path", "A3")
     _refuse(resume_from, "resume_from", "A3")
+    maybe_lint(seq, model, lint)
+    hbres = maybe_hb(seq, model, hb, dpor)
+    dpor_stats: dict | None = None
 
+    def finish(out: dict) -> dict:
+        if dpor_stats is not None:
+            out.setdefault("dpor", dpor_stats)
+        return maybe_audit(seq, model, attach(out, hbres), audit)
+
+    if hbres is not None and hbres.decided is not None:
+        return maybe_audit(seq, model, dict(hbres.decided), audit)
     es = encode_search(seq)
     n_det, n_crash, W = es.n_det, es.n_crash, es.window
     if n_det == 0 and n_crash == 0:
-        return {"valid": True, "configs": 0, "max_depth": 0,
-                "linearization": []}
+        return finish({"valid": True, "configs": 0, "max_depth": 0,
+                       "linearization": []})
 
     det_inv = [int(x) for x in es.det_inv]
     det_ret = [int(x) for x in es.det_ret]
@@ -124,6 +143,55 @@ def check_opseq_linear(seq: OpSeq, model, *,
 
     pystep = model.pystep
     INF = int(INF32)
+
+    # the dead-value quotient in its prefix-cutoff form (the device
+    # step's rule): a value is dead at prefix p once every det row
+    # comparing it sits below p and no crashed row compares it
+    dead_cut: dict | None = None
+    dead_tok = 0
+    if resolve_dpor(dpor):
+        from ..decompose.canonical import dead_value_cutoffs
+
+        dv = dead_value_cutoffs(seq, model)
+        if dv is not None:
+            dead_cut = dv.cutoffs
+            dead_tok = dv.token
+        dpor_stats = {"enabled": True, "dedup_rewrites": 0,
+                      "dedup_hits": 0, "mask_lanes_killed": 0,
+                      "dedup": dead_cut is not None}
+
+    def canon_state(ns: tuple, p: int) -> tuple:
+        """A dead successor state as the token (NIL states never
+        fold)."""
+        v = ns[0]
+        if v == dead_tok or v == NIL or p < dead_cut.get(v, 0):
+            return ns
+        dpor_stats["dedup_rewrites"] += 1
+        return (dead_tok,)
+
+    # must-order mask: per det position / crash index, its det-position
+    # predecessors (tested against (p, win) in the frame) and its
+    # crash-index predecessors as a bitmask (tested against each crash
+    # mask at expansion: frames do not depend on the crash set)
+    mp_det: dict[int, tuple] = {}
+    mp_crash: dict[int, tuple] = {}
+    if hbres is not None and hbres.must_pred:
+        det_pos_of = {int(r): p for p, r in enumerate(det_rows)}
+        crash_of = {int(r): c for c, r in enumerate(crash_rows)}
+        for dst, srcs in hbres.must_pred.items():
+            dp = tuple(det_pos_of[s] for s in srcs if s in det_pos_of)
+            cp = 0
+            for s in srcs:
+                c = crash_of.get(s)
+                if c is not None:
+                    cp |= 1 << c
+            if not dp and not cp:
+                continue
+            if dst in det_pos_of:
+                mp_det[det_pos_of[dst]] = (dp, cp)
+            else:
+                mp_crash[crash_of[dst]] = (dp, cp)
+    no_pred = ((), 0)
 
     frames: dict[tuple, _Frame] = {}
 
@@ -149,6 +217,18 @@ def check_opseq_linear(seq: OpSeq, model, *,
                 m1_at = i
             elif r < m2:
                 m2 = r
+
+        def det_done(q: int) -> bool:
+            return q < p or (q - p < W and (win >> (q - p)) & 1)
+
+        def masked(dp) -> bool:
+            """A det must-predecessor is not linearized yet."""
+            if dp and not all(det_done(q) for q in dp):
+                if dpor_stats is not None:
+                    dpor_stats["mask_lanes_killed"] += 1
+                return True
+            return False
+
         det_cands = []
         for i in range(hi - p):
             if (win >> i) & 1:
@@ -156,9 +236,17 @@ def check_opseq_linear(seq: OpSeq, model, *,
             j = p + i
             excl = m2 if i == m1_at else m1
             if det_inv[j] < excl:
-                det_cands.append((i, det_f[j], det_v1[j], det_v2[j]))
-        crash_cands = [(c, crash_f[c], crash_v1[c], crash_v2[c])
-                       for c in range(n_crash) if crash_inv[c] < m1]
+                dp, cp = mp_det.get(j, no_pred)
+                if not masked(dp):
+                    det_cands.append((i, det_f[j], det_v1[j], det_v2[j],
+                                      cp))
+        crash_cands = []
+        for c in range(n_crash):
+            if crash_inv[c] < m1:
+                dp, cp = mp_crash.get(c, no_pred)
+                if not masked(dp):
+                    crash_cands.append((c, crash_f[c], crash_v1[c],
+                                        crash_v2[c], cp))
         fr = _Frame(det_cands, crash_cands,
                     p + bin(win).count("1") >= n_det)
         frames[(p, win)] = fr
@@ -231,22 +319,28 @@ def check_opseq_linear(seq: OpSeq, model, *,
         while work:
             why = over_budget()
             if why:
-                return {"valid": "unknown", "configs": configs,
-                        "max_depth": depth, "info": why}
+                return finish({"valid": "unknown", "configs": configs,
+                               "max_depth": depth, "info": why})
             (p, win, state), cmask = work.pop()
-            for c, f, v1, v2 in frame(p, win).crash:
+            for c, f, v1, v2, cp in frame(p, win).crash:
                 if (cmask >> c) & 1:
                     continue
+                if cp & ~cmask:
+                    continue  # a crash must-predecessor is missing
                 ns = pystep(state, f, v1, v2)
                 if ns is None:
                     continue
                 configs += 1
+                if dead_cut is not None:
+                    ns = canon_state(ns, p)
                 nk = (p, win, ns)
                 ncm = cmask | (1 << c)
                 if insert(level, nk, ncm):
                     remember(nk, ncm, int(crash_rows[c]), (p, win, state),
                              cmask)
                     work.append((nk, ncm))
+                elif dead_cut is not None and ns[0] == dead_tok:
+                    dpor_stats["dedup_hits"] += 1
 
         # goal test
         for (p, win, s), ac in level.items():
@@ -258,25 +352,33 @@ def check_opseq_linear(seq: OpSeq, model, *,
                     out["linearization"] = lin
                 else:
                     out["witness_dropped"] = witness_drop
-                return out
+                return finish(out)
 
         # expand determinate candidates into the next level
         nxt: dict[tuple, list[int]] = {}
         for (p, win, state), ac in level.items():
-            for i, f, v1, v2 in frame(p, win).det:
+            for i, f, v1, v2, cp in frame(p, win).det:
                 ns = pystep(state, f, v1, v2)
                 if ns is None:
                     continue
-                nk = (*_advance(p, win, i, n_det), ns)
+                p2, win2 = _advance(p, win, i, n_det)
+                if dead_cut is not None:
+                    # at p2: every det position below it is linearized
+                    ns = canon_state(ns, p2)
+                nk = (p2, win2, ns)
                 for cmask in ac:
+                    if cp & ~cmask:
+                        continue  # a crash must-predecessor is missing
                     configs += 1
                     if insert(nxt, nk, cmask):
                         remember(nk, cmask, int(det_rows[p + i]),
                                  (p, win, state), cmask)
+                    elif dead_cut is not None and ns[0] == dead_tok:
+                        dpor_stats["dedup_hits"] += 1
             why = over_budget()
             if why:
-                return {"valid": "unknown", "configs": configs,
-                        "max_depth": depth, "info": why}
+                return finish({"valid": "unknown", "configs": configs,
+                               "max_depth": depth, "info": why})
         if not nxt:
             # the sweep died: report the blocked candidates
             final_ops: list[int] = []
@@ -288,7 +390,8 @@ def check_opseq_linear(seq: OpSeq, model, *,
                     if r not in seen:
                         seen.add(r)
                         final_ops.append(r)
-            return {"valid": False, "configs": configs, "max_depth": depth,
-                    "final_ops": sorted(final_ops)}
+            return finish({"valid": False, "configs": configs,
+                           "max_depth": depth,
+                           "final_ops": sorted(final_ops)})
         level = nxt
         depth += 1

@@ -15,6 +15,18 @@ An overflow at the widest rung, an exhausted budget, a passed deadline
 or a stop request reports "unknown", never a wrong verdict.  Histories
 past the device encoding go to the host ``linear`` sweep (``linear.py``).
 
+Every entry point runs the analysis layer in front of its engine, as the
+JAX package does by default: the history lint (``analyze/lint.py``),
+the static prepass (``analyze/hb.py``, ``analyze/constraints.py``),
+which decides some histories with no search and otherwise yields
+must-order edges, and DPOR (``analyze/dpor.py``): the edges become the
+device search's lane mask and dead register values its dedup
+(:func:`~.encode.attach_reductions`).  The fused kernel computes the
+unreduced search, so where it would take the starting rung the
+reductions are dropped for the whole search
+(:func:`_strip_reductions_for_kernel`).  ``audit=True`` replays every
+certificate (``analyze/audit.py``).
+
 :func:`check_competition` races the two exact host engines against the
 device search, the default route of :class:`Linearizable` above
 ``host_threshold`` ops.  :class:`Linearizable` confirms invalid device
@@ -23,8 +35,7 @@ prefix, which also yields a certificate, and reports every invalid
 verdict in ``linear.html`` (``linear_report.py``), led by its shrunk
 core (``analyze/shrink.py``).
 
-Not in this module yet: the history lint, the happens-before and DPOR
-reductions, certificate audit, decomposition and checkpoints.
+Not in this module yet: decomposition and checkpoints.
 """
 
 from __future__ import annotations
@@ -35,12 +46,16 @@ import time
 import numpy as np
 import torch
 
+from ..analyze.audit import maybe_audit
+from ..analyze.dpor import resolve_dpor
+from ..analyze.hb import attach, maybe_hb
+from ..analyze.lint import maybe_lint
 from ..history import OpSeq, encode_ops
 from . import level_kernel
-from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, SearchDims,
-                     _grid_width, _init_carry, _widen_carry,
-                     carry_to_device, choose_dims, encode_search,
-                     pad_search, search_args)
+from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, EncodedSearch,
+                     SearchDims, _grid_width, _init_carry, _widen_carry,
+                     attach_reductions, carry_to_device, choose_dims,
+                     encode_search, pad_search, search_args)
 from .linear import DEFAULT_WITNESS_CAP, _refuse, check_opseq_linear
 from .step import build_search_step_fn
 
@@ -87,25 +102,59 @@ def _adapt_lvl_cap(lvl_cap: int, dt: float,
     return lvl_cap
 
 
-def _use_kernel(model, dims: SearchDims, device: torch.device) -> bool:
-    """The fused CUDA level loop takes every eligible rung on the card."""
-    return device.type == "cuda" and level_kernel.eligible(model, dims)
+def _use_kernel(model, dims: SearchDims, device: torch.device, *,
+                masked: bool = False, dedup: bool = False) -> bool:
+    """The fused CUDA level loop takes every eligible rung on the card
+    (never one of a search with reductions)."""
+    return device.type == "cuda" and level_kernel.eligible(
+        model, dims, masked=masked, dedup=dedup)
+
+
+def _reduction_key(esp: EncodedSearch) -> tuple:
+    """(masked, masked_crash, dedup): the reduction part of the slice
+    function's cache key.  The dead table's width is not in it, as it
+    is in the JAX package's: the torch step traces no shapes."""
+    return bool(esp.masked), bool(esp.mask_has_crash), bool(esp.dedup)
+
+
+def _strip_reductions_for_kernel(es: EncodedSearch, model,
+                                 dims: SearchDims,
+                                 device: torch.device) -> EncodedSearch:
+    """Where :func:`_use_kernel` picks the fused kernel at the starting
+    dims, drop the must-order mask and the dedup for the whole search,
+    as the JAX package does for its Pallas kernel: both are optional
+    prunes, and the kernel computes the unreduced search.  Elsewhere
+    they stay and the torch step reads them."""
+    if (es.masked or es.dedup) and _use_kernel(model, dims, device):
+        es.det_mpred = es.det_cpred = None
+        es.crash_mpred = es.crash_cpred = None
+        es.det_cpredw = es.crash_cpredw = None
+        es.dead_from = None
+        es.dead_lo = es.dead_tok = 0
+        es.masked = es.mask_has_crash = es.dedup = False
+    return es
 
 
 _STEP_CACHE: dict = {}
 
 
-def get_kernel(model, dims: SearchDims, device: torch.device):
-    """The slice function for (model, dims) on ``device``: the CUDA
-    level loop where :func:`_use_kernel` says so, else the torch step."""
+def get_kernel(model, dims: SearchDims, device: torch.device, *,
+               masked: bool = False, masked_crash: bool = False,
+               dedup: bool = False):
+    """The slice function for (model, dims) on ``device`` and the
+    search's reductions: the CUDA level loop where :func:`_use_kernel`
+    says so, else the torch step."""
     from . import step
 
-    use_k = _use_kernel(model, dims, device)
-    key = (model.name, dims, str(device), step._DOMINANCE_MODE, use_k)
+    use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
+    key = (model.name, dims, str(device), step._DOMINANCE_MODE, use_k,
+           masked, masked_crash, dedup)
     fn = _STEP_CACHE.get(key)
     if fn is None:
         fn = (level_kernel.build_level_loop_fn(model, dims) if use_k
-              else build_search_step_fn(model, dims, device))
+              else build_search_step_fn(model, dims, device, masked=masked,
+                                        masked_crash=masked_crash,
+                                        dedup=dedup))
         _STEP_CACHE[key] = fn
     return fn
 
@@ -125,6 +174,7 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
     final (-1 never escapes), dims carries the final width, and
     ``used_kernel`` says whether any slice ran the CUDA level loop."""
     args = search_args(esp, es, device=device)
+    masked, masked_crash, dedup = _reduction_key(esp)
     carry = carry_to_device(_init_carry(dims, model), device)
     F = dims.frontier
     lvl_cap = _SLICE_LEVELS0
@@ -134,8 +184,10 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
     timed_out = False
     while True:
         bail = F < MAX_FRONTIER
-        used_kernel = used_kernel or _use_kernel(model, dims, device)
-        fn = get_kernel(model, dims, device)
+        used_kernel = used_kernel or _use_kernel(
+            model, dims, device, masked=masked, dedup=dedup)
+        fn = get_kernel(model, dims, device, masked=masked,
+                        masked_crash=masked_crash, dedup=dedup)
         t0 = time.perf_counter()
         carry = fn(*args, budget, lvl_cap, bail, *carry)
         status = int(carry[2])  # waits for the slice
@@ -242,27 +294,55 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
 
     ``deadline`` (``time.perf_counter()`` clock) and ``stop`` (a
     ``threading.Event``, how the competition race retires the device
-    leg) end the search as "unknown" between slices.  ``lint``,
-    ``audit``, ``hb`` and ``dpor`` take None or False (off)."""
-    for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
-                       (dpor, "dpor")):
-        _refuse(flag, name)
+    leg) end the search as "unknown" between slices.
+
+    ``lint`` (None: on) lints the history first.  ``hb`` (None: on) runs
+    the static prepass: a decided history returns at once with its
+    certificate and 0 configs (engine "hb-decide" or
+    "constraint-decide").  ``dpor`` (None: on) ships the prepass's
+    must-order edges and the dead-value table to the device search as
+    reduction planes, and adds ``dpor`` stats to the result
+    (``device_masked``, ``device_mask_rows``, ``dedup``).  ``audit=True``
+    replays the certificate."""
     dev = _resolve_device(device)
+    maybe_lint(seq, model, lint)
+    hbres = maybe_hb(seq, model, hb, dpor)
+
+    def finish(out: dict) -> dict:
+        return maybe_audit(seq, model, attach(out, hbres), audit)
+
+    if hbres is not None and hbres.decided is not None:
+        return maybe_audit(seq, model, dict(hbres.decided), audit)
     es = encode_search(seq)
     if es.n_det == 0 and es.n_crash == 0:
-        return {"valid": True, "configs": 0, "max_depth": 0,
-                "engine": "trivial", "linearization": []}
+        return finish({"valid": True, "configs": 0, "max_depth": 0,
+                       "engine": "trivial", "linearization": []})
     if greedy_witness(seq, model):
-        return {"valid": True, "configs": es.n_det, "max_depth": es.n_det,
-                "engine": "greedy-witness",
-                "linearization": greedy_linearization(seq)}
+        return finish({"valid": True, "configs": es.n_det,
+                       "max_depth": es.n_det, "engine": "greedy-witness",
+                       "linearization": greedy_linearization(seq)})
     if es.window > MAX_WINDOW or es.n_crash > MAX_CRASH:
         # the linear sweep has no window or crash caps, and dominates the
         # WGL search on the crash-heavy histories that land here
-        out = check_opseq_linear(seq, model, deadline=deadline, cancel=stop)
+        out = check_opseq_linear(seq, model, deadline=deadline, cancel=stop,
+                                 lint=False, hb=hb, dpor=dpor)
         out["engine"] = "host-linear(fallback)"
-        return out
+        return finish(out)
     dims = dims or choose_dims(es, model, device=dev)
+    dpor_stats = None
+    if resolve_dpor(dpor):
+        attach_reductions(es, seq, model,
+                          hbres.must_pred if hbres is not None else None,
+                          dedup=True)
+        _strip_reductions_for_kernel(es, model, dims, dev)
+        n_mask_rows = 0
+        if es.det_mpred is not None:
+            n_mask_rows = int(
+                ((es.det_mpred[:, 0] >= 0) | (es.det_cpred != 0)).sum()
+                + ((es.crash_mpred[:, 0] >= 0)
+                   | (es.crash_cpred != 0)).sum())
+        dpor_stats = {"enabled": True, "device_masked": es.masked,
+                      "device_mask_rows": n_mask_rows, "dedup": es.dedup}
     esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
     status, configs, max_depth, dims, used_kernel = _run_kernel(
         esp, es, model, dims, budget, dev, deadline=deadline, stop=stop)
@@ -270,11 +350,13 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
            "max_depth": max_depth, "engine": _engine_label(used_kernel),
            "frontier": dims.frontier, "window": es.window,
            "concurrency": es.concurrency}
+    if dpor_stats is not None:
+        out["dpor"] = dpor_stats
     if out["valid"] is True:
         out["witness_dropped"] = WITNESS_DROPPED_DEVICE
     elif out["valid"] is False:
         out["frontier_dropped"] = FRONTIER_DROPPED_DEVICE
-    return out
+    return finish(out)
 
 
 def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
@@ -295,13 +377,16 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
     before any host leg starts.  Past the device encoding the host legs
     decide alone.  The winner's certificate comes with its verdict.
 
-    ``lint``, ``audit``, ``hb`` and ``dpor`` take None or False (off)."""
+    One lint at the race's boundary (``lint``, None: on); the legs run
+    without it, each with its own prepass and reductions (``hb``,
+    ``dpor``).  ``audit=True`` replays the winner's certificate."""
     from . import seq as seqmod
 
-    for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
-                       (dpor, "dpor")):
-        _refuse(flag, name)
     dev = _resolve_device(device)
+    maybe_lint(seq, model, lint)
+
+    def finish(out: dict) -> dict:
+        return maybe_audit(seq, model, out, audit)
 
     # the WGL DFS memoizes each configuration twice (visited and
     # parents) as a (bigint set, state) pair: cap it to about 4 GB, so a
@@ -328,7 +413,8 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
     def wgl_leg():
         try:
             r = seqmod.check_opseq(seq, model, max_configs=max_configs,
-                                   cancel=done)
+                                   cancel=done, lint=False, hb=hb,
+                                   dpor=dpor)
         except Exception:  # noqa: BLE001 — a loser's error must not win
             return
         submit(r, "competition(host-wgl)")
@@ -337,7 +423,8 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
         try:
             r = check_opseq_linear(seq, model, max_configs=max_configs,
                                    cancel=done,
-                                   witness_cap=DEFAULT_WITNESS_CAP)
+                                   witness_cap=DEFAULT_WITNESS_CAP,
+                                   lint=False, hb=hb, dpor=dpor)
         except Exception:  # noqa: BLE001
             return
         submit(r, "competition(host-linear)")
@@ -358,13 +445,13 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
             if result:
                 out = dict(result)
                 out["engine"] += "+device-skipped(encoding limits)"
-                return out
+                return finish(out)
         return {"valid": "unknown", "configs": 0,
                 "engine": "competition(exhausted; device encoding limits)"}
 
     try:
         dev_out = search_opseq(seq, model, budget=budget, device=dev,
-                               stop=done)
+                               stop=done, lint=False, hb=hb, dpor=dpor)
     except BaseException:
         done.set()
         for t in threads:
@@ -382,7 +469,7 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
             t.join(timeout=5.0)
     with lock:
         if result:
-            return dict(result)
+            return finish(dict(result))
     return {**dev_out, "engine": "competition(exhausted)"}
 
 
@@ -428,7 +515,14 @@ class Linearizable:
     (``shrink``; histories up to :attr:`SHRINK_MAX_OPS` rows;
     ``shrink=False`` turns it off).  ``model`` may be given here or ride
     in ``test["model"]``.  ``device`` follows the package rule: "cuda"
-    by default, "cpu" only when asked for."""
+    by default, "cpu" only when asked for.
+
+    ``lint`` (None: on) lints the events, or the columns of an OpSeq,
+    before anything else: errors raise ``HistoryLintError``, warnings
+    ride the result as ``lint_warnings``.  ``hb`` and ``dpor`` (None:
+    on) reach every route; the host confirmation after a device win
+    runs with both at their defaults.  ``audit=True`` replays the
+    returned certificate."""
 
     name = "linearizable"
 
@@ -448,9 +542,6 @@ class Linearizable:
                  audit: bool | None = None, shrink: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
                  device="cuda"):
-        for flag, name in ((lint, "lint"), (audit, "audit"), (hb, "hb"),
-                           (dpor, "dpor")):
-            _refuse(flag, name)
         _refuse(decompose, "decompose", "A8")
         _refuse(explain, "explain", "A12")
         try:
@@ -463,39 +554,60 @@ class Linearizable:
         self.host_threshold = host_threshold
         self.witness_threshold = witness_threshold
         self.shrink = shrink
+        self.lint = lint
+        self.audit = audit
+        self.hb = hb
+        self.dpor = dpor
         self.device = device
 
     def check(self, test, history, opts=None):
+        from ..analyze.lint import check_history, check_opseq_lint
+
         model = self.model or (test or {}).get("model")
         if model is None:
             raise ValueError("linearizable checker needs a model")
+        lint_warnings: list = []
+        if self.lint is None or self.lint:
+            # the event-level lint sees what encoding erases (double
+            # invokes, orphan completions); an OpSeq gets the columns'
+            if isinstance(history, OpSeq):
+                lint_warnings = check_opseq_lint(history, model)
+            else:
+                lint_warnings = check_history(history, model)
         seq = history if isinstance(history, OpSeq) else \
             encode_ops(history, model.f_codes)
-        return self._check_direct(test, seq, model, opts)
+        out = self._check_direct(test, seq, model, opts)
+        if lint_warnings:
+            out.setdefault("lint_warnings",
+                           [d.to_dict() for d in lint_warnings])
+        return maybe_audit(seq, model, out, self.audit)
 
     def _check_direct(self, test, seq: OpSeq, model, opts) -> dict:
         from . import seq as seqmod
 
+        # the lint ran at the checker's boundary: every route runs
+        # lint-free below
+        red = {"lint": False, "hb": self.hb, "dpor": self.dpor}
         if self.algorithm == "host" or (self.algorithm == "auto"
                                         and len(seq) <= self.host_threshold):
-            out = seqmod.check_opseq(seq, model)
+            out = seqmod.check_opseq(seq, model, **red)
             out["engine"] = "host-oracle"
             if out["valid"] is False:
                 self._render_failure(test, seq, out, opts, model)
             return out
         if self.algorithm == "linear":
             out = check_opseq_linear(seq, model,
-                                     witness_cap=DEFAULT_WITNESS_CAP)
+                                     witness_cap=DEFAULT_WITNESS_CAP, **red)
             out["engine"] = "host-linear"
             if out["valid"] is False:
                 self._render_failure(test, seq, out, opts, model)
             return out
         if self.algorithm in ("auto", "competition"):
             out = check_competition(seq, model, budget=self.budget,
-                                    device=self.device)
+                                    device=self.device, **red)
         else:
             out = search_opseq(seq, model, budget=self.budget,
-                               device=self.device)
+                               device=self.device, **red)
         if out["valid"] is False:
             eng = out.get("engine", "")
             if "host-oracle" in eng or "host-linear" in eng:
@@ -510,7 +622,9 @@ class Linearizable:
             if target is None:
                 target = seq
             if len(target) <= self.witness_threshold:
-                confirm = seqmod.check_opseq(target, model)
+                # hb and dpor at their defaults, as the JAX package's
+                # confirmation runs
+                confirm = seqmod.check_opseq(target, model, lint=False)
                 if confirm["valid"] is False:
                     confirm["engine"] = out["engine"] + "+host-witness"
                     confirm["device_configs"] = out["configs"]

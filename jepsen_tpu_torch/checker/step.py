@@ -1,12 +1,19 @@
 """One bounded slice of the breadth-first search, as plain torch ops.
 
 This is the search engine for every frontier rung the fused CUDA level
-loop does not take (``level_kernel.eligible``), and, pinned to the
-all-pairs prune, that kernel's plain version.  It computes bit for bit
-what the JAX package's ``build_search_step_fn`` computes unreduced
-(no must-order mask, no dead-value dedup, no telemetry): same
-28-argument signature, same 6-tuple carry
-``(frontier, count, status, configs, max_depth, ovf)``.
+loop does not take (``level_kernel.eligible``: other models, wider
+rungs, and every search with reductions), and, unreduced and pinned to
+the all-pairs prune, that kernel's plain version.  It computes bit for
+bit what the JAX package's ``build_search_step_fn`` computes (no
+telemetry): same 28-argument signature, same 6-tuple carry
+``(frontier, count, status, configs, max_depth, ovf)``, and the same
+two optional reductions.  ``masked``: a candidate lane is enabled only
+once its must-order predecessors (``encode.attach_reductions``) are
+linearized, det ones by the prefix/window test, crash ones
+(``masked_crash``) by a subset test of packed words against the
+configuration's crash mask.  ``dedup``: a successor state whose value
+is dead at the configuration's prefix is rewritten to the dead token,
+so symmetric configurations merge in the prune.
 
 A level's depth counts DETERMINATE linearizations only.  Per level:
 
@@ -206,29 +213,35 @@ def _prune_rows(cfgs, valid, M: int, dims: SearchDims,
 
 
 def _slice_tables(tables: dict, p: torch.Tensor, alive: torch.Tensor,
-                  w2p: int):
-    """The level's shared strip of the determinate tables: every lookup
-    a level makes lands in [min_p, min_p + 2W + NC), so the strip of
-    ``w2p`` entries from ``base`` covers it.  Positions stay absolute
-    for comparisons; only table indexing is rebased."""
+                  w2p: int, names: tuple):
+    """The level's shared strip of the determinate tables ``names``:
+    every lookup a level makes lands in [min_p, min_p + 2W + NC), so the
+    strip of ``w2p`` entries from ``base`` covers it.  Positions stay
+    absolute for comparisons; only table indexing is rebased."""
     n_det_pad = tables["det_f"].shape[0]
     base = torch.where(alive, p, INF32).min().clamp(0, n_det_pad - w2p)
     idx = base + torch.arange(w2p, device=p.device)
-    sl = {k: tables[k][idx]
-          for k in ("det_f", "det_v1", "det_v2", "det_inv", "det_ret")}
+    sl = {k: tables[k][idx] for k in names}
     sl["sfx"] = tables["sfx"][base + torch.arange(w2p + 1,
                                                   device=p.device)]
     return base, sl
 
 
-def _make_kernel_pieces(model, dims: SearchDims):
+_DET_TABLES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret")
+
+
+def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
+                        masked_crash: bool = False, dedup: bool = False):
     """The per-level building blocks: ``expand_mask`` (enabled
     candidates, model step and goal test for every row, K lanes each;
     no successor words) and ``succ`` (a survivor's packed successor
-    words from its source row, candidate lane and new state)."""
+    words from its source row, candidate lane and new state).
+    ``masked``/``masked_crash``/``dedup`` add the reductions' checks."""
     W, K, NC = dims.window, dims.k, dims.n_crash_pad
     WW, CW, SW = dims.win_words, dims.crash_words, dims.state_width
     W2P = min(_round_up(2 * W + NC, 32), dims.n_det_pad)
+    dedup = dedup and SW == 1
+    sliced = _DET_TABLES + (("det_mpred", "det_cpredw") if masked else ())
 
     def unpack(cfgs):
         p = cfgs[:, 0].to(torch.int64)
@@ -236,10 +249,21 @@ def _make_kernel_pieces(model, dims: SearchDims):
         crash = _unpack_bits(cfgs[:, 1 + WW:1 + WW + CW], CW)[:, :NC]
         return p, win, crash, cfgs[:, 1 + WW + CW:]
 
-    def expand_mask(frontier, alive, tables, n_det, n_crash):
+    def done_preds(mpred, p, win):
+        """Whether each must-predecessor (det positions, -1 pads) is
+        linearized: inside the prefix, or in the window with its bit
+        set; past the window it cannot be yet."""
+        pp = p[:, None, None]
+        q = mpred.to(torch.int64) - pp
+        at = win.gather(1, q.clamp(0, W - 1).reshape(q.shape[0], -1))
+        return ((mpred < pp) | ((q >= 0) & (q < W)
+                               & at.reshape(q.shape))).all(dim=2)
+
+    def expand_mask(frontier, alive, tables, n_det, n_crash, dead_lo,
+                    dead_tok):
         dev = frontier.device
         p, win, crash, state = unpack(frontier)
-        base, t = _slice_tables(tables, p, alive, W2P)
+        base, t = _slice_tables(tables, p, alive, W2P, sliced)
         lanes = torch.arange(W, device=dev)
         pos = p[:, None] + lanes
         rel = (pos - base).clamp(0, W2P - 1)
@@ -262,6 +286,19 @@ def _make_kernel_pieces(model, dims: SearchDims):
         c_lanes = torch.arange(NC, device=dev)
         c_en = ((c_lanes < n_crash) & ~crash
                 & (tables["crash_inv"][None, :] < m1_tot[:, None]))
+        if masked:
+            det_en = det_en & done_preds(t["det_mpred"][rel], p, win)
+            c_en = c_en & done_preds(
+                tables["crash_mpred"][None].expand(p.shape[0], NC, -1),
+                p, win)
+            if masked_crash:
+                # crash predecessors: their bits must be in the
+                # configuration's crash mask
+                held = ~_u32(frontier[:, 1 + WW:1 + WW + CW])[:, None, :]
+                det_en = det_en & ((_u32(t["det_cpredw"][rel]) & held)
+                                   == 0).all(dim=2)
+                c_en = c_en & ((_u32(tables["crash_cpredw"])[None] & held)
+                               == 0).all(dim=2)
 
         cand, n_en = _select_enabled(torch.cat([det_en, c_en], dim=1), K)
         cand_on = torch.arange(K, device=dev) < n_en[:, None]
@@ -278,6 +315,17 @@ def _make_kernel_pieces(model, dims: SearchDims):
         new_state, legal = model.tstep(
             state[:, None, :].expand(state.shape[0], K, SW), cf, cv1, cv2)
         valid = alive[:, None] & cand_on & legal
+        if dedup:
+            # the dead-value rewrite, at the configuration's prefix p
+            # (deadness only grows with the prefix)
+            dead_from = tables["dead_from"]
+            vt = dead_from.shape[0]
+            v = new_state[..., 0].to(torch.int64)
+            df = dead_from[(v - dead_lo).clamp(0, vt - 1)]
+            is_dead = ((v >= dead_lo) & (v < dead_lo + vt)
+                       & (p[:, None] >= df))
+            new_state = torch.where(is_dead[..., None], dead_tok,
+                                    new_state)
         # a det candidate is a goal iff it is the last unlinearized det;
         # a crash candidate never advances p, so only if none is left
         remaining = n_det - (p + win.sum(dim=1))
@@ -321,19 +369,25 @@ def _succ_block(pieces, frontier, validf, cand, ns, cap: int, K: int):
 
 
 _TABLE_NAMES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret", "sfx",
-                "crash_f", "crash_v1", "crash_v2", "crash_inv")
+                "crash_f", "crash_v1", "crash_v2", "crash_inv", "det_mpred",
+                "det_cpredw", "crash_mpred", "crash_cpredw", "dead_from")
 
 
 def build_search_step_fn(model, dims: SearchDims, device, *,
-                         use_allpairs: bool | None = None):
+                         use_allpairs: bool | None = None,
+                         masked: bool = False, masked_crash: bool = False,
+                         dedup: bool = False):
     """One slice of the search for (model, dims) on ``device``.
 
     ``use_allpairs`` pins the prune at both sites; None picks per site
-    (`_use_allpairs`) at build time."""
+    (`_use_allpairs`) at build time.  ``masked``, ``masked_crash`` and
+    ``dedup`` read the reduction planes (see the module doc); off, the
+    planes are not read."""
     dev = torch.device(device)
     K, F, W = dims.k, dims.frontier, dims.window
     S = 4 * F
-    pieces = _make_kernel_pieces(model, dims)
+    pieces = _make_kernel_pieces(model, dims, masked=masked,
+                                 masked_crash=masked_crash, dedup=dedup)
     ap_cl = _use_allpairs(2 * F, dev) if use_allpairs is None \
         else use_allpairs
     ap_det = _use_allpairs(S, dev) if use_allpairs is None \
@@ -345,14 +399,12 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
              n_det, n_crash, dead_lo, dead_tok,
              budget, lvl_cap, bail,
              frontier, count, status, configs, max_depth, ovf):
-        # the reduction planes are part of the shared signature; this
-        # unreduced search does not read them
-        del det_mpred, det_cpredw, crash_mpred, crash_cpredw
-        del dead_from, dead_lo, dead_tok
         tables = dict(zip(_TABLE_NAMES, (
             det_f, det_v1, det_v2, det_inv, det_ret, sfx_min, crash_f,
-            crash_v1, crash_v2, crash_inv)))
+            crash_v1, crash_v2, crash_inv, det_mpred, det_cpredw,
+            crash_mpred, crash_cpredw, dead_from)))
         n_det, n_crash = int(n_det), int(n_crash)
+        dead_lo, dead_tok = int(dead_lo), int(dead_tok)
         budget, lvl_cap, bail = int(budget), int(lvl_cap), bool(bail)
         fdev = frontier.device
         i32 = torch.int32
@@ -366,7 +418,7 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
 
         def mask_phase(fr, alive):
             return pieces["expand_mask"](fr, alive, tables, n_det,
-                                         n_crash)
+                                         n_crash, dead_lo, dead_tok)
 
         def prune_compact(cfgs, valid, M, ap):
             kept, scfgs, origin = _prune_rows(cfgs, valid, M, dims, ap)

@@ -9,9 +9,11 @@ semantics:
     elementwise torch over any leading batch shape, for the device search.
 
 ``kernel_id`` selects the same step inside the CUDA level-loop kernel
-(``csrc/level_loop.cu``, ``model_step``).  Values are int32 lanes;
-:data:`~jepsen_tpu_torch.history.NIL` is an unknown value, always legal
-to read and never a state change.
+(``csrc/level_loop.cu``, ``model_step``); None for the models the kernel
+does not implement (multi-register and the two queues: their state is
+wider than the kernel's four words), which always run the torch step.
+Values are int32 lanes; :data:`~jepsen_tpu_torch.history.NIL` is an
+unknown value, always legal to read and never a state change.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ class ModelSpec:
     init: State
     pystep: Callable[[State, int, int, int], Optional[State]]
     tstep: Callable
-    kernel_id: int
+    kernel_id: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
@@ -165,3 +167,175 @@ def noop() -> ModelSpec:
     return ModelSpec(
         name="noop", f_codes=_AnyFCodes(), state_width=1, init=(0,),
         pystep=_noop_pystep, tstep=_noop_tstep, kernel_id=K_NOOP)
+
+
+def _broadcast(state, *lanes):
+    """``state[..., w]`` and the op lanes expanded to one batch shape."""
+    batch = torch.broadcast_shapes(state.shape[:-1],
+                                   *(x.shape for x in lanes))
+    return (state.expand(batch + state.shape[-1:]),
+            *(x.expand(batch) for x in lanes))
+
+
+# ---------------------------------------------------------------------------
+# multi-register: ``width`` registers in one object; ops take (key, value)
+# ---------------------------------------------------------------------------
+
+
+def multi_register(width: int, initial: int = 0) -> ModelSpec:
+    """``width`` registers; the value lanes are (key, value)."""
+
+    def pystep(state, f, v1, v2):
+        key = v1
+        if key == NIL or not (0 <= key < width):
+            return None
+        if f == R_READ:
+            return state if (v2 == NIL or v2 == state[key]) else None
+        if f == R_WRITE:
+            s = list(state)
+            s[key] = v2
+            return tuple(s)
+        raise ValueError(f"multi-register: bad f code {f}")
+
+    def tstep(state, f, v1, v2):
+        state, f, v1, v2 = _broadcast(state, f, v1, v2)
+        key = v1.clamp(0, width - 1).to(torch.int64).unsqueeze(-1)
+        in_range = (v1 >= 0) & (v1 < width)
+        cur = state.gather(-1, key).squeeze(-1)
+        read_legal = in_range & ((v2 == NIL) | (v2 == cur))
+        legal = torch.where(f == R_READ, read_legal, in_range)
+        # an illegal step leaves the state unchanged
+        lanes = torch.arange(width, device=state.device)
+        hit = ((f == R_WRITE) & in_range).unsqueeze(-1) & (lanes == key)
+        return torch.where(hit, v2.unsqueeze(-1), state), legal
+
+    return ModelSpec(
+        name="multi-register", f_codes={"read": R_READ, "write": R_WRITE},
+        state_width=width, init=(initial,) * width, pystep=pystep,
+        tstep=tstep)
+
+
+# ---------------------------------------------------------------------------
+# unordered-queue and fifo-queue: bounded queues over ``capacity`` lanes
+# ---------------------------------------------------------------------------
+
+Q_ENQ, Q_DEQ = 0, 1
+
+#: empty lane: sorts after every real value (2**31-1 is never an
+#: encoded value)
+Q_EMPTY = 2**31 - 1
+
+
+def _uq_pystep_factory(capacity: int):
+    def pystep(state, f, v1, v2):
+        if v1 == NIL:
+            # an op with an unknown value (a crashed invoke) constrains
+            # and changes nothing
+            return state
+        if f == Q_ENQ:
+            if state[capacity - 1] != Q_EMPTY:
+                return None  # over capacity
+            s = sorted(state[:capacity - 1] + (v1,))
+            return tuple(s) + (Q_EMPTY,) * (capacity - len(s))
+        if f == Q_DEQ:
+            if v1 not in state:
+                return None
+            s = list(state)
+            s.remove(v1)
+            return tuple(s) + (Q_EMPTY,)
+        raise ValueError(f"unordered-queue: bad f code {f}")
+
+    return pystep
+
+
+def _shift_left(state):
+    """Lanes moved one to the left, an empty lane in at the end."""
+    return torch.cat([state[..., 1:],
+                      torch.full_like(state[..., :1], Q_EMPTY)], dim=-1)
+
+
+def _uq_tstep_factory(capacity: int):
+    def tstep(state, f, v1, v2):
+        state, f, v1 = _broadcast(state, f, v1)
+        idx = torch.arange(capacity, device=state.device)
+        v = v1.unsqueeze(-1)
+        # enqueue: sorted insert at cnt = |{i: state[i] <= v}|
+        room = state[..., capacity - 1] == Q_EMPTY
+        cnt = (state <= v).sum(dim=-1, keepdim=True)
+        enq = torch.where(idx < cnt, state,
+                          torch.where(idx == cnt, v,
+                                      torch.roll(state, 1, dims=-1)))
+        # dequeue: remove the first lane equal to v
+        eq = state == v
+        first = torch.where(eq, idx, capacity).min(dim=-1,
+                                                    keepdim=True).values
+        deq = torch.where(idx < first, state, _shift_left(state))
+        is_enq = f == Q_ENQ
+        nil = v1 == NIL
+        legal = nil | torch.where(is_enq, room, eq.any(dim=-1))
+        new_state = torch.where((nil | ~legal).unsqueeze(-1), state,
+                                torch.where(is_enq.unsqueeze(-1), enq, deq))
+        return new_state, legal
+
+    return tstep
+
+
+def unordered_queue(capacity: int = 16) -> ModelSpec:
+    """Bounded unordered queue (a multiset held as sorted lanes).
+    ``capacity`` must cover the longest queue any linearization reaches
+    (the enqueue count is always enough): an enqueue past it is
+    illegal."""
+    return ModelSpec(
+        name=f"unordered-queue-{capacity}",
+        f_codes={"enqueue": Q_ENQ, "dequeue": Q_DEQ},
+        state_width=capacity, init=(Q_EMPTY,) * capacity,
+        pystep=_uq_pystep_factory(capacity),
+        tstep=_uq_tstep_factory(capacity))
+
+
+def _fq_pystep_factory(capacity: int):
+    def pystep(state, f, v1, v2):
+        if v1 == NIL:
+            return state
+        if f == Q_ENQ:
+            if state[capacity - 1] != Q_EMPTY:
+                return None  # over capacity
+            cnt = sum(1 for x in state if x != Q_EMPTY)
+            return state[:cnt] + (v1,) + state[cnt + 1:]
+        if f == Q_DEQ:
+            if state[0] == Q_EMPTY or state[0] != v1:
+                return None
+            return state[1:] + (Q_EMPTY,)
+        raise ValueError(f"fifo-queue: bad f code {f}")
+
+    return pystep
+
+
+def _fq_tstep_factory(capacity: int):
+    def tstep(state, f, v1, v2):
+        state, f, v1 = _broadcast(state, f, v1)
+        idx = torch.arange(capacity, device=state.device)
+        room = state[..., capacity - 1] == Q_EMPTY
+        cnt = (state != Q_EMPTY).sum(dim=-1, keepdim=True)
+        enq = torch.where(idx == cnt, v1.unsqueeze(-1), state)
+        head_ok = (state[..., 0] != Q_EMPTY) & (state[..., 0] == v1)
+        is_enq = f == Q_ENQ
+        nil = v1 == NIL
+        legal = nil | torch.where(is_enq, room, head_ok)
+        new_state = torch.where((nil | ~legal).unsqueeze(-1), state,
+                                torch.where(is_enq.unsqueeze(-1), enq,
+                                            _shift_left(state)))
+        return new_state, legal
+
+    return tstep
+
+
+def fifo_queue(capacity: int = 16) -> ModelSpec:
+    """Bounded FIFO queue, front at lane 0; the capacity rule of
+    :func:`unordered_queue` holds."""
+    return ModelSpec(
+        name=f"fifo-queue-{capacity}",
+        f_codes={"enqueue": Q_ENQ, "dequeue": Q_DEQ},
+        state_width=capacity, init=(Q_EMPTY,) * capacity,
+        pystep=_fq_pystep_factory(capacity),
+        tstep=_fq_tstep_factory(capacity))

@@ -1,7 +1,7 @@
 """Synthetic histories for benchmarks and self-tests.
 
-Simulated single-threaded processes run against an in-memory register or
-lock; each op takes effect atomically at its completion event, so the
+Simulated single-threaded processes run against an in-memory register,
+lock or queue; each op takes effect atomically at its completion event, so the
 emitted history is valid by construction until a corruptor rewrites it.
 Driven by a caller's ``random.Random``: the same seed gives the same
 history as the JAX package's generators of the same names.
@@ -224,4 +224,79 @@ def sim_mutex_history(rng: random.Random, n_ops: int = 40,
                 h.append(fail_op(p, f, None))
         else:
             h.append(info_op(p, f, None))
+    return h
+
+
+def sim_queue_history(rng: random.Random, n_ops: int = 40,
+                      n_procs: int = 4, *,
+                      crash_p: float = 0.0,
+                      fifo: bool = False) -> list[Op]:
+    """Enqueue/dequeue against an in-memory multiset, valid by
+    construction (ops take effect at completion; a dequeue takes an
+    arbitrary present element, or the oldest when ``fifo``).  Enqueued
+    values are unique integers.  A crashed enqueue applies its effect on
+    a coin flip, and a later dequeue may then return its value."""
+    contents: list[int] = []
+    h: list[Op] = []
+    pending: dict = {}  # process -> (f, value or None)
+    crashed: set = set()
+    next_v = 0
+    done = 0
+    while done < n_ops or pending:
+        live = [p for p in range(n_procs) if p not in crashed]
+        if not live:
+            break
+        p = rng.choice(live)
+        if p in pending:
+            f, v = pending.pop(p)
+            if crash_p and rng.random() < crash_p:
+                if f == "enqueue" and rng.random() < 0.5:
+                    contents.append(v)
+                crashed.add(p)
+                h.append(info_op(p, f, v))
+                continue
+            if f == "enqueue":
+                contents.append(v)
+                h.append(ok_op(p, f, v))
+            elif contents:
+                got = contents.pop(0 if fifo
+                                   else rng.randrange(len(contents)))
+                h.append(ok_op(p, f, got))
+            else:
+                h.append(fail_op(p, f, None))
+        elif done < n_ops:
+            if rng.random() < 0.55 or not contents:
+                f, v = "enqueue", next_v
+                next_v += 1
+            else:
+                f, v = "dequeue", None
+            h.append(invoke_op(p, f, v))
+            pending[p] = (f, v)
+            done += 1
+    return h
+
+
+def swap_dequeues(rng: random.Random, h: list[Op]) -> list[Op]:
+    """Swap the values of two ok dequeues: a different service order,
+    which a FIFO queue rejects unless the two were concurrent."""
+    idx = [i for i, op in enumerate(h)
+           if op.type == "ok" and op.f == "dequeue"]
+    if len(idx) < 2:
+        return h
+    i, j = rng.sample(idx, 2)
+    h = list(h)
+    h[i], h[j] = (replace(h[i], value=h[j].value),
+                  replace(h[j], value=h[i].value))
+    return h
+
+
+def corrupt_dequeue(rng: random.Random, h: list[Op]) -> list[Op]:
+    """Rewrite one ok dequeue's value to one never enqueued."""
+    idx = [i for i, op in enumerate(h)
+           if op.type == "ok" and op.f == "dequeue"]
+    if not idx:
+        return h
+    i = rng.choice(idx)
+    h = list(h)
+    h[i] = replace(h[i], value=999_983)
     return h

@@ -3,9 +3,11 @@
 encoding, the competition race, and ``Linearizable`` with every
 algorithm name.  The deterministic parts are compared exactly; of the
 race only the verdict and the engine's prefix, since the winner depends
-on timing.  Also the port's own rules: a CUDA device without a card
-raises before any host leg starts, and a failing device leg propagates
-instead of letting a host leg win."""
+on timing.  The passes are off on both sides (``OFF``) where the counts
+are compared; the default route with the passes on is compared in
+tests/test_torch_default_route.py.  Also the port's own rules: a CUDA
+device without a card raises before any host leg starts, and a failing
+device leg propagates instead of letting a host leg win."""
 
 import threading
 import time
@@ -17,7 +19,7 @@ import jepsen_tpu.checker.linearizable as lin
 from jepsen_tpu_torch.checker import linearizable as tlin
 from jepsen_tpu_torch.checker import seq as tseq
 from test_torch_linear import CRASH_HEAVY, crash_heavy
-from test_torch_search import CASES, OFF, _pair
+from test_torch_search import CASES, OFF, _pair, reference_defaults
 
 SEARCH_KEYS = ("valid", "configs", "max_depth", "engine", "info",
                "final_ops", "linearization")
@@ -26,11 +28,10 @@ SEARCH_KEYS = ("valid", "configs", "max_depth", "engine", "info",
 @pytest.fixture(autouse=True)
 def _pinned_level_cap(monkeypatch):
     """Pin the adaptive level cap on both sides (the width ladder
-    follows wall time) and the JAX checker's reduction knobs off."""
+    follows wall time), and the JAX package's pass knobs unset."""
     monkeypatch.setattr(lin, "_SLICE_TARGET_S", 1e9)
     monkeypatch.setattr(tlin, "_SLICE_TARGET_S", 1e9)
-    monkeypatch.setenv("JEPSEN_TPU_HB", "0")
-    monkeypatch.setenv("JEPSEN_TPU_DPOR", "0")
+    reference_defaults(monkeypatch)
 
 
 def _store(tmp_path):
@@ -56,7 +57,7 @@ def test_search_opseq_stopped_matches_reference(kind, seed, corrupt, how):
     else:
         kj = kt = {"deadline": time.perf_counter() - 1.0}
     oj = lin.search_opseq(sj, mj, **OFF, **kj)
-    ot = tlin.search_opseq(st, mt, device="cpu", **kt)
+    ot = tlin.search_opseq(st, mt, device="cpu", **OFF, **kt)
     assert {k: ot.get(k) for k in SEARCH_KEYS} == \
         {k: oj.get(k) for k in SEARCH_KEYS}
 
@@ -69,7 +70,8 @@ def test_stopped_cases_end_unknown():
         _, _, st, mt = _pair(kind, seed, corrupt=corrupt)
         ev = threading.Event()
         ev.set()
-        seen.add(tlin.search_opseq(st, mt, device="cpu", stop=ev)["valid"])
+        seen.add(tlin.search_opseq(st, mt, device="cpu", stop=ev,
+                                   **OFF)["valid"])
     assert "unknown" in seen
 
 
@@ -77,7 +79,7 @@ def test_stopped_cases_end_unknown():
 def test_search_opseq_fallback_matches_reference(seed, corrupt):
     sj, mj, st, mt = crash_heavy(seed, corrupt=corrupt)
     oj = lin.search_opseq(sj, mj, **OFF)
-    ot = tlin.search_opseq(st, mt, device="cpu")
+    ot = tlin.search_opseq(st, mt, device="cpu", **OFF)
     assert {k: ot.get(k) for k in SEARCH_KEYS} == \
         {k: oj.get(k) for k in SEARCH_KEYS}
     if not corrupt:
@@ -86,15 +88,15 @@ def test_search_opseq_fallback_matches_reference(seed, corrupt):
     # stopped before it starts, the sweep ends at its first check
     ev = threading.Event()
     ev.set()
-    out = tlin.search_opseq(st, mt, device="cpu", stop=ev)
+    out = tlin.search_opseq(st, mt, device="cpu", stop=ev, **OFF)
     assert out["valid"] == "unknown" and out["info"] == "cancelled"
 
 
 @pytest.mark.parametrize("kind,seed,corrupt", CASES)
 def test_competition_agrees_with_oracle(kind, seed, corrupt):
     _, _, st, mt = _pair(kind, seed, corrupt=corrupt)
-    want = tseq.check_opseq(st, mt)["valid"]
-    out = tlin.check_competition(st, mt, device="cpu")
+    want = tseq.check_opseq(st, mt, **OFF)["valid"]
+    out = tlin.check_competition(st, mt, device="cpu", **OFF)
     assert out["valid"] == want
     assert out["engine"].startswith("competition(")
     assert not _race_threads()
@@ -105,7 +107,7 @@ def test_competition_host_wins_when_device_stalls():
     host leg carries the race."""
     sj, mj, st, mt = _pair("register", 1, corrupt=True)
     oj = lin.check_competition(sj, mj, budget=1, **OFF)
-    ot = tlin.check_competition(st, mt, budget=1, device="cpu")
+    ot = tlin.check_competition(st, mt, budget=1, device="cpu", **OFF)
     assert ot["valid"] is False and oj["valid"] is False
     assert ot["engine"] in ("competition(host-wgl)",
                             "competition(host-linear)")
@@ -115,7 +117,7 @@ def test_competition_host_wins_when_device_stalls():
 def test_competition_past_the_encoding(seed, corrupt):
     sj, mj, st, mt = crash_heavy(seed, corrupt=corrupt)
     oj = lin.check_competition(sj, mj, **OFF)
-    ot = tlin.check_competition(st, mt, device="cpu")
+    ot = tlin.check_competition(st, mt, device="cpu", **OFF)
     assert ot["valid"] is (not corrupt) and oj["valid"] is ot["valid"]
     assert ot["engine"].startswith("competition(host-")
     assert ot["engine"].endswith("+device-skipped(encoding limits)")
@@ -129,8 +131,8 @@ def test_default_route_matches_reference(kind, seed, corrupt, tmp_path):
     sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
     assert len(st) > 48
     oj = lin.linearizable(mj, **OFF).check(_store(tmp_path / "j"), sj)
-    ot = tlin.linearizable(mt, device="cpu").check(_store(tmp_path / "t"),
-                                                   st)
+    ot = tlin.linearizable(mt, device="cpu", **OFF).check(
+        _store(tmp_path / "t"), st)
     assert ot["valid"] == oj["valid"]
     assert ot["engine"].startswith("competition(")
     assert ("report_file" in ot) is (ot["valid"] is False)
@@ -143,8 +145,8 @@ def test_every_algorithm_finds_the_violation(algorithm, tmp_path):
     oj = lin.linearizable(mj, algorithm=algorithm, **OFF).check(
         _store(tmp_path / "j"), sj)
     ot = tlin.linearizable(mt, algorithm=algorithm, device="cpu",
-                           host_threshold=10).check(_store(tmp_path / "t"),
-                                                    st)
+                           host_threshold=10, **OFF).check(
+        _store(tmp_path / "t"), st)
     assert ot["valid"] is False and oj["valid"] is False
     with pytest.raises(ValueError):
         tlin.linearizable(mt, algorithm="quantum", device="cpu")
@@ -153,8 +155,8 @@ def test_every_algorithm_finds_the_violation(algorithm, tmp_path):
 @pytest.mark.parametrize("algorithm", ["auto", "linear", "device"])
 def test_past_the_encoding_through_the_checker(algorithm, tmp_path):
     _, _, st, mt = crash_heavy(1, corrupt=False)
-    out = tlin.linearizable(mt, algorithm=algorithm, device="cpu").check(
-        _store(tmp_path), st)
+    out = tlin.linearizable(mt, algorithm=algorithm, device="cpu",
+                            **OFF).check(_store(tmp_path), st)
     assert out["valid"] is True
     want = {"auto": "competition(host-", "linear": "host-linear",
             "device": "greedy-witness"}[algorithm]
@@ -180,9 +182,9 @@ def test_device_leg_failure_propagates(monkeypatch):
     monkeypatch.setattr(tlin, "get_kernel", broken)
     _, _, st, mt = _pair("register", 1, corrupt=True)
     with pytest.raises(RuntimeError, match="build failed"):
-        tlin.check_competition(st, mt, device="cpu")
+        tlin.check_competition(st, mt, device="cpu", **OFF)
     with pytest.raises(RuntimeError, match="build failed"):
-        tlin.linearizable(mt, device="cpu").check({}, st)
+        tlin.linearizable(mt, device="cpu", **OFF).check({}, st)
     deadline = time.monotonic() + 10
     while _race_threads() and time.monotonic() < deadline:
         time.sleep(0.05)

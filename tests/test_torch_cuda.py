@@ -91,13 +91,15 @@ def test_search_runs_the_kernel_and_matches_the_host(cuda, monkeypatch):
     for p in range(100, 106):
         h += [invoke_op(p, "acquire"), ok_op(p, "acquire")]
     seq = encode_ops(h, model.f_codes)
+    # with the prepass on, the chain decides the history with no search
+    off = {"hb": False, "dpor": False}
     before = lk.LAUNCHES
-    on_card = search_opseq(seq, model, device="cuda")
+    on_card = search_opseq(seq, model, device="cuda", **off)
     assert lk.LAUNCHES > before
     assert on_card["engine"] == "device-bfs(cuda)"
     # the card prunes all-pairs; pin the host to the same prune
     monkeypatch.setattr(step, "_DOMINANCE_MODE", "allpairs")
-    on_host = search_opseq(seq, model, device="cpu")
+    on_host = search_opseq(seq, model, device="cpu", **off)
     for k in ("valid", "configs", "max_depth", "window"):
         assert on_card[k] == on_host[k], k
     assert on_card["valid"] is False
@@ -105,15 +107,18 @@ def test_search_runs_the_kernel_and_matches_the_host(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_1k_tier_search_runs_only_the_kernel(cuda, monkeypatch):
-    """The 1k bench tier at its real size: every slice of the search, on
-    every rung the ladder takes, runs the CUDA level loop."""
+    """The 1k bench tier at its real size, with the defaults: the kernel
+    takes the starting rung, so the search drops its reductions, and
+    every slice, on every rung the ladder takes, runs the CUDA level
+    loop with the unreduced counts."""
     from chip_smoke import REFERENCE, tier_history
 
     routes = []
     use_kernel = lin._use_kernel
 
-    def traced(model, dims, device):
-        routes.append((dims.frontier, use_kernel(model, dims, device)))
+    def traced(model, dims, device, **reduction):
+        routes.append((dims.frontier,
+                       use_kernel(model, dims, device, **reduction)))
         return routes[-1][1]
 
     monkeypatch.setattr(lin, "_use_kernel", traced)
@@ -122,3 +127,24 @@ def test_1k_tier_search_runs_only_the_kernel(cuda, monkeypatch):
     assert routes and all(k for _f, k in routes), routes
     assert (out["valid"], out["configs"], out["max_depth"]) == \
         REFERENCE["1k"]
+    assert out["dpor"]["device_masked"] is False
+
+
+@pytest.mark.cuda
+def test_masked_step_on_the_card_matches_the_host(cuda, monkeypatch):
+    """With the kernel kept out, the card runs the masked, deduplicated
+    torch step, and it gives the host's counts under the same prune."""
+    model = cas_register()
+    rng = random.Random(31)
+    h = corrupt_read(rng, register_history(
+        rng, n_ops=200, n_procs=12, overlap=10, crash_p=0.06,
+        max_crashes=6, n_values=3), at=0.85)
+    seq = encode_ops(h, model.f_codes)
+    monkeypatch.setattr(lin, "_use_kernel", lambda *a, **kw: False)
+    before = lk.LAUNCHES
+    on_card = search_opseq(seq, model, device="cuda")
+    assert lk.LAUNCHES == before and on_card["dpor"]["device_masked"]
+    monkeypatch.setattr(step, "_DOMINANCE_MODE", "allpairs")
+    on_host = search_opseq(seq, model, device="cpu")
+    for k in ("valid", "configs", "max_depth", "dpor"):
+        assert on_card[k] == on_host[k], k

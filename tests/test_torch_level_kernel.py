@@ -197,3 +197,84 @@ def test_cuda_without_card_raises(monkeypatch):
         search_opseq(seq, model, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         linearizable(model, algorithm="device").check({}, seq)
+
+
+@pytest.mark.parametrize("masked,dedup", [(True, False), (False, True),
+                                          (True, True)])
+def test_eligibility_declines_reduced_searches(masked, dedup):
+    """The kernel computes the unreduced search: a masked or dedup
+    search runs the torch step, at every rung, as the JAX package's
+    ``pallas_level.eligible`` declines them."""
+    model = tm.cas_register()
+    for frontier in (16, 64, 2048):
+        dims = enc.SearchDims(**{**_BASE_DIMS, "frontier": frontier})
+        assert lk.eligible(model, dims)
+        assert not lk.eligible(model, dims, masked=masked, dedup=dedup)
+        jdims = lin.SearchDims(**dataclasses.asdict(dims))
+        if frontier <= 64:
+            assert plev.eligible(jm.cas_register(), jdims)
+            assert not plev.eligible(jm.cas_register(), jdims,
+                                     masked=masked, dedup=dedup)
+
+
+def _reduced_case():
+    """The CPU case's history with its reduction planes attached."""
+    from jepsen_tpu_torch.analyze.hb import maybe_hb
+
+    model, seq, dims, _args, carry = _cpu_case()
+    es = enc.attach_reductions(enc.encode_search(seq), seq, model,
+                               maybe_hb(seq, model).must_pred, dedup=True)
+    assert es.masked and es.dedup
+    return model, dims, es, carry
+
+
+@pytest.mark.parametrize("plane", ["mask", "dead", "both"])
+def test_wrapper_refuses_live_planes(plane):
+    """Neither the kernel nor its plain version reads the planes, so
+    the wrapper refuses them on every device rather than ignore them."""
+    model, dims, es, carry = _reduced_case()
+    if plane == "mask":
+        es.dedup, es.dead_from = False, None
+    elif plane == "dead":
+        es.masked, es.det_mpred, es.crash_mpred = False, None, None
+        es.det_cpred = es.crash_cpred = None
+    esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = enc.search_args(esp, es, device="cpu")
+    before = lk.LAUNCHES
+    with pytest.raises(ValueError, match="not inert"):
+        lk.level_loop(model, dims, *args, 10**8, 8, False, *carry)
+    assert lk.LAUNCHES == before
+    # the same planes drive the masked torch step
+    red = dict(masked=esp.masked, masked_crash=esp.mask_has_crash,
+               dedup=esp.dedup)
+    out = tstep.build_search_step_fn(model, dims, "cpu", **red)(
+        *args, 10**8, 8, False, *carry)
+    assert int(out[3]) > 0
+
+
+def test_kernel_route_strips_reductions(monkeypatch):
+    """Where the kernel takes the starting rung, the search drops its
+    reductions for the whole search (``device_masked`` False), as the
+    JAX package does for its Pallas kernel; the planes the kernel then
+    receives are inert."""
+    from jepsen_tpu_torch.checker import linearizable as tlin
+    from jepsen_tpu_torch.synth import corrupt_read as t_corrupt_read
+
+    model = tm.cas_register()
+    rng = random.Random(2)
+    h = t_corrupt_read(rng, t_register_history(
+        rng, n_ops=40, n_procs=4, overlap=3, crash_p=0.08, max_crashes=3,
+        n_values=3), at=0.8)
+    seq = t_encode_ops(h, model.f_codes)
+
+    monkeypatch.setattr(tlin, "_use_kernel",
+                        lambda m, d, dev, masked=False, dedup=False:
+                        not masked and not dedup)
+    out = tlin.search_opseq(seq, model, device="cpu")
+    assert out["dpor"] == {"enabled": True, "device_masked": False,
+                           "device_mask_rows": 0, "dedup": False}
+    assert out["engine"] == "device-bfs(cuda)"
+    unreduced = tlin.search_opseq(seq, model, device="cpu", hb=False,
+                                  dpor=False)
+    assert (out["valid"], out["configs"]) == (unreduced["valid"],
+                                              unreduced["configs"])

@@ -2,8 +2,9 @@
 sweep (``check_opseq_linear``) on the search cases and on crash-heavy
 register histories past the device encoding (``MAX_CRASH``), with and
 without a witness, and the deadline and cancel exits of both host
-engines.  The JAX side runs with its lint, happens-before, DPOR and
-audit passes off.  The tolerance is exact equality."""
+engines.  Both sides run with their lint, happens-before, DPOR and audit
+passes off (``OFF``; the passes are compared in
+tests/test_torch_dpor.py).  The tolerance is exact equality."""
 
 import random
 import threading
@@ -59,7 +60,7 @@ def test_linear_matches_reference(case, witness_cap):
     else:
         sj, mj, st, mt = crash_heavy(case[1], corrupt=case[2])
     oj = jlinear.check_opseq_linear(sj, mj, witness_cap=witness_cap, **OFF)
-    ot = tlinear.check_opseq_linear(st, mt, witness_cap=witness_cap)
+    ot = tlinear.check_opseq_linear(st, mt, witness_cap=witness_cap, **OFF)
     assert {k: ot.get(k) for k in LINEAR_KEYS} == \
         {k: oj.get(k) for k in LINEAR_KEYS}
 
@@ -71,7 +72,7 @@ def test_crash_heavy_cases_pass_the_encoding():
     for seed, corrupt in CRASH_HEAVY:
         _, _, st, mt = crash_heavy(seed, corrupt=corrupt)
         assert encode_search(st).n_crash > MAX_CRASH
-        verdicts.add(tlinear.check_opseq_linear(st, mt)["valid"])
+        verdicts.add(tlinear.check_opseq_linear(st, mt, **OFF)["valid"])
     assert verdicts == {True, False}
 
 
@@ -94,10 +95,10 @@ def test_host_engines_stop_like_reference(engine, stop):
           else {"deadline": time.perf_counter() - 1.0})
     if engine == "wgl":
         oj = jseq.check_opseq(sj, mj, **OFF, **kw)
-        ot = tseq.check_opseq(st, mt, **kw)
+        ot = tseq.check_opseq(st, mt, **OFF, **kw)
     else:
         oj = jlinear.check_opseq_linear(sj, mj, **OFF, **kw)
-        ot = tlinear.check_opseq_linear(st, mt, **kw)
+        ot = tlinear.check_opseq_linear(st, mt, **OFF, **kw)
     want = "cancelled" if stop == "cancel" else "exceeded deadline"
     assert ot["valid"] == "unknown" and ot["info"] == want
     assert {k: ot.get(k) for k in ("valid", "configs", "max_depth",
@@ -110,17 +111,16 @@ def test_linear_budget_and_refusals():
     out = tlinear.check_opseq_linear(st, mt, max_configs=10)
     assert out["valid"] == "unknown"
     assert out["info"] == "exceeded max_configs=10"
-    for kw, item in (({"lint": True}, "A7"), ({"hb": True}, "A7"),
-                     ({"dpor": True}, "A7"), ({"audit": True}, "A7"),
-                     ({"decompose": True}, "A8"),
+    for kw, item in (({"decompose": True}, "A8"),
                      ({"checkpoint_path": "x"}, "A3"),
                      ({"resume_from": "x"}, "A3")):
         with pytest.raises(NotImplementedError, match=item):
             tlinear.check_opseq_linear(st, mt, **kw)
-    off = tlinear.check_opseq_linear(st, mt, lint=False, hb=None,
-                                     dpor=False, audit=None,
-                                     decompose=False)
-    assert off["valid"] is True
+    # the passes of item A7 answer True and None alike
+    for kw in ({"lint": True}, {"hb": True}, {"dpor": True},
+               {"audit": True}, {"lint": False, "hb": None, "dpor": False,
+                                 "audit": None, "decompose": False}):
+        assert tlinear.check_opseq_linear(st, mt, **kw)["valid"] is True
 
 
 def test_advance_matches_reference():

@@ -3,8 +3,8 @@ invalid verdicts (``analyze/shrink.py``), the row projection it
 searches (``decompose/partition.subseq``), the store paths and
 ``linear.html`` (``checker/linear_report.py``), byte for byte; and the
 report that ``Linearizable.check`` writes under the test's store
-directory.  The JAX side runs with its lint, happens-before, DPOR and
-audit passes off."""
+directory.  The engines' passes are off on both sides (``OFF``); the
+shrink's re-checks run their defaults in both packages."""
 
 import os
 
@@ -24,7 +24,7 @@ from jepsen_tpu_torch.checker import linearizable as tlin
 from jepsen_tpu_torch.checker import seq as tseq
 from jepsen_tpu_torch.decompose import canonical as tcanon
 from jepsen_tpu_torch.decompose import partition as tpart
-from test_torch_search import CASES, OFF, _pair
+from test_torch_search import CASES, OFF, _pair, reference_defaults
 
 INVALID = [c for c in CASES if c[2]]
 
@@ -33,11 +33,10 @@ SHRINK_KEYS = ("rows", "n_from", "n_to", "checks", "minimal",
 
 
 @pytest.fixture(autouse=True)
-def _reductions_off(monkeypatch):
-    """The JAX shrink's bounded re-checks read the reduction knobs from
-    the environment."""
-    monkeypatch.setenv("JEPSEN_TPU_HB", "0")
-    monkeypatch.setenv("JEPSEN_TPU_DPOR", "0")
+def _reference_defaults(monkeypatch):
+    """The JAX shrink's bounded re-checks read the pass knobs from the
+    environment: unset, they run the defaults, as the port's do."""
+    reference_defaults(monkeypatch)
     monkeypatch.setenv("JEPSEN_TPU_SHRINK", "1")
 
 
@@ -95,7 +94,7 @@ def test_store_paths_match_reference(tmp_path):
 def test_render_matches_reference(kind, seed, corrupt, with_shrink):
     sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
     rj = jseq.check_opseq(sj, mj, **OFF)
-    rt = tseq.check_opseq(st, mt)
+    rt = tseq.check_opseq(st, mt, **OFF)
     assert rj["valid"] is False and rt["valid"] is False
     if with_shrink:
         rj["shrink"] = jshrink.shrink_summary(
@@ -113,7 +112,7 @@ def test_check_writes_the_report(shrink, tmp_path):
     test = {"name": "report", "start_time": "t0",
             "store_base": str(tmp_path)}
     out = tlin.linearizable(mt, algorithm="host", device="cpu",
-                            shrink=shrink).check(test, st)
+                            shrink=shrink, **OFF).check(test, st)
     want = os.path.join(str(tmp_path), "report", "t0", "linear.html")
     assert out["valid"] is False and out["report_file"] == want
     assert ("shrink" in out) is (shrink is None)
@@ -134,7 +133,7 @@ def _jax_checker(model, shrink):
 
 def test_per_key_report_and_unwritable_store(tmp_path):
     _, _, st, mt = _pair("register", 1, corrupt=True)
-    res = tseq.check_opseq(st, mt)
+    res = tseq.check_opseq(st, mt, **OFF)
     test = {"name": "k", "start_time": "t0", "store_base": str(tmp_path)}
     p = treport.write_linear_html(test, st, res, {"history_key": 7,
                                                   "subdirectory": ["s"]})
@@ -148,6 +147,6 @@ def test_per_key_report_and_unwritable_store(tmp_path):
 def test_large_histories_are_not_shrunk(tmp_path, monkeypatch):
     monkeypatch.setattr(tlin.Linearizable, "SHRINK_MAX_OPS", 10)
     _, _, st, mt = _pair("register", 1, corrupt=True)
-    out = tlin.linearizable(mt, algorithm="host", device="cpu").check(
-        {"store_base": str(tmp_path)}, st)
+    out = tlin.linearizable(mt, algorithm="host", device="cpu",
+                            **OFF).check({"store_base": str(tmp_path)}, st)
     assert "shrink" not in out and os.path.exists(out["report_file"])

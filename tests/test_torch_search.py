@@ -1,9 +1,10 @@
 """The port's search and checker entry points against the JAX package's,
 on the same synth histories: ``search_opseq`` (verdict, configs, depth,
 final frontier width, window), ``Linearizable`` with the device and host
-algorithms, and the host WGL oracle ``check_opseq``.  The JAX side runs
-with its lint, happens-before, DPOR and audit passes off, which the port
-does not have yet."""
+algorithms, and the host WGL oracle ``check_opseq``, all with the lint,
+happens-before, DPOR and audit passes off on both sides (``OFF``); the
+passes themselves are compared in tests/test_torch_{lint,hb,dpor,
+audit}.py."""
 
 import random
 
@@ -18,21 +19,35 @@ from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch import synth as ts
 from jepsen_tpu_torch.checker import linearizable as tlin
 from jepsen_tpu_torch.checker import seq as tseq
+from jepsen_tpu_torch.checker.linear import \
+    check_opseq_linear as tcheck_linear
 from jepsen_tpu_torch.history import encode_ops as t_encode_ops
 
 OFF = dict(lint=False, hb=False, dpor=False, audit=False)
+
+
+#: the JAX package's knobs for its passes; unset, each pass takes its
+#: default, which is the port's default too
+KNOBS = ("JEPSEN_TPU_LINT", "JEPSEN_TPU_HB", "JEPSEN_TPU_DPOR",
+         "JEPSEN_TPU_AUDIT")
+
+
+def reference_defaults(monkeypatch):
+    """Unset the JAX package's pass knobs, so that what reads them (the
+    checker's host confirmation, the shrink's re-checks) runs the
+    defaults, as the port always does."""
+    for knob in KNOBS:
+        monkeypatch.delenv(knob, raising=False)
 
 
 @pytest.fixture(autouse=True)
 def _deterministic_driver(monkeypatch):
     """The width ladder's downshift timing follows the adaptive level
     cap, which follows wall time; a huge slice target pins the cap
-    schedule so both packages take the same rungs.  The JAX checker's
-    host confirmation reads the reduction knobs from the environment."""
+    schedule so both packages take the same rungs."""
     monkeypatch.setattr(lin, "_SLICE_TARGET_S", 1e9)
     monkeypatch.setattr(tlin, "_SLICE_TARGET_S", 1e9)
-    monkeypatch.setenv("JEPSEN_TPU_HB", "0")
-    monkeypatch.setenv("JEPSEN_TPU_DPOR", "0")
+    reference_defaults(monkeypatch)
 
 
 def _pair(kind, seed, *, corrupt):
@@ -69,7 +84,7 @@ KEYS = ("valid", "configs", "max_depth", "frontier", "window",
 def test_search_opseq_matches_reference(kind, seed, corrupt):
     sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
     oj = lin.search_opseq(sj, mj, **OFF)
-    ot = tlin.search_opseq(st, mt, device="cpu")
+    ot = tlin.search_opseq(st, mt, device="cpu", **OFF)
     assert {k: ot.get(k) for k in KEYS} == {k: oj.get(k) for k in KEYS}
     # this host has no card: the port's search never ran the kernel
     assert ot["engine"] == oj["engine"]
@@ -83,7 +98,7 @@ def test_search_cases_cover_device_verdicts():
     seen = set()
     for kind, seed, corrupt in CASES:
         _, _, st, mt = _pair(kind, seed, corrupt=corrupt)
-        out = tlin.search_opseq(st, mt, device="cpu")
+        out = tlin.search_opseq(st, mt, device="cpu", **OFF)
         seen.add((out["engine"], out["valid"]))
         seen.add(("wide", out.get("frontier", 0) > 16))
     assert {("device-bfs", True), ("device-bfs", False),
@@ -97,8 +112,9 @@ def test_linearizable_matches_reference(kind, seed, corrupt, algorithm,
     sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
     oj = lin.linearizable(mj, algorithm=algorithm, **OFF).check(
         {"store_base": str(tmp_path / "jax")}, sj)
-    ot = tlin.linearizable(mt, algorithm=algorithm, device="cpu").check(
-        {"store_base": str(tmp_path / "port")}, st)
+    ot = tlin.linearizable(mt, algorithm=algorithm, device="cpu",
+                           **OFF).check({"store_base": str(tmp_path / "port")},
+                                        st)
     for k in ("valid", "configs", "max_depth", "engine", "final_ops",
               "linearization", "device_configs", "witness_prefix_ops",
               "shrink"):
@@ -108,16 +124,16 @@ def test_linearizable_matches_reference(kind, seed, corrupt, algorithm,
 @pytest.mark.parametrize("kind,seed,corrupt", CASES)
 def test_host_oracle_matches_reference(kind, seed, corrupt):
     sj, mj, st, mt = _pair(kind, seed, corrupt=corrupt)
-    oj = jseq.check_opseq(sj, mj, lint=False, hb=False, dpor=False)
-    ot = tseq.check_opseq(st, mt)
+    oj = jseq.check_opseq(sj, mj, **OFF)
+    ot = tseq.check_opseq(st, mt, **OFF)
     for k in ("valid", "configs", "max_depth", "linearization",
               "final_ops", "final_paths"):
         assert ot.get(k) == oj.get(k), k
 
 
 def test_routes_of_later_slices_refuse(tmp_path):
-    """The routes of queue item A5 answer now; the passes of later items
-    still refuse True."""
+    """The routes of queue item A5 and the passes of item A7 answer;
+    the options of later items still refuse anything but off."""
     test = {"store_base": str(tmp_path)}
     _, _, st, mt = _pair("register", 1, corrupt=True)
     big = tlin.linearizable(mt, device="cpu", host_threshold=10)
@@ -126,14 +142,37 @@ def test_routes_of_later_slices_refuse(tmp_path):
     out = tlin.linearizable(mt, algorithm="competition",
                             device="cpu").check(test, st)
     assert out["valid"] is False and out["engine"].startswith("competition(")
-    for flag in ("lint", "hb", "dpor", "audit", "decompose", "explain"):
+    for flag in ("decompose", "explain"):
         with pytest.raises(NotImplementedError):
             tlin.linearizable(mt, device="cpu", **{flag: True})
+    for arg in ("checkpoint_path", "resume_from"):
+        with pytest.raises(NotImplementedError):
+            tcheck_linear(st, mt, **{arg: str(tmp_path / "ckpt")})
     with pytest.raises(NotImplementedError):
-        tlin.search_opseq(st, mt, device="cpu", dpor=True)
+        tcheck_linear(st, mt, decompose=True)
     small = tlin.linearizable(mt, device="cpu", host_threshold=10**6)
     out = small.check(test, st)
     assert out["engine"] == "host-oracle" and out["valid"] is False
+
+
+@pytest.mark.parametrize("flag", ["lint", "hb", "dpor", "audit"])
+def test_passes_answer_true(flag, tmp_path):
+    """``True`` runs a pass instead of raising, at every entry point."""
+    _, _, st, mt = _pair("cas-register", 3, corrupt=True)
+    kw = {flag: True}
+    want = tseq.check_opseq(st, mt, **OFF)["valid"]
+    outs = [tlin.linearizable(mt, device="cpu", host_threshold=10,
+                              **kw).check({"store_base": str(tmp_path)},
+                                          st),
+            tlin.search_opseq(st, mt, device="cpu", **kw),
+            tlin.check_competition(st, mt, device="cpu", **kw),
+            tseq.check_opseq(st, mt, **kw),
+            tcheck_linear(st, mt, **kw)]
+    assert [o["valid"] for o in outs] == [want] * len(outs)
+    if flag == "audit":
+        assert all(o["audit"]["ok"] for o in outs)
+    if flag == "dpor":
+        assert all("dpor" in o for o in outs[1:2] + outs[3:])
 
 
 def test_engine_label():
