@@ -36,6 +36,7 @@ The script imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import random
@@ -72,12 +73,64 @@ PREPASS_REASON = {"1k": None, "mutex2k": "lock-overhold"}
 #: the prepass, so a device leg runs the torch step at state width 16
 QUEUES = (("fifo-queue-6", True, True), ("unordered-queue-8", False, False))
 
+#: keys of the batch256 tier (bench.py's BASELINE config 3)
+BATCH_KEYS = 256
+
+#: the JAX package's answer on the batch256 keys, per key
+#: (``search_batch(keys, cas_register(), dpor=False)`` on the CPU, no
+#: JEPSEN_TPU_* variable set; the same with the prune pinned to
+#: all-pairs): every 4th key invalid, the rest valid; configs and depth
+#: per key, 63,339 configs in all.  With the defaults the JAX package
+#: keeps the reductions on the CPU (57,034 configs in all, the same
+#: verdicts); on the card the kernel drops them, so every path there is
+#: held to these counts
+BATCH256_INVALID = frozenset(range(0, BATCH_KEYS, 4))
+BATCH256_CONFIGS = (
+    643, 101, 515, 93, 467, 100, 91, 90, 274, 91, 90, 93, 619, 92, 91, 93,
+    593, 99, 94, 89, 505, 590, 92, 98, 623, 94, 96, 94, 414, 95, 86, 99,
+    807, 82, 97, 105, 462, 91, 96, 90, 355, 93, 99, 100, 615, 90, 96, 98,
+    488, 84, 96, 103, 491, 97, 89, 98, 541, 490, 107, 97, 1320, 479, 605,
+    100, 513, 93, 91, 95, 364, 94, 100, 106, 651, 85, 95, 95, 575, 499, 93,
+    93, 588, 100, 105, 95, 677, 93, 85, 811, 505, 98, 394, 100, 327, 90, 96,
+    588, 451, 91, 96, 759, 411, 104, 100, 106, 525, 95, 512, 97, 417, 460,
+    462, 96, 375, 81, 97, 95, 526, 96, 81, 93, 556, 100, 91, 98, 536, 107,
+    100, 98, 375, 94, 92, 93, 537, 95, 96, 91, 385, 92, 87, 102, 442, 90,
+    938, 93, 651, 521, 98, 95, 480, 95, 94, 100, 491, 94, 732, 92, 768, 98,
+    91, 99, 399, 89, 83, 97, 633, 91, 92, 92, 500, 94, 101, 90, 548, 97,
+    490, 93, 397, 95, 91, 95, 570, 91, 99, 96, 559, 100, 88, 85, 540, 101,
+    93, 102, 837, 455, 91, 90, 412, 87, 93, 98, 442, 90, 97, 99, 547, 90,
+    96, 94, 332, 94, 97, 90, 401, 92, 100, 99, 371, 97, 92, 99, 743, 96,
+    103, 87, 509, 97, 90, 90, 885, 98, 97, 88, 761, 96, 95, 95, 447, 97,
+    491, 96, 535, 84, 96, 93, 472, 91, 86, 534, 1547, 92, 106, 103, 1013,
+    94, 94, 93)
+BATCH256_DEPTH = (
+    87, 101, 93, 93, 75, 100, 91, 90, 71, 91, 90, 93, 82, 92, 91, 93, 81,
+    99, 94, 89, 85, 90, 92, 98, 83, 94, 96, 94, 71, 95, 86, 99, 73, 82, 97,
+    105, 78, 91, 96, 90, 79, 93, 99, 100, 83, 90, 96, 98, 80, 84, 96, 103,
+    80, 97, 89, 98, 79, 92, 107, 97, 82, 89, 91, 100, 85, 93, 91, 95, 75,
+    94, 100, 106, 79, 85, 95, 95, 85, 88, 93, 93, 82, 100, 105, 95, 68, 93,
+    85, 92, 77, 98, 86, 100, 80, 90, 96, 94, 79, 91, 96, 100, 69, 104, 100,
+    106, 82, 95, 86, 97, 78, 93, 87, 96, 72, 81, 97, 95, 81, 96, 81, 93, 85,
+    100, 91, 98, 84, 107, 100, 98, 69, 94, 92, 93, 80, 95, 96, 91, 74, 92,
+    87, 102, 80, 90, 93, 93, 76, 101, 98, 95, 82, 95, 94, 100, 82, 94, 95,
+    92, 89, 98, 91, 99, 74, 89, 83, 97, 74, 91, 92, 92, 78, 94, 101, 90, 83,
+    97, 89, 93, 77, 95, 91, 95, 80, 91, 99, 96, 77, 100, 88, 85, 88, 101,
+    93, 102, 84, 92, 91, 90, 84, 87, 93, 98, 72, 90, 97, 99, 80, 90, 96, 94,
+    68, 94, 97, 90, 82, 92, 100, 99, 79, 97, 92, 99, 77, 96, 103, 87, 82,
+    97, 90, 90, 89, 98, 97, 88, 84, 96, 95, 95, 74, 97, 93, 96, 71, 84, 96,
+    93, 87, 91, 86, 95, 87, 92, 106, 103, 75, 94, 94, 93)
+
 #: H100 SXM peaks for the kernel's bound (NVIDIA data sheet): memory
 #: rate, and the float32 rate outside the tensor cores standing in for
 #: 32-bit integer work (the card's int32 rate is at most that)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 OPS_PER_LANE = 8
+
+#: the single-key form's time on mutex2k at F=64 before the grid form
+#: (this script, the H100 80GB HBM3 at 700 W), the shape it is compared
+#: on to show it did not regress
+MUTEX2K_F64_BEFORE_GRID_MS = 2.6121
 
 #: the interpreter's switch interval in the control race: a tenth of
 #: the 5 ms default, so a thread that wants the GIL back waits less
@@ -312,6 +365,93 @@ def lockstep_cases():
     return out
 
 
+def batch_key_history(k: int):
+    """(history, model): key ``k`` of bench's BASELINE config 3 tier
+    ("batch256", ``bench.py:275-297``): a 128-op, 8-process cas-register
+    history, every 4th key with a corrupted read."""
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.synth import corrupt_read, register_history
+
+    rng = random.Random(f"bench-batch-{k}")
+    h = register_history(rng, n_ops=128, n_procs=8, overlap=4, crash_p=0.01,
+                         max_crashes=2, n_values=4)
+    if k % 4 == 0:
+        h = corrupt_read(rng, h, at=0.85)
+    return h, cas_register()
+
+
+def batch_keys(n: int = BATCH_KEYS):
+    """(OpSeqs, model) of the first ``n`` keys of the batch256 tier."""
+    from jepsen_tpu_torch.history import encode_ops
+
+    out = []
+    for k in range(n):
+        h, model = batch_key_history(k)
+        out.append(encode_ops(h, model.f_codes))
+    return out, model
+
+
+def keyed_history(n: int = BATCH_KEYS):
+    """(history, model): the same keys as one ``[k v]`` history, key
+    after key, for ``independent.checker``."""
+    from jepsen_tpu_torch.independent import tuple_
+
+    out = []
+    for k in range(n):
+        h, model = batch_key_history(k)
+        out += [replace(op, value=tuple_(k, op.value)) for op in h]
+    return out, model
+
+
+def grid_setup(model, seqs, frontier, device, *, lanes=None):
+    """(dims, stacked args, stacked carry) of a batch at its batch dims
+    and ``frontier``, from the root, with ``lanes - len(seqs)`` inert pad
+    lanes."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.checker.encode import encode_search, pad_search
+
+    ess = [encode_search(s) for s in seqs]
+    dims = lin.batch_dims(ess, model, frontier=frontier)
+    dead_pad = lin.batch_dead_pad(ess)
+    esps = [pad_search(e, dims.n_det_pad, dims.n_crash_pad,
+                       dead_pad=dead_pad) for e in ess]
+    b = lanes or len(seqs)
+    args = lin.stack_batch(esps, pad_to=b, device=device)
+    carry = lin.pad_batch_carry(
+        lin._init_batch_carry(len(seqs), dims, model, device),
+        b - len(seqs), dims, model, device)
+    return dims, args, carry
+
+
+def grid_diff(ck, cr) -> int:
+    """Max abs difference of two stacked carries over every key's
+    scalars and live frontier rows (at least 1 where live counts
+    differ)."""
+    import torch
+
+    def scal(c):
+        return torch.stack([c[1], c[2], c[3], c[4], c[5].to(torch.int32)],
+                           dim=1).to(torch.int64)
+
+    err = int((scal(ck) - scal(cr)).abs().max())
+    F = ck[0].shape[1]
+    live = (torch.arange(F, device=ck[0].device)[None, :]
+            < cr[1][:, None])[..., None]
+    d = ((ck[0].to(torch.int64) - cr[0].to(torch.int64)).abs() * live)
+    return max(err, int(d.max()) if d.numel() else 0)
+
+
+def _idle_lanes(carry, budget, bail, n=None) -> int:
+    """Of the first ``n`` lanes (default all), those with nothing to do:
+    the slice must hand them back as they came."""
+    st, ct, cf, ov = (c[:n] for c in (carry[2], carry[1], carry[3],
+                                       carry[5]))
+    busy = (st == -1) & (ct > 0) & (cf < budget)
+    if bail:
+        busy = busy & ~ov
+    return int((~busy).sum())
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -412,6 +552,390 @@ def phase_lockstep(device):
     check(paths == {"shared", "device"},
           f"lockstep ran the table paths {sorted(paths)}, want both")
     return worst
+
+
+def grid_lockstep_cases():
+    """(label, model, OpSeqs, frontier, lanes, bail, slices, lvl_cap) for
+    the grid form against its plain version: batch256's keys in batches
+    of 256, 37 (27 pad lanes) and 4 (4 pad lanes) at F=32, 128 and 512,
+    bail on and off; keys of 16 to 192 ops, so that finished and running
+    keys share a launch; and a 9000-op mutex key beside two short ones,
+    whose tables only fit in device memory."""
+    from jepsen_tpu_torch.history import encode_ops
+    from jepsen_tpu_torch.models import cas_register, mutex
+    from jepsen_tpu_torch.synth import register_history, sim_mutex_history
+
+    keys, m = batch_keys(BATCH_KEYS)
+    out = [("batch256-F32-bail", m, keys, 32, 256, True, 2, 16),
+           ("batch37-F32-nobail", m, keys[:37], 32, 64, False, 2, 16),
+           ("batch37-F128-bail", m, keys[:37], 128, 64, True, 2, 16),
+           ("batch37-F128-nobail", m, keys[:37], 128, 64, False, 2, 16),
+           ("batch4-F512-bail", m, keys[:4], 512, 8, True, 2, 16),
+           ("batch4-F512-nobail", m, keys[:4], 512, 8, False, 2, 16)]
+    cas = cas_register()
+    mixed = [encode_ops(register_history(
+        random.Random(f"mixed-{k}"), n_ops=16 + 16 * k, n_procs=6,
+        overlap=4, crash_p=0.03, max_crashes=3, n_values=3), cas.f_codes)
+        for k in range(12)]
+    out.append(("mixed-12-F64", cas, mixed, 64, 16, False, 6, 32))
+    big, mm = big_mutex_history()
+    small = [encode_ops(sim_mutex_history(random.Random(s), n_ops=60,
+                                          n_procs=3, crash_p=0.06,
+                                          max_crashes=4), mutex().f_codes)
+             for s in (11, 12)]
+    out.append(("mutex9k+2-device-tables-F64", mm, [big] + small, 64, 3,
+                False, 2, 64))
+    return out
+
+
+def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
+                       lvl_cap, n_keys):
+    """The grid form vs its plain version from ``carry``, slice by
+    slice; returns (max abs error, slices that had finished keys beside
+    running ones, table path)."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    check(lk.eligible(model, dims), f"{label}: {dims} not eligible")
+    plan = lk.launch_plan(dims, carry[0].device)
+    ck = cr = carry
+    t_k, t_r = [], []
+    worst = idle = mixed = 0
+    B = carry[0].shape[0]
+    for s in range(slices):
+        idle += _idle_lanes(ck, 10**8, bail)
+        done = _idle_lanes(ck, 10**8, bail, n_keys)
+        mixed += 0 < done < n_keys
+        before = lk.BATCH_LAUNCHES
+        ck, ms_k = _timed(lk.level_loop_batch, model, dims, *args, 10**8,
+                          lvl_cap, bail, *ck)
+        check(lk.BATCH_LAUNCHES == before + 1,
+              f"{label}: the grid form did not launch")
+        cr, ms_r = _timed(lk.level_loop_batch_reference, model, dims, *args,
+                          10**8, lvl_cap, bail, *cr)
+        t_k.append(ms_k)
+        t_r.append(ms_r)
+        err = grid_diff(ck, cr)
+        worst = max(worst, err)
+        check(err == 0, f"{label} slice {s}: grid kernel != plain "
+              f"(max abs err {err})")
+        if _idle_lanes(cr, 10**8, bail) == B:
+            break
+    emit(f"grid-lockstep {label}: B={B} F={dims.frontier} W={dims.window} "
+         f"NC={dims.n_crash_pad} n_det_pad={dims.n_det_pad} bail={int(bail)} "
+         f"tables={plan['tables']} smem={plan['smem_bytes']} B "
+         f"threads={plan['threads']} blocks/SM={plan['blocks_per_sm']} "
+         f"slices={s + 1} identical; idle lanes handed back {idle} "
+         f"({mixed} slices with finished keys beside running ones); "
+         f"status counts "
+         f"{sorted(collections.Counter(cr[2].tolist()).items())}; "
+         f"kernel ms/slice {[round(t, 3) for t in t_k]} plain ms/slice "
+         f"{[round(t, 1) for t in t_r]}")
+    return worst, mixed, plan["tables"]
+
+
+def phase_grid_lockstep(device):
+    """The grid-over-keys form against its plain version on the card,
+    every key's scalars and live rows identical after every slice; a
+    launch with idle lanes beside running ones, pad lanes, and both
+    table paths."""
+    worst = 0
+    paths = set()
+    idle_seen = False
+    for label, model, seqs, frontier, lanes, bail, slices, lvl_cap in \
+            grid_lockstep_cases():
+        dims, args, carry = grid_setup(model, seqs, frontier, device,
+                                       lanes=lanes)
+        err, mixed, tables = _grid_lockstep_one(
+            label, model, dims, args, carry, bail, slices, lvl_cap,
+            len(seqs))
+        worst = max(worst, err)
+        paths.add(tables)
+        idle_seen = idle_seen or mixed > 0
+    check(paths == {"shared", "device"},
+          f"grid lockstep ran the table paths {sorted(paths)}, want both")
+    check(idle_seen, "mixed: no launch had finished keys beside running "
+          "ones")
+    return worst
+
+
+class _GridTrace:
+    """Wraps ``linearizable.get_batch_kernel`` for one run: per batch
+    slice, its rung, its lanes, the keys it had to run and its route
+    (the grid kernel or the torch step key by key)."""
+
+    def __init__(self):
+        self.slices: list = []  # (frontier, lanes, running keys, route)
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        self._saved = get_batch_kernel = lin.get_batch_kernel
+
+        def traced(model, dims, device, **reduction):
+            fn = get_batch_kernel(model, dims, device, **reduction)
+            route = ("cuda" if lin._use_kernel(
+                model, dims, device, masked=reduction.get("masked", False),
+                dedup=reduction.get("dedup", False)) else "torch")
+
+            def run(*a):
+                busy = int(((a[24] == -1) & (a[23] > 0)).sum())
+                self.slices.append((dims.frontier, int(a[22].shape[0]),
+                                    busy, route))
+                return fn(*a)
+            return run
+
+        lin.get_batch_kernel = traced
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        lin.get_batch_kernel = self._saved
+
+    def summary(self) -> str:
+        by = collections.defaultdict(lambda: [0, 0, 0])
+        for f, lanes, busy, route in self.slices:
+            r = by[(route, f)]
+            r[0] += 1
+            r[1] += lanes
+            r[2] += busy
+        return "; ".join(
+            f"{route} F={f}: {n} launches, {lanes / n:.1f} lanes and "
+            f"{busy / n:.1f} running keys per launch"
+            for (route, f), (n, lanes, busy) in sorted(by.items()))
+
+
+def _route_counts(results) -> dict:
+    """How many keys each route decided."""
+    out = collections.Counter()
+    for r in results:
+        e = r.get("engine", "?")
+        out["greedy" if e == "greedy-witness" else
+            "prepass" if e in ("hb-decide", "constraint-decide") else
+            "device-batch" if e.startswith("device-batch") else
+            "device-solo" if e.startswith("device-bfs") else
+            "host" if e.startswith("host-linear") else e] += 1
+    return dict(sorted(out.items()))
+
+
+def _check_batch_results(label, results, rechecked=()):
+    """Every key's verdict is the JAX package's; its configs and depth
+    too, but for keys checked again on their own (``rechecked``)."""
+    check(len(results) == BATCH_KEYS, f"{label}: {len(results)} results")
+    for k, r in enumerate(results):
+        want = k not in BATCH256_INVALID
+        check(r["valid"] is want,
+              f"{label}: key {k} gave {r['valid']}, want {want}")
+        if k in rechecked:
+            continue
+        got = (r["configs"], r["max_depth"])
+        ref = (BATCH256_CONFIGS[k], BATCH256_DEPTH[k])
+        check(r["configs"] <= ref[0], f"{label}: key {k} visited "
+              f"{r['configs']} configs, more than the JAX package's {ref[0]}")
+        check(got == ref, f"{label}: key {k} gave (configs, depth) {got}, "
+              f"the JAX package {ref}")
+
+
+def _batch_run(label, run):
+    """One batch256 run, with both launch counts set to 0 just before it
+    and read just after; returns (results, seconds, grid launches,
+    single-key launches, the grid trace)."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    with _GridTrace() as trace:
+        lk.BATCH_LAUNCHES = lk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = run()
+        wall = time.perf_counter() - t0
+        grid, single = lk.BATCH_LAUNCHES, lk.LAUNCHES
+    check(grid == sum(1 for s in trace.slices if s[3] == "cuda"),
+          f"{label}: {grid} grid launches, {len(trace.slices)} batch slices")
+    return results, wall, grid, single, trace
+
+
+def phase_batch256(store_base):
+    """bench's BASELINE config 3 (256 cas-register keys of 128 ops, every
+    4th corrupted) three ways on the card, each cold and then warm:
+    ``search_batch`` bucketed (the default), fused (``bucket=False``),
+    and ``independent.checker(linearizable(model))`` on the keyed
+    history, which checks every invalid key again on its own.  Every
+    key's verdict, configs and depth must be the JAX package's, and the
+    grid form must have run on each path."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    keys, model = batch_keys()
+    keyed, _ = keyed_history()
+    test = {"name": "batch256", "store_base": store_base}
+    ways = (
+        ("bucketed", lambda: lin.search_batch(keys, model, device="cuda")),
+        ("fused", lambda: lin.search_batch(keys, model, device="cuda",
+                                           bucket=False)),
+        ("independent", lambda: independent.checker(
+            lin.linearizable(model)).check(test, keyed)))
+    launches = {}
+    for way, run in ways:
+        label = f"batch256[{way}]"
+        res, cold, grid, single, trace = _batch_run(label, run)
+        res_w, warm, grid_w, single_w, _ = _batch_run(label, run)
+        for r in (res, res_w):
+            if way == "independent":
+                check(r["valid"] is False and sorted(r["failures"])
+                      == sorted(BATCH256_INVALID),
+                      f"{label}: valid={r['valid']}, failures "
+                      f"{sorted(r['failures'])}")
+                per_key = [r["results"][k] for k in range(BATCH_KEYS)]
+                _check_batch_results(label, per_key, BATCH256_INVALID)
+            else:
+                per_key = r
+                _check_batch_results(label, per_key)
+        check(grid > 0, f"{label}: the grid form never launched")
+        stats = (res[0].get("bucket_batch") or {}) if way == "bucketed" \
+            else {}
+        launches[label] = {"grid": grid, "single": single}
+        rungs = sorted({s[0] for s in trace.slices})
+        emit(f"main[{label}]: keys={BATCH_KEYS} routes="
+             f"{_route_counts(per_key)} cold_s={cold:.3f} warm_s={warm:.3f} "
+             f"grid_launches={grid} (warm {grid_w}) single_launches={single} "
+             f"(warm {single_w}) rungs={rungs}; {trace.summary()}"
+             + (f"; buckets={stats.get('n_buckets')} padding_efficiency="
+                f"{stats.get('padding_efficiency')}" if stats else ""))
+    return launches
+
+
+def phase_checkpoint(store_base):
+    """The 1k tier's device search on the card, checkpointed after every
+    slice by ``save_checkpoint`` from ``on_slice`` and stopped after the
+    third; ``resume_opseq`` from the file must give :data:`REFERENCE`'s
+    1k answer, engine ``device-bfs(cuda,resumed)``.  Launch count set to
+    0 before the stopped search, read after the resumed one."""
+    import threading
+
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    seq, model = tier_history("1k")
+    budget = 20_000_000
+    path = os.path.join(store_base, "1k-checkpoint.npz")
+    stop = threading.Event()
+    seen = []
+
+    def on_slice(carry, dims):
+        lin.save_checkpoint(path, carry, dims, model, budget, seq=seq)
+        seen.append((dims.frontier, int(carry[4]), int(carry[3])))
+        if len(seen) == 3:
+            stop.set()
+
+    lk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    first = lin.search_opseq(seq, model, budget=budget, device="cuda",
+                             on_slice=on_slice, stop=stop, hb=False,
+                             dpor=False)
+    t1 = time.perf_counter()
+    launches_first = lk.LAUNCHES
+    out = lin.resume_opseq(seq, model, path, device="cuda")
+    t2 = time.perf_counter()
+    launches = lk.LAUNCHES
+    emit(f"main[checkpoint] 1k: stopped after {len(seen)} slices "
+         f"(frontier, depth, configs) {seen}: valid={first['valid']} "
+         f"in {t1 - t0:.3f} s with {launches_first} launches; file "
+         f"{os.path.getsize(path)} B; resumed: valid={out['valid']} "
+         f"configs={out['configs']} max_depth={out['max_depth']} "
+         f"engine={out['engine']} in {t2 - t1:.3f} s; launches={launches}")
+    check(len(seen) == 3 and first["valid"] == "unknown",
+          f"checkpoint: the search was not stopped after its third slice "
+          f"({len(seen)} slices, valid={first['valid']})")
+    _check_search("1k", "resume_opseq", out, REFERENCE["1k"])
+    check(out["engine"] == "device-bfs(cuda,resumed)",
+          f"checkpoint: engine {out['engine']}")
+    check(launches > launches_first > 0,
+          f"checkpoint: {launches_first} launches before the stop, "
+          f"{launches} in all")
+    return {"1k": launches}
+
+
+def phase_grid_timing(device):
+    """The grid form at batch256's first rung: the keys the greedy
+    witness leaves to the device, stacked as the ladder stacks them (F=32,
+    lanes rounded up by its rule), one slice of the ladder's first level
+    cap with bail; against its plain version and, as a control, the same
+    keys launched one by one through the single-key form.  The bound is
+    the larger of the real keys' tables and every lane's carry moved
+    once and the operations of the configurations the slice visited."""
+    import torch
+
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    keys, model = batch_keys()
+    run = [s for s in keys if not lin.greedy_witness(s, model)]
+    n = len(run)
+    lanes = max(4, 1 << (n - 1).bit_length()) if n <= 32 else -(-n // 32) * 32
+    dims, args, carry = grid_setup(model, run, 32, device, lanes=lanes)
+    lvl_cap, bail, reps = lin._SLICE_LEVELS0, True, 20
+    call = (*args, 10**8, lvl_cap, bail, *carry)
+    out, _ = _timed(lk.level_loop_batch, model, dims, *call)  # warm-up
+    ms_k = sorted(_timed(lk.level_loop_batch, model, dims, *call)[1]
+                  for _ in range(reps))
+    ref, plain_ms = _timed(lk.level_loop_batch_reference, model, dims, *call)
+    err = grid_diff(out, ref)
+    check(err == 0, f"grid timing: kernel != plain (max abs err {err})")
+    # key-levels the slice ran: the grid form one level at a time
+    c, key_levels = carry, 0
+    for _ in range(lvl_cap):
+        busy = lanes - _idle_lanes(c, 10**8, bail)
+        if not busy:
+            break
+        key_levels += busy
+        c = lk.level_loop_batch(model, dims, *args, 10**8, 1, bail, *c)
+    # the control: each key alone through the single-key form
+    singles = []
+    for b in range(n):
+        key_args = [t[b] for t in args[:15]]
+        key_args[5] = key_args[5][:dims.n_det_pad + 1]
+        singles.append((*key_args, int(args[15][b]), int(args[16][b]),
+                        int(args[17][b]), int(args[18][b]), 10**8, lvl_cap,
+                        bail, *(x[b] for x in carry)))
+
+    def one_by_one():
+        return [lk.level_loop(model, dims, *s) for s in singles]
+
+    one_by_one()  # warm-up
+    ms_s = sorted(_timed(one_by_one)[1] for _ in range(5))
+    for b, o in enumerate(one_by_one()):
+        e = grid_diff(tuple(x[b:b + 1] for x in out),
+                      tuple(x.reshape((1,) + x.shape) for x in o))
+        check(e == 0, f"grid timing: key {b} alone != its grid lane")
+    # bytes the launch must move: the tables of the n real keys (a pad
+    # lane leaves before it reads one), every lane's carry read and
+    # written once (a pad lane copies its own back)
+    n_bytes = (sum(t[:n].numel() * t.element_size() for t in args[:10])
+               + 2 * (carry[0].numel() * 4 + 5 * 4 * lanes))
+    configs = int((out[3] - carry[3]).sum())
+    n_ops = configs * (dims.window + dims.n_crash_pad) * OPS_PER_LANE
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    ms = ms_k[len(ms_k) // 2]
+    single_ms = ms_s[len(ms_s) // 2]
+    plan = lk.launch_plan(dims, device)
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    emit(f"timing batch256 grid B={lanes} ({n} keys) F={dims.frontier} "
+         f"W={dims.window} NC={dims.n_crash_pad} n_det_pad={dims.n_det_pad} "
+         f"lvl_cap={lvl_cap} bail={int(bail)} tables={plan['tables']} "
+         f"smem={plan['smem_bytes']} B threads={plan['threads']} "
+         f"blocks/SM={plan['blocks_per_sm']} SMs={sm}: key_levels="
+         f"{key_levels} configs={configs} kernel {ms:.4f} ms/launch "
+         f"({ms / max(1, key_levels) * 1e3:.3f} us/key-level, min "
+         f"{ms_k[0]:.4f} max {ms_k[-1]:.4f} over {reps}); the same keys "
+         f"one by one through the single-key form {single_ms:.4f} ms "
+         f"({n} launches); plain {plain_ms:.1f} ms; bound: bytes "
+         f"{bytes_ms:.3e} ms ({n_bytes} B), operations {ops_ms:.3e} ms "
+         f"({n_ops} int32 ops)")
+    return {"shape": f"batch256 grid B={lanes} F={dims.frontier}",
+            "levels": key_levels, "ms": ms, "plain_ms": plain_ms,
+            "single_key_ms": single_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err}
 
 
 def phase_lockstep_captured(captured):
@@ -955,17 +1479,23 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         emit(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}")
         worst = phase_lockstep(device)
+        worst = max(worst, phase_grid_lockstep(device))
         with tempfile.TemporaryDirectory() as store_base:
             launches, captured = phase_main_path(store_base)
             phase_masked_control()
             worst = max(worst, phase_lockstep_captured(captured))
             phase_default_route(store_base)
             launches["queues"] = phase_queues(store_base)
+            launches.update(phase_batch256(store_base))
+            launches["checkpoint"] = phase_checkpoint(store_base)
         shapes = phase_timing(device, captured)
+        shapes.append(phase_grid_timing(device))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     timing = shapes[0]  # the first port's shape: mutex2k, F=64
+    emit(f"single-key form: mutex2k F=64 {timing['ms']:.4f} ms/slice "
+         f"({MUTEX2K_F64_BEFORE_GRID_MS} ms/slice before the grid form)")
     total = sum(n for by_tier in launches.values() for n in by_tier.values())
     if total == 0:
         print("chip_smoke: FAILED: B1 never launched on the main path",
@@ -985,7 +1515,8 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": None,
         "shapes": [{k: t[k] for k in ("shape", "levels", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
+                                      "single_key_ms", "bound_ms",
+                                      "bound_by") if k in t}
                    for t in shapes],
     }]}
     print(json.dumps(record), flush=True)

@@ -38,7 +38,8 @@ _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures of the exported functions, by source stem
 _SIGNATURES = {
     "level_loop": {
-        "jtt_level_loop": ([_VP] * 15 + [_LL] + [_INT] * 11 + [_VP], _INT),
+        "jtt_level_loop": ([_VP] * 10 + [_INT] + [_VP] * 7 + [_LL]
+                           + [_INT] * 10 + [_VP], _INT),
         "jtt_level_loop_plan": ([_INT] * 5 + [_VP], _INT),
         "jtt_error_string": ([_INT], ctypes.c_char_p),
     },

@@ -237,12 +237,13 @@ def _round_up(x: int, m: int) -> int:
     return ((max(1, x) + m - 1) // m) * m
 
 
-def pad_search(es: EncodedSearch, n_det_pad: int,
-               n_crash_pad: int) -> EncodedSearch:
+def pad_search(es: EncodedSearch, n_det_pad: int, n_crash_pad: int,
+               dead_pad: int | None = None) -> EncodedSearch:
     """Pad every table to static shapes.  The reduction planes are
     always materialized (all -1 predecessors, zero crash-pred words and
-    an all-NEVER_DEAD table when absent); the dead table is padded to a
-    power of two, at least 8."""
+    an all-NEVER_DEAD table when absent); the dead table is padded to
+    ``dead_pad`` entries (a batch passes its keys' common width), by
+    default to this key's power of two, at least 8."""
 
     def pad(a, n, fill):
         out = np.full(n, fill, dtype=np.int32)
@@ -256,8 +257,9 @@ def pad_search(es: EncodedSearch, n_det_pad: int,
     cmp_ = np.full((n_crash_pad, MASK_PREDS), -1, np.int32)
     if es.crash_mpred is not None:
         cmp_[:len(es.crash_mpred)] = es.crash_mpred
-    dead_pad = (_next_pow2(len(es.dead_from))
-                if es.dead_from is not None else 8)
+    if dead_pad is None:
+        dead_pad = (_next_pow2(len(es.dead_from))
+                    if es.dead_from is not None else 8)
     dead = np.full(max(8, dead_pad), NEVER_DEAD, np.int32)
     if es.dead_from is not None:
         dead[:len(es.dead_from)] = es.dead_from
@@ -424,6 +426,43 @@ def search_args(esp: EncodedSearch, es: EncodedSearch | None = None, *,
                                  device=dev) for k in _TABLES) + (
         int(src.n_det), int(src.n_crash), int(esp.dead_lo),
         int(esp.dead_tok))
+
+
+#: the per-key scalars a stacked batch carries beside its tables
+_BATCH_SCALARS = ("n_det", "n_crash", "dead_lo", "dead_tok")
+
+
+def stack_batch(esps: list[EncodedSearch], *, pad_to: int | None = None,
+                device) -> tuple:
+    """Padded encodings stacked along a leading key axis, as the
+    arguments of the batch slice functions: the 15 tables as int32
+    ``[B, ...]`` tensors, then ``n_det, n_crash, dead_lo, dead_tok`` as
+    int32 ``[B]``.  Keys past ``len(esps)`` (up to ``pad_to``) repeat
+    key 0's tables with ``n_det = n_crash = 0``: inert pad keys.  The
+    return suffix table's rows are padded with +inf to a multiple of 4
+    entries, so that each key's row starts on a 16-byte boundary (the
+    grid kernel's bulk copies need it); no step reads past entry
+    ``n_det_pad``."""
+    dev = torch.device(device)
+    b = pad_to or len(esps)
+    pad = b - len(esps)
+
+    def st(attr):
+        rows = [getattr(e, attr) for e in esps]
+        a = np.stack(rows + [rows[0]] * pad).astype(np.int32, copy=False)
+        if attr == "suffix_min_ret":
+            n = a.shape[1]
+            out = np.full((b, (n + 3) // 4 * 4), INF32, np.int32)
+            out[:, :n] = a
+            a = out
+        return torch.as_tensor(a, device=dev)
+
+    def sc(attr):
+        vals = [int(getattr(e, attr)) for e in esps] + [0] * pad
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    return tuple(st(a) for a in _TABLES) + tuple(sc(a)
+                                                 for a in _BATCH_SCALARS)
 
 
 def from_reference(es_arrays: dict, carry=None, device="cuda"):

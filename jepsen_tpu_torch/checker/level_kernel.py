@@ -15,13 +15,21 @@ memory where they fit.
   * :func:`level_loop` — the wrapper: the plain version for CPU tensors,
     the kernel for CUDA tensors (or an exception; never a fallback);
     both refuse reduction planes that are not inert;
+  * :func:`level_loop_batch` / :func:`level_loop_batch_reference` —
+    the grid-over-keys form: one launch runs one slice of every key of
+    a stacked batch, one block per key (the TPU kernel under
+    ``jax.vmap``), and its plain version, the same per key.  The kernel
+    has this one form; :func:`level_loop` launches it with one key;
   * :func:`launch_plan` — where a launch at these dims keeps its tables
-    (shared or device memory) and how much scratch it needs;
-  * :data:`LAUNCHES` — kernel launches so far (plain version excluded).
+    (shared or device memory), how much scratch it needs per key and
+    how many blocks fit one SM;
+  * :data:`LAUNCHES`, :data:`BATCH_LAUNCHES` — kernel launches so far,
+    single-key and grid form (plain versions excluded).
 
-Both take ``(model, dims, *step_args)`` where ``step_args`` are the 28
-arguments of a step function; :func:`build_level_loop_fn` binds the
-first two.
+All take ``(model, dims, *step_args)`` where ``step_args`` are the 28
+arguments of a step function, stacked along a leading key axis for the
+grid form (:func:`~.linearizable.stack_batch`);
+:func:`build_level_loop_fn` binds the first two.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ SAFE_MODELS = frozenset({"register", "cas-register", "mutex", "noop"})
 
 #: kernel launches so far; each launch adds one
 LAUNCHES = 0
+#: grid-form launches so far (one per batch slice, whatever its keys)
+BATCH_LAUNCHES = 0
 
 _CUDA = torch.device("cuda")
 
@@ -89,11 +99,18 @@ _N_TABLES = 10  # det_f .. crash_inv
 _INERT: list = []
 
 
-def _check_inert(args) -> None:
+#: the same for the grid form: its stacked planes and per-key counts
+_INERT_BATCH: list = []
+
+
+def _check_inert(args, seen: list = _INERT, extra=()) -> None:
     """Refuse reduction planes that are not inert: neither the kernel
-    nor its plain version reads them."""
+    nor its plain version reads them.  ``extra`` are (tensor, bad mask)
+    checks made with them, cached with them in ``seen``."""
     planes = args[_N_TABLES:_N_TABLES + 5]
-    if len(_INERT) == 5 and all(r() is t for r, t in zip(_INERT, planes)):
+    watched = tuple(planes) + tuple(t for t, _ in extra)
+    if len(seen) == len(watched) and all(
+            r() is t for r, t in zip(seen, watched)):
         return
     det_mpred, det_cpredw, crash_mpred, crash_cpredw, dead_from = planes
     live = torch.stack([(det_mpred != -1).any(), (det_cpredw != 0).any(),
@@ -104,33 +121,16 @@ def _check_inert(args) -> None:
         raise ValueError(
             "level_loop: the reduction planes are not inert; a masked or "
             "dedup search runs the torch step (step.py)")
-    _INERT[:] = [weakref.ref(t) for t in planes]
+    for t, bad in extra:
+        if bool(bad.any()):
+            raise ValueError(f"level_loop_batch: per-key counts out of "
+                             f"range: {t.tolist()}")
+    seen[:] = [weakref.ref(t) for t in watched]
+
 
 #: launch-plan bits: which regions of the kernel's working set sit in
 #: shared memory (the rest go to the scratch buffer in device memory)
 _IN_SMEM = {"frontier": 1, "tables": 2, "successors": 4, "hash": 8}
-
-
-def _check_tables(dims: SearchDims, tables, frontier):
-    want = ([dims.n_det_pad] * 5 + [dims.n_det_pad + 1]
-            + [dims.n_crash_pad] * 4)
-    for i, (t, n) in enumerate(zip(tables, want)):
-        if (t.device != frontier.device or t.dtype != torch.int32
-                or not t.is_contiguous() or tuple(t.shape) != (n,)):
-            raise ValueError(
-                f"level_loop: table {i} must be a contiguous int32 "
-                f"[{n}] tensor on {frontier.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"level_loop: table {i} must start on a 16-byte boundary "
-                "(the kernel's bulk copies need it)")
-    if (frontier.dtype != torch.int32 or not frontier.is_contiguous()
-            or tuple(frontier.shape) != (dims.frontier, dims.words)):
-        raise ValueError(
-            f"level_loop: frontier must be a contiguous int32 "
-            f"[{dims.frontier}, {dims.words}] tensor, got "
-            f"{frontier.dtype} {tuple(frontier.shape)}")
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -144,14 +144,15 @@ def _plan(dims: SearchDims, device_index: int) -> dict:
     from .._build import library
 
     lib = library("level_loop")
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 5)()
     with torch.cuda.device(device_index):
         rc = lib.jtt_level_loop_plan(dims.frontier, dims.window,
                                      dims.n_crash_pad, dims.state_width,
                                      dims.n_det_pad, out)
     _raise_on(lib, rc, "plan")
-    smem, bits, threads, scratch = (int(v) for v in out)
+    smem, bits, threads, scratch, blocks = (int(v) for v in out)
     return {"smem_bytes": smem, "threads": threads, "scratch_bytes": scratch,
+            "blocks_per_sm": blocks,
             "in_smem": [k for k, b in _IN_SMEM.items() if bits & b],
             "tables": "shared" if bits & _IN_SMEM["tables"] else "device"}
 
@@ -159,41 +160,67 @@ def _plan(dims: SearchDims, device_index: int) -> dict:
 def launch_plan(dims: SearchDims, device=None) -> dict:
     """The kernel's launch plan at ``dims`` on a CUDA ``device``:
     ``smem_bytes`` of dynamic shared memory, ``threads``,
-    ``scratch_bytes`` of device memory, the regions ``in_smem``, and
-    ``tables``: "shared" (brought in by bulk copies at launch) or
-    "device" (read from device memory)."""
+    ``scratch_bytes`` of device memory per key, the regions
+    ``in_smem``, ``tables``: "shared" (brought in by bulk copies at
+    launch) or "device" (read from device memory), and
+    ``blocks_per_sm``, the blocks of this plan one SM holds at once
+    (the occupancy query; the grid form runs one block per key)."""
     dev = torch.device(device or "cuda")
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     return _plan(dims, index)
 
 
-def level_loop(model, dims: SearchDims, *args):
-    """One slice through the CUDA kernel (CUDA tensors) or through
-    :func:`level_loop_reference` (CPU tensors).  Returns the carry
-    ``(frontier, count, status, configs, max_depth, ovf)``."""
-    global LAUNCHES
-    frontier = args[22]
-    _check_inert(args)
-    if frontier.device.type == "cpu":
-        return level_loop_reference(model, dims, *args)
+def sfx_stride(dims: SearchDims) -> int:
+    """Row stride of the stacked return suffix table: ``n_det_pad + 1``
+    entries rounded up to 16 bytes, so every key's row starts where the
+    kernel's bulk copies can read it."""
+    return (dims.n_det_pad + 1 + 3) // 4 * 4
+
+
+def _launch(who: str, model, dims: SearchDims, lead: tuple, tables,
+            sfx: int, n_det, n_crash, frontier, scal_in, budget, lvl_cap,
+            bail):
+    """One launch of the kernel over the keys of ``frontier``
+    (``[*lead, F, words]``; ``lead`` is ``(B,)`` for a stacked batch and
+    ``()`` for one key, ``B = 1``): tables ``[*lead, n]`` (the return
+    suffix table ``[*lead, sfx]``), ``n_det``/``n_crash`` int32 ``[B]``
+    on the card, scalars ``[*lead, 5]``.  Returns ``(frontier_out,
+    scal_out)`` shaped as the inputs."""
     if frontier.device.type != "cuda":
-        raise ValueError(f"level_loop: unsupported device {frontier.device}")
+        raise ValueError(f"{who}: unsupported device {frontier.device}")
     if not eligible(model, dims):
-        raise ValueError(f"level_loop: {model.name} at {dims} is not "
-                         "eligible for the fused kernel")
-    tables = args[:_N_TABLES]
-    _check_tables(dims, tables, frontier)
-    n_det, n_crash = int(args[15]), int(args[16])
-    budget, lvl_cap, bail = int(args[19]), int(args[20]), bool(args[21])
+        raise ValueError(f"{who}: {model.name} at {dims} is not eligible "
+                         "for the fused kernel")
+    B = lead[0] if lead else 1
+    want = [dims.n_det_pad] * 5 + [sfx] + [dims.n_crash_pad] * 4
+    for i, (t, n) in enumerate(zip(tables, want)):
+        if (t.device != frontier.device or t.dtype != torch.int32
+                or not t.is_contiguous() or tuple(t.shape) != (*lead, n)):
+            raise ValueError(
+                f"{who}: table {i} must be a contiguous int32 "
+                f"{[*lead, n]} tensor on {frontier.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: table {i} must start on a 16-byte "
+                             "boundary (the kernel's bulk copies need it)")
+    shape = (*lead, dims.frontier, dims.words)
+    if (frontier.dtype != torch.int32 or not frontier.is_contiguous()
+            or tuple(frontier.shape) != shape):
+        raise ValueError(
+            f"{who}: frontier must be a contiguous int32 {list(shape)} "
+            f"tensor, got {frontier.dtype} {tuple(frontier.shape)}")
+    for t in (n_det, n_crash):
+        if (t.device != frontier.device or t.dtype != torch.int32
+                or not t.is_contiguous() or tuple(t.shape) != (B,)):
+            raise ValueError(f"{who}: n_det and n_crash must be contiguous "
+                             f"int32 [{B}] tensors on {frontier.device}")
     dev = frontier.device
     plan = launch_plan(dims, dev)
-    scal_in = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
-                           for v in args[23:28]])
     frontier_out = torch.empty_like(frontier)
-    scal_out = torch.empty(5, dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(16, plan["scratch_bytes"]), dtype=torch.uint8,
-                          device=dev)
+    scal_out = torch.empty((*lead, 5), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(16, B * plan["scratch_bytes"]),
+                          dtype=torch.uint8, device=dev)
 
     from .._build import library
 
@@ -201,16 +228,82 @@ def level_loop(model, dims: SearchDims, *args):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jtt_level_loop(
-            *[t.data_ptr() for t in tables], frontier.data_ptr(),
-            scal_in.data_ptr(), frontier_out.data_ptr(),
-            scal_out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-            dims.frontier, dims.window, dims.n_crash_pad, dims.state_width,
-            dims.n_det_pad, n_det, n_crash, budget, lvl_cap, int(bail),
+            *[t.data_ptr() for t in tables], sfx, n_det.data_ptr(),
+            n_crash.data_ptr(), frontier.data_ptr(), scal_in.data_ptr(),
+            frontier_out.data_ptr(), scal_out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), B, dims.frontier, dims.window, dims.n_crash_pad,
+            dims.state_width, dims.n_det_pad, budget, lvl_cap, int(bail),
             model.kernel_id, stream)
     _raise_on(lib, rc, "kernel launch")
+    return frontier_out, scal_out
+
+
+@functools.lru_cache(maxsize=64)
+def _key_counts(n_det: int, n_crash: int, device: torch.device):
+    """A single key's ``n_det``, ``n_crash`` as two int32 ``[1]`` tensors
+    on the card, made once per search (every slice passes the same)."""
+    t = torch.tensor([n_det, n_crash], dtype=torch.int32, device=device)
+    return t[0:1], t[1:2]
+
+
+def level_loop(model, dims: SearchDims, *args):
+    """One slice through the CUDA kernel (CUDA tensors) or through
+    :func:`level_loop_reference` (CPU tensors).  Returns the carry
+    ``(frontier, count, status, configs, max_depth, ovf)``.  On the card
+    it is the grid launch with one key (``B = 1``)."""
+    global LAUNCHES
+    frontier = args[22]
+    _check_inert(args)
+    if frontier.device.type == "cpu":
+        return level_loop_reference(model, dims, *args)
+    n_det, n_crash = int(args[15]), int(args[16])
+    if not (0 <= n_det <= dims.n_det_pad and 0 <= n_crash <= dims.n_crash_pad):
+        raise ValueError(f"level_loop: n_det={n_det}, n_crash={n_crash} out "
+                         f"of range for {dims}")
+    dev = frontier.device
+    counts = (_key_counts(n_det, n_crash, dev) if dev.type == "cuda"
+              else (None, None))
+    scal_in = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
+                           for v in args[23:28]])
+    out, scal = _launch("level_loop", model, dims, (), args[:_N_TABLES],
+                        dims.n_det_pad + 1, *counts, frontier, scal_in,
+                        int(args[19]), int(args[20]), bool(args[21]))
     LAUNCHES += 1
-    return (frontier_out, scal_out[0], scal_out[1], scal_out[2],
-            scal_out[3], scal_out[4] != 0)
+    return out, scal[0], scal[1], scal[2], scal[3], scal[4] != 0
+
+
+def level_loop_batch_reference(model, dims: SearchDims, *args):
+    """The plain torch version of one grid launch: the all-pairs step
+    of :func:`level_loop_reference`, key by key (``step.run_per_key``)."""
+    return step.run_per_key(
+        _reference_step(model, dims, args[22].device), dims, *args)
+
+
+def level_loop_batch(model, dims: SearchDims, *args):
+    """One slice of every key of a stacked batch: the grid-over-keys
+    kernel (CUDA tensors; one block per key) or
+    :func:`level_loop_batch_reference` (CPU tensors).  Tables are
+    stacked ``[B, n]`` (the return suffix table ``[B, sfx_stride]``),
+    the per-key ``n_det``/``n_crash``/``dead_lo``/``dead_tok`` are int32
+    ``[B]``, and the carry is ``[B, F, words]`` and five ``[B]``
+    tensors.  Returns the stacked carry."""
+    global BATCH_LAUNCHES
+    frontier = args[22]
+    n_det, n_crash = args[15], args[16]
+    _check_inert(args, _INERT_BATCH, extra=(
+        (n_det, (n_det < 0) | (n_det > dims.n_det_pad)),
+        (n_crash, (n_crash < 0) | (n_crash > dims.n_crash_pad))))
+    if frontier.device.type == "cpu":
+        return level_loop_batch_reference(model, dims, *args)
+    scal_in = torch.stack([args[23], args[24], args[25], args[26],
+                           args[27].to(torch.int32)], dim=1).contiguous()
+    out, scal = _launch("level_loop_batch", model, dims, (frontier.shape[0],),
+                        args[:_N_TABLES], sfx_stride(dims), n_det, n_crash,
+                        frontier, scal_in, int(args[19]), int(args[20]),
+                        bool(args[21]))
+    BATCH_LAUNCHES += 1
+    return (out, scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3],
+            scal[:, 4] != 0)
 
 
 def build_level_loop_fn(model, dims: SearchDims):

@@ -27,6 +27,12 @@ histories that make a depth-first search expensive:
 
 Exact like the WGL oracle: "unknown" only past ``max_configs``, a
 ``deadline`` or ``cancel``.
+
+* **Checkpoints.**  The level set is the whole search state: with
+  ``checkpoint_path`` it is written every ``checkpoint_every`` levels
+  (JSON, replaced atomically), with the witness's parent table while
+  that is live; ``resume_from`` continues from such a file, on the same
+  history and model only.  The file is the JAX package's.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
                        cancel=None,
                        witness_cap: int = 0,
                        checkpoint_path: str | None = None,
+                       checkpoint_every: int = 0,
                        resume_from: str | None = None,
                        decompose: bool = False,
                        lint: bool | None = None,
@@ -98,20 +105,23 @@ def check_opseq_linear(seq: OpSeq, model, *,
     ``threading.Event``) are tested every 1024 steps and give "unknown"
     with ``info`` "exceeded deadline" or "cancelled".
 
+    With ``checkpoint_path`` and ``checkpoint_every`` = N the level set
+    is written every N levels; ``resume_from`` continues from such a
+    file (the prepass does not run again; a mismatched history or model
+    raises).  A resumed run keeps its witness when the file carries the
+    parent table, else a valid verdict says why it has none.
+
     ``lint``, ``hb`` and ``dpor`` (None: on) and ``audit`` (None: off)
     as in ``seq.check_opseq``; with dpor the result carries ``dpor``
-    stats.  ``decompose`` takes None or False, ``checkpoint_path`` and
-    ``resume_from`` None."""
+    stats.  ``decompose`` takes None or False."""
     from ..analyze.audit import maybe_audit
     from ..analyze.dpor import resolve_dpor
     from ..analyze.hb import attach, maybe_hb
     from ..analyze.lint import maybe_lint
 
     _refuse(decompose, "decompose", "A8")
-    _refuse(checkpoint_path, "checkpoint_path", "A3")
-    _refuse(resume_from, "resume_from", "A3")
     maybe_lint(seq, model, lint)
-    hbres = maybe_hb(seq, model, hb, dpor)
+    hbres = maybe_hb(seq, model, hb, dpor) if resume_from is None else None
     dpor_stats: dict | None = None
 
     def finish(out: dict) -> dict:
@@ -263,6 +273,25 @@ def check_opseq_linear(seq: OpSeq, model, *,
         "witness tracking disabled (witness_cap=0)"
     # (key, cmask) -> (op row, parent (key, cmask)); None once capped
     parents: dict | None = {root: None} if witness_cap else None
+    digest = None
+    if checkpoint_path or resume_from:
+        from .linearizable import history_digest
+
+        digest = history_digest(seq, model)
+    if resume_from is not None:
+        level, depth, configs, saved = _load_linear_checkpoint(
+            resume_from, model, digest)
+        if witness_cap and saved is not None:
+            # a live table is whole: every level configuration's chain
+            # reaches the root through it
+            parents = saved
+            parents.setdefault(root, None)
+        else:
+            if witness_cap:
+                witness_drop = ("resumed from a witnessless checkpoint "
+                                "(no parent table was serialized)")
+            witness_cap = 0
+            parents = None
 
     def remember(child_key, child_cm, op_row, par_key, par_cm):
         nonlocal parents, witness_drop
@@ -314,6 +343,10 @@ def check_opseq_linear(seq: OpSeq, model, *,
         return True
 
     while True:
+        if (checkpoint_path and checkpoint_every
+                and depth and depth % checkpoint_every == 0):
+            _save_linear_checkpoint(checkpoint_path, model, digest, level,
+                                    depth, configs, parents=parents)
         # crash closure within the level (depth unchanged)
         work = [(k, cm) for k, ac in level.items() for cm in ac]
         while work:
@@ -395,3 +428,64 @@ def check_opseq_linear(seq: OpSeq, model, *,
                            "final_ops": sorted(final_ops)})
         level = nxt
         depth += 1
+
+
+def _node_json(node) -> list:
+    (p, win, state), cm = node
+    return [p, win, list(state), cm]
+
+
+def _node_from_json(row) -> tuple:
+    p, win, state, cm = row
+    return ((p, win, tuple(state)), cm)
+
+
+def _save_linear_checkpoint(path: str, model, digest: str, level: dict,
+                            depth: int, configs: int, *,
+                            parents: dict | None = None) -> None:
+    """The level set (and the parent table, while live) as JSON: plain
+    ints and lists, so loading runs no code.  Written to a temporary
+    file and renamed, so a crash never leaves a torn checkpoint."""
+    import json
+    import os
+
+    payload = {"digest": digest, "model": model.name, "depth": depth,
+               "configs": configs,
+               "level": [[k[0], k[1], list(k[2]), list(ac)]
+                         for k, ac in level.items()]}
+    if parents is not None:
+        # the shared table, O(kept configurations), not a chain per
+        # level configuration
+        payload["parents"] = [
+            _node_json(child) + [op_row, _node_json(par)]
+            for child, entry in parents.items() if entry is not None
+            for op_row, par in (entry,)]
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def _load_linear_checkpoint(path: str, model, digest: str):
+    """Returns (level, depth, configs, parents); ``parents`` is None when
+    the file carries no parent table."""
+    import json
+
+    with open(path) as f:
+        payload = json.load(f)
+    if payload["model"] != model.name:
+        raise ValueError(f"checkpoint is for model {payload['model']!r}, "
+                         f"got {model.name!r}")
+    if payload["digest"] != digest:
+        raise ValueError("checkpoint was taken on a different history or "
+                         "model parameterization (digest mismatch)")
+    level = {(p, win, tuple(state)): list(ac)
+             for p, win, state, ac in payload["level"]}
+    parents = None
+    raw = payload.get("parents")
+    if raw is not None:
+        parents = {}
+        for p, win, state, cm, op_row, par in raw:
+            parents[((p, win, tuple(state)), cm)] = (op_row,
+                                                     _node_from_json(par))
+    return level, payload["depth"], payload["configs"], parents

@@ -27,6 +27,14 @@ reductions are dropped for the whole search
 (:func:`_strip_reductions_for_kernel`).  ``audit=True`` replays every
 certificate (``analyze/audit.py``).
 
+A search can be checkpointed after any slice (:func:`save_checkpoint`
+from ``on_slice``) and resumed (:func:`resume_opseq`) in either package:
+the file is the JAX package's npz.  :func:`search_batch` checks a batch
+of independent keys: one slice of every key per launch of the fused
+kernel's grid-over-keys form, or the torch step key by key, through a
+ladder of shared rungs, by default bucketed by shape
+(``bucket.py``).
+
 :func:`check_competition` races the two exact host engines against the
 device search, the default route of :class:`Linearizable` above
 ``host_threshold`` ops.  :class:`Linearizable` confirms invalid device
@@ -35,11 +43,13 @@ prefix, which also yields a certificate, and reports every invalid
 verdict in ``linear.html`` (``linear_report.py``), led by its shrunk
 core (``analyze/shrink.py``).
 
-Not in this module yet: decomposition and checkpoints.
+Not in this module yet: decomposition (and its ``decompose=`` options)
+and the mesh-sharded batch.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 
@@ -53,11 +63,12 @@ from ..analyze.lint import maybe_lint
 from ..history import OpSeq, encode_ops
 from . import level_kernel
 from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, EncodedSearch,
-                     SearchDims, _grid_width, _init_carry, _widen_carry,
-                     attach_reductions, carry_to_device, choose_dims,
-                     encode_search, pad_search, search_args)
+                     SearchDims, _grid_width, _init_carry, _init_config,
+                     _next_pow2, _round_up, _widen_carry, attach_reductions,
+                     carry_to_device, choose_dims, encode_search,
+                     pad_search, search_args, stack_batch, to_numpy)
 from .linear import DEFAULT_WITNESS_CAP, _refuse, check_opseq_linear
-from .step import build_search_step_fn
+from .step import build_search_step_fn, run_per_key
 
 #: statuses
 VALID, INVALID, UNKNOWN = 2, 1, 0
@@ -137,6 +148,22 @@ def _strip_reductions_for_kernel(es: EncodedSearch, model,
 
 _STEP_CACHE: dict = {}
 
+#: slice-function cache hits and misses (single and batch)
+KERNEL_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def kernel_cache_stats() -> dict:
+    """A copy of :data:`KERNEL_CACHE_STATS`."""
+    return dict(KERNEL_CACHE_STATS)
+
+
+def _cached(key, build):
+    fn = _STEP_CACHE.get(key)
+    KERNEL_CACHE_STATS["hits" if fn is not None else "misses"] += 1
+    if fn is None:
+        fn = _STEP_CACHE[key] = build()
+    return fn
+
 
 def get_kernel(model, dims: SearchDims, device: torch.device, *,
                masked: bool = False, masked_crash: bool = False,
@@ -149,17 +176,21 @@ def get_kernel(model, dims: SearchDims, device: torch.device, *,
     use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
     key = (model.name, dims, str(device), step._DOMINANCE_MODE, use_k,
            masked, masked_crash, dedup)
-    fn = _STEP_CACHE.get(key)
-    if fn is None:
-        fn = (level_kernel.build_level_loop_fn(model, dims) if use_k
-              else build_search_step_fn(model, dims, device, masked=masked,
-                                        masked_crash=masked_crash,
-                                        dedup=dedup))
-        _STEP_CACHE[key] = fn
-    return fn
+    return _cached(key, lambda: (
+        level_kernel.build_level_loop_fn(model, dims) if use_k
+        else build_search_step_fn(model, dims, device, masked=masked,
+                                  masked_crash=masked_crash, dedup=dedup)))
+
+
+#: the active single-key slice driver's "a slice ran the fused kernel"
+#: flag, set around each ``on_slice`` call (thread-local: the race runs
+#: the device leg in a thread); :func:`save_checkpoint` records it, as
+#: the JAX package's ``_RUN_PALLAS``.  None outside a driver.
+_RUN_KERNEL = threading.local()
 
 
 def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
+                on_slice=None, resume=None, used_kernel0: bool = False,
                 deadline: float | None = None, stop=None):
     """Drive the sliced search to completion with an adaptive width.
 
@@ -168,30 +199,40 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
     settles one step at a time, after two consecutive slices fit the
     lower rung.  ``deadline`` (``time.perf_counter()`` clock) and
     ``stop`` (a ``threading.Event``) are tested after every slice and
-    end the search as "unknown".
+    end the search as "unknown".  ``on_slice(carry, dims)`` runs after
+    every slice (the checkpoint hook); ``resume`` is a carry to start
+    from, at ``dims.frontier`` width.
 
     Returns (status, configs, max_depth, dims, used_kernel): status is
     final (-1 never escapes), dims carries the final width, and
-    ``used_kernel`` says whether any slice ran the CUDA level loop."""
+    ``used_kernel`` says whether any slice ran the CUDA level loop, or
+    ``used_kernel0`` (a resumed search's earlier slices) was set."""
     args = search_args(esp, es, device=device)
     masked, masked_crash, dedup = _reduction_key(esp)
-    carry = carry_to_device(_init_carry(dims, model), device)
+    carry = carry_to_device(
+        resume if resume is not None else _init_carry(dims, model), device)
     F = dims.frontier
     lvl_cap = _SLICE_LEVELS0
     first = True
     low_streak = 0  # consecutive slices whose live width fit a lower rung
-    used_kernel = False
+    used_kernel = used_kernel0
     timed_out = False
     while True:
         bail = F < MAX_FRONTIER
-        used_kernel = used_kernel or _use_kernel(
-            model, dims, device, masked=masked, dedup=dedup)
+        use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
         fn = get_kernel(model, dims, device, masked=masked,
                         masked_crash=masked_crash, dedup=dedup)
         t0 = time.perf_counter()
         carry = fn(*args, budget, lvl_cap, bail, *carry)
         status = int(carry[2])  # waits for the slice
         dt = time.perf_counter() - t0
+        used_kernel = used_kernel or use_k
+        if on_slice is not None:
+            _RUN_KERNEL.flag = used_kernel
+            try:
+                on_slice(carry, dims)
+            finally:
+                _RUN_KERNEL.flag = None
         count = int(carry[1])
         configs = int(carry[3])
         ovf = bool(carry[5])
@@ -274,15 +315,25 @@ FRONTIER_DROPPED_DEVICE = (
     "extract the frontier")
 
 
-def _engine_label(used_kernel: bool) -> str:
-    return "device-bfs(cuda)" if used_kernel else "device-bfs"
+def _engine_label(used_kernel: bool, resumed: bool = False,
+                  base: str = "device-bfs") -> str:
+    """The device engines' labels: ``base``, tagged ``cuda`` when a slice
+    ran the fused kernel and ``resumed`` for a resumed search."""
+    tags = [t for t, on in (("cuda", used_kernel), ("resumed", resumed))
+            if on]
+    return base + (f"({','.join(tags)})" if tags else "")
+
+
+#: "the caller did not run the prepass" (a caller's result may be None)
+_HB_UNSET = object()
 
 
 def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                  dims: SearchDims | None = None, device="cuda",
-                 deadline: float | None = None, stop=None,
+                 on_slice=None, deadline: float | None = None, stop=None,
                  lint: bool | None = None, audit: bool | None = None,
-                 hb: bool | None = None, dpor: bool | None = None) -> dict:
+                 hb: bool | None = None, dpor: bool | None = None,
+                 _hbres=_HB_UNSET) -> dict:
     """Check one columnar history on ``device``.  Returns
     ``{"valid": True|False|"unknown", "configs", "max_depth", "engine",
     "frontier", "window", "concurrency"}`` plus certificate fields:
@@ -292,9 +343,11 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
     is checked by the host ``linear`` sweep, engine
     "host-linear(fallback)".
 
-    ``deadline`` (``time.perf_counter()`` clock) and ``stop`` (a
-    ``threading.Event``, how the competition race retires the device
-    leg) end the search as "unknown" between slices.
+    ``on_slice(carry, dims)`` runs after every slice: the checkpoint
+    hook (:func:`save_checkpoint`, :func:`resume_opseq`).  ``deadline``
+    (``time.perf_counter()`` clock) and ``stop`` (a ``threading.Event``,
+    how the competition race retires the device leg) end the search as
+    "unknown" between slices.
 
     ``lint`` (None: on) lints the history first.  ``hb`` (None: on) runs
     the static prepass: a decided history returns at once with its
@@ -303,10 +356,12 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
     must-order edges and the dead-value table to the device search as
     reduction planes, and adds ``dpor`` stats to the result
     (``device_masked``, ``device_mask_rows``, ``dedup``).  ``audit=True``
-    replays the certificate."""
+    replays the certificate.  ``_hbres`` is a prepass result the
+    caller already has (the batch's fallback)."""
     dev = _resolve_device(device)
     maybe_lint(seq, model, lint)
-    hbres = maybe_hb(seq, model, hb, dpor)
+    hbres = maybe_hb(seq, model, hb, dpor) if _hbres is _HB_UNSET \
+        else _hbres
 
     def finish(out: dict) -> dict:
         return maybe_audit(seq, model, attach(out, hbres), audit)
@@ -345,7 +400,8 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                       "device_mask_rows": n_mask_rows, "dedup": es.dedup}
     esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
     status, configs, max_depth, dims, used_kernel = _run_kernel(
-        esp, es, model, dims, budget, dev, deadline=deadline, stop=stop)
+        esp, es, model, dims, budget, dev, on_slice=on_slice,
+        deadline=deadline, stop=stop)
     out = {"valid": _STATUS[status], "configs": configs,
            "max_depth": max_depth, "engine": _engine_label(used_kernel),
            "frontier": dims.frontier, "window": es.window,
@@ -471,6 +527,502 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
         if result:
             return finish(dict(result))
     return {**dev_out, "engine": "competition(exhausted)"}
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def history_digest(seq: OpSeq, model) -> str:
+    """Identity of (history, model), so a checkpoint never resumes on
+    another history; the model's parameters bind too (register(0) and
+    register(7) share a name).  The same digest as the JAX package's:
+    the two packages' columns have the same dtypes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (seq.f, seq.v1, seq.v2, seq.inv, seq.ret, seq.ok):
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    h.update(model.name.encode())
+    h.update(repr((model.init, model.state_width)).encode())
+    return h.hexdigest()
+
+
+def save_checkpoint(path: str, carry, dims: SearchDims, model,
+                    budget: int, seq: OpSeq | None = None) -> None:
+    """Write a live search carry (as ``on_slice`` receives it) to
+    ``path``: the JAX package's npz, key for key, so either package
+    resumes what the other wrote.  ``seq`` binds it to its history.
+    ``used_pallas`` records whether a slice of the search so far ran the
+    fused kernel (here the CUDA level loop), read from the active slice
+    driver; False outside one."""
+    c = to_numpy(carry)
+    digest = history_digest(seq, model) if seq is not None else ""
+    used = getattr(_RUN_KERNEL, "flag", None)
+    np.savez_compressed(
+        path, frontier=np.asarray(c[0], np.int32),
+        count=np.int32(c[1]), status=np.int32(c[2]),
+        configs=np.int32(c[3]), max_depth=np.int32(c[4]),
+        ovf=np.bool_(c[5]), budget=np.int64(budget),
+        model=np.bytes_(model.name.encode()),
+        digest=np.bytes_(digest.encode()),
+        used_pallas=np.bool_(bool(used)),
+        dims=np.asarray([dims.n_det_pad, dims.n_crash_pad, dims.window,
+                         dims.k, dims.state_width, dims.frontier],
+                        np.int64))
+
+
+def load_checkpoint(path: str):
+    """Returns (carry, dims, model_name, budget, digest, used_kernel)."""
+    z = np.load(path)
+    d = z["dims"]
+    dims = SearchDims(n_det_pad=int(d[0]), n_crash_pad=int(d[1]),
+                      window=int(d[2]), k=int(d[3]), state_width=int(d[4]),
+                      frontier=int(d[5]))
+    carry = (z["frontier"], z["count"][()], z["status"][()],
+             z["configs"][()], z["max_depth"][()], z["ovf"][()])
+    digest = bytes(z["digest"][()]).decode() if "digest" in z else ""
+    used = bool(z["used_pallas"][()]) if "used_pallas" in z else False
+    return (carry, dims, bytes(z["model"][()]).decode(), int(z["budget"]),
+            digest, used)
+
+
+def resume_opseq(seq: OpSeq, model, path: str, *, device="cuda",
+                 on_slice=None, deadline: float | None = None,
+                 stop=None) -> dict:
+    """Continue a search from :func:`save_checkpoint`'s file.  A model or
+    history other than the checkpoint's raises.  ``on_slice``,
+    ``deadline`` and ``stop`` as in :func:`search_opseq`: a resumed
+    search stopped again is again a checkpoint.  The engine label gains
+    ``resumed``."""
+    dev = _resolve_device(device)
+    carry, dims, model_name, budget, digest, prior = load_checkpoint(path)
+    if model_name != model.name:
+        raise ValueError(
+            f"checkpoint is for model {model_name!r}, got {model.name!r}")
+    if digest and digest != history_digest(seq, model):
+        raise ValueError(
+            "checkpoint was taken on a different history (digest mismatch)")
+    es = encode_search(seq)
+    esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    status, configs, max_depth, dims, used_kernel = _run_kernel(
+        esp, es, model, dims, budget, dev, on_slice=on_slice, resume=carry,
+        used_kernel0=prior, deadline=deadline, stop=stop)
+    return {"valid": _STATUS[status], "configs": configs,
+            "max_depth": max_depth,
+            "engine": _engine_label(used_kernel, resumed=True),
+            "frontier": dims.frontier, "window": es.window,
+            "concurrency": es.concurrency}
+
+
+# ---------------------------------------------------------------------------
+# the batch of independent keys
+# ---------------------------------------------------------------------------
+
+#: widest shared-batch rung; keys that overflow it go solo
+#: (:func:`search_opseq`'s ladder resumes them up to MAX_FRONTIER)
+BATCH_FRONTIER_CAP = 512
+
+
+def batch_dims(ess: list[EncodedSearch], model, *,
+               frontier: int = 32) -> SearchDims:
+    """Dims covering every key of a batch.  The shared frontier starts
+    narrow, sized for the typical key: keys that outgrow a rung climb
+    together through 4x-wider rungs up to :data:`BATCH_FRONTIER_CAP`."""
+    W = _round_up(max(e.window for e in ess), 32)
+    ncr = max(e.n_crash for e in ess)
+    NC = _round_up(ncr, 32) if ncr else 32
+    K = _next_pow2(max(1, min(max(e.concurrency for e in ess), W + ncr)))
+    nd = max(64, _next_pow2(max(e.n_det for e in ess)))
+    return SearchDims(n_det_pad=nd, n_crash_pad=NC, window=W, k=K,
+                      state_width=model.state_width, frontier=frontier)
+
+
+def batch_dead_pad(ess: list[EncodedSearch]) -> int:
+    """The dead-table width a batch pads its keys to (stacked shapes
+    agree; keys without a table stack the inert 8-entry one)."""
+    w = 8
+    for e in ess:
+        if e.dead_from is not None:
+            w = max(w, _next_pow2(len(e.dead_from)))
+    return w
+
+
+def _init_batch_carry(n: int, dims: SearchDims, model, device) -> tuple:
+    """Stacked fresh carries of n keys on ``device``."""
+    frontier = np.zeros((n, dims.frontier, dims.words), np.int32)
+    frontier[:, 0] = _init_config(dims, model)
+    dev = torch.device(device)
+    i32 = torch.int32
+    return (torch.as_tensor(frontier, device=dev),
+            torch.ones(n, dtype=i32, device=dev),
+            torch.full((n,), -1, dtype=i32, device=dev),
+            torch.zeros(n, dtype=i32, device=dev),
+            torch.zeros(n, dtype=i32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def pad_batch_carry(carry, pad: int, dims: SearchDims, model,
+                    device) -> tuple:
+    """A stacked carry with ``pad`` inert lanes appended: status VALID,
+    count 0, so they do nothing."""
+    if not pad:
+        return carry
+    blank = _init_batch_carry(pad, dims, model, device)
+    blank = (torch.zeros_like(blank[0]), torch.zeros_like(blank[1]),
+             torch.full_like(blank[2], VALID)) + blank[3:]
+    return tuple(torch.cat([c, p]) for c, p in zip(carry, blank))
+
+
+def get_batch_kernel(model, dims: SearchDims, device: torch.device, *,
+                     masked: bool = False, masked_crash: bool = False,
+                     dedup: bool = False):
+    """The batch slice function for (model, dims) on ``device``: the
+    fused kernel's grid over keys where :func:`_use_kernel` says so,
+    else the torch step key by key (``step.run_per_key``; other models,
+    masked or dedup batches, rungs past the kernel's range).  Each key's
+    result equals its solo run's, as each lane of the JAX package's
+    vmapped step does."""
+    from . import step
+
+    use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
+    key = ("batch", model.name, dims, str(device), step._DOMINANCE_MODE,
+           use_k, masked, masked_crash, dedup)
+
+    def build():
+        if use_k:
+            return functools.partial(level_kernel.level_loop_batch, model,
+                                     dims)
+        fn = build_search_step_fn(model, dims, device, masked=masked,
+                                  masked_crash=masked_crash, dedup=dedup)
+        return functools.partial(run_per_key, fn, dims)
+
+    return _cached(key, build)
+
+
+def _drive_batch_compacting(fn, esps, model, dims: SearchDims, budget: int,
+                            device, *, bail: bool = False):
+    """Slice driver of one batch rung, with active-key compaction.
+
+    Between slices, finished keys are recorded on the host; once the
+    live keys fit ``1/shrink`` of the current lanes, the stacked
+    arguments and carry are rebuilt at the smaller lane count (pad lanes
+    carry status VALID and count 0: they do nothing).  Lanes step by
+    powers of two up to 32, then by multiples of 32.  With ``bail`` a
+    key that overflowed stops (a wider rung is coming) and retires.
+
+    Returns (status, count, configs, depth, ovf) numpy arrays over all
+    keys, in input order."""
+    n = len(esps)
+    fin: dict = {}  # key -> (status, count, configs, depth, ovf)
+
+    def grid(k: int) -> int:
+        if k <= 32:
+            return max(4, _next_pow2(k))
+        return _round_up(k, 32)
+
+    # the host rule: re-stack once the live keys fit half the lanes.  The
+    # JAX package waits for a quarter on a TPU, where every new batch
+    # shape is a fresh compile; the card compiles nothing per shape
+    shrink = 2
+    lanes = list(range(n))  # lane -> key (retired keys keep their lane
+    #                         until the next re-stack)
+    b = grid(n)
+    args = stack_batch(esps, pad_to=b, device=device)
+    carry = pad_batch_carry(_init_batch_carry(n, dims, model, device),
+                            b - n, dims, model, device)
+
+    lvl_cap = _SLICE_LEVELS0
+    first = True
+    while True:
+        t0 = time.perf_counter()
+        carry = fn(*args, budget, lvl_cap, bail, *carry)
+        scal = torch.stack([carry[2], carry[1], carry[3], carry[4],
+                            carry[5].to(torch.int32)]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        live = []  # lanes still running
+        for i, k in enumerate(lanes):
+            if k in fin:
+                continue
+            st, ct, cf, dp, ov = (int(v) for v in scal[:, i])
+            if st != -1 or ct <= 0 or cf >= budget or (bail and ov):
+                fin[k] = (st, ct, cf, dp, ov)
+            else:
+                live.append(i)
+        if not live:
+            break
+        if not first:
+            lvl_cap = _adapt_lvl_cap(lvl_cap, dt)
+        first = False
+        if grid(len(live)) * shrink <= grid(len(lanes)):
+            idx = torch.tensor(live, device=carry[0].device)
+            lanes = [lanes[i] for i in live]
+            b = grid(len(lanes))
+            args = stack_batch([esps[k] for k in lanes], pad_to=b,
+                               device=device)
+            carry = pad_batch_carry(tuple(c[idx] for c in carry),
+                                    b - len(lanes), dims, model, device)
+            first = True
+
+    out = np.zeros((5, n), np.int64)
+    for k, vals in fin.items():
+        out[:, k] = vals
+    return (out[0].astype(np.int32), out[1].astype(np.int32),
+            out[2].astype(np.int32), out[3].astype(np.int32),
+            out[4].astype(bool))
+
+
+def _finalize_batch_status(status, count, ovf):
+    """Still-running statuses after the ladder, as :func:`_run_kernel`
+    finalizes them: a dead frontier is invalid unless it overflowed; an
+    exhausted budget is unknown."""
+    return np.where(
+        status == -1,
+        np.where(count <= 0, np.where(ovf, UNKNOWN, INVALID), UNKNOWN),
+        status)
+
+
+def _device_batch_certificate(r: dict) -> dict:
+    """The batch engines' certificate-drop reasons on a device verdict."""
+    if r.get("valid") is True:
+        r.setdefault("witness_dropped", WITNESS_DROPPED_DEVICE)
+    elif r.get("valid") is False:
+        r.setdefault("frontier_dropped", FRONTIER_DROPPED_DEVICE)
+    return r
+
+
+def _search_batch_ladder(seqs: list[OpSeq], esps: list[EncodedSearch],
+                         model, dims: SearchDims, budget: int,
+                         device) -> list[dict]:
+    """The batch's device route over padded encodings at ``dims``: every
+    pending key runs at the current rung; keys that overflow it run
+    together at the next, 4x wider, up to :data:`BATCH_FRONTIER_CAP`.
+    Each key's configs add up over the rungs, and its budget bounds the
+    sum.  Keys still overflowing at the cap run solo
+    (:func:`search_opseq`) on what is left of their budget.  A failing
+    kernel raises."""
+    n = len(seqs)
+    status = np.full(n, UNKNOWN, np.int32)
+    count = np.zeros(n, np.int32)
+    configs = np.zeros(n, np.int64)
+    depth = np.zeros(n, np.int32)
+    ovf = np.zeros(n, bool)
+    pending = list(range(n))
+    spent = np.zeros(n, np.int64)  # configs over all rungs
+    rung = dims.frontier
+    # uniform over the batch: pad_search materializes every plane, and
+    # the step reads them when any key needs them (inert for the rest)
+    b_masked = any(e.masked for e in esps)
+    b_mcrash = any(e.mask_has_crash for e in esps)
+    b_dedup = any(e.dedup for e in esps)
+    used_kernel = False
+    while pending:
+        d = SearchDims(**{**dims.__dict__, "frontier": rung})
+        use_k = _use_kernel(model, d, device, masked=b_masked,
+                            dedup=b_dedup)
+        fn = get_batch_kernel(model, d, device, masked=b_masked,
+                              masked_crash=b_mcrash, dedup=b_dedup)
+        st, ct, cf, dp, ov = _drive_batch_compacting(
+            fn, [esps[i] for i in pending], model, d, budget, device,
+            bail=True)
+        used_kernel = used_kernel or use_k
+        nxt = []
+        for j, i in enumerate(pending):
+            spent[i] += int(cf[j])
+            if st[j] == -1 and bool(ov[j]) and spent[i] < budget:
+                nxt.append(i)  # overflowed this rung: climb
+            else:
+                status[i], count[i] = st[j], ct[j]
+                configs[i] = spent[i]
+                depth[i], ovf[i] = dp[j], ov[j]
+        pending = nxt
+        if pending and rung >= BATCH_FRONTIER_CAP:
+            break  # stragglers go solo below
+        rung = min(rung * 4, BATCH_FRONTIER_CAP)
+    status = _finalize_batch_status(status, count, ovf)
+    out = []
+    engine = _engine_label(used_kernel, base="device-batch")
+    solo = set(pending)
+    for i in range(n):
+        needs_solo = i in solo or (int(status[i]) == UNKNOWN
+                                   and bool(ovf[i]))
+        if needs_solo and spent[i] >= budget:
+            # the rungs spent this key's budget: unknown, with the count
+            out.append({"valid": "unknown", "configs": int(spent[i]),
+                        "max_depth": int(depth[i]), "engine": engine})
+        elif needs_solo:
+            r = search_opseq(seqs[i], model,
+                             budget=max(1000, budget - int(spent[i])),
+                             device=device, lint=False, audit=False)
+            r["configs"] = int(r.get("configs", 0)) + int(spent[i])
+            out.append(r)
+        else:
+            out.append(_device_batch_certificate(
+                {"valid": _STATUS[int(status[i])],
+                 "configs": int(configs[i]), "max_depth": int(depth[i]),
+                 "engine": engine}))
+    return out
+
+
+def _audit_batch(seqs: list[OpSeq], model, results: list[dict],
+                 audit: bool) -> list[dict]:
+    """Replay every key's certificate when ``audit`` is on."""
+    if audit:
+        for s, r in zip(seqs, results):
+            maybe_audit(s, model, r, True)
+    return results
+
+
+def _greedy_result(seq: OpSeq) -> dict:
+    return {"valid": True, "configs": seq.n_must, "max_depth": seq.n_must,
+            "engine": "greedy-witness",
+            "linearization": greedy_linearization(seq)}
+
+
+def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
+                 dims: SearchDims | None = None, device="cuda",
+                 sharding=None, decompose: bool = False,
+                 bucket: bool | None = None, lint: bool | None = None,
+                 audit: bool | None = None, hb: bool | None = None,
+                 dpor: bool | None = None,
+                 _prepass: list | None = None) -> list[dict]:
+    """Check a batch of independent per-key histories: the knossos
+    ``independent`` checker's per-key searches, run together on
+    ``device``.  Returns one result per key, in order.
+
+    Keys the greedy witness or the prepass decides return at once with
+    their certificates; keys past the device encoding go to the host
+    ``linear`` sweep ("host-linear(fallback)"); the rest ride the batch
+    ladder (:func:`_search_batch_ladder`): one slice of every key per
+    launch of the fused kernel's grid over keys on the card, the torch
+    step key by key elsewhere.  Device verdicts carry drop reasons.
+
+    ``bucket`` (None: on for more than one key, unless ``dims`` pins one
+    shape) groups the keys by padded shape (``bucket.py``), each bucket
+    at its own dims; the verdicts are the same either way.  ``lint``
+    (None: on) lints every key first; errors raise naming the key.
+    ``hb`` and ``dpor`` (None: on) as in :func:`search_opseq`; where the
+    kernel takes the batch's starting rung the reductions are dropped.
+    ``audit=True`` replays every key's certificate.  ``decompose`` and
+    ``sharding`` accept only off.  ``_prepass`` carries per-key
+    must-order maps a caller already computed."""
+    from ..analyze.hb import resolve_hb
+    from ..analyze.lint import Diagnostic, HistoryLintError, lint_opseq
+
+    _refuse(decompose, "decompose", "A8")
+    _refuse(sharding is not None, "sharding", "A11")
+    dev = _resolve_device(device)
+    if not seqs:
+        return []
+    hb = resolve_hb(hb)
+    dpor_on = resolve_dpor(dpor)
+    audit = bool(audit)
+    if lint is None or lint:
+        # every key up front; an error names its key
+        bad = []
+        for k, s in enumerate(seqs):
+            for d in lint_opseq(s, model):
+                bad.append(Diagnostic(d.code, d.severity,
+                                      f"batch key {k}: {d.message}",
+                                      index=d.index, process=d.process,
+                                      f=d.f))
+        if any(d.severity == "error" for d in bad):
+            raise HistoryLintError(bad)
+    if bucket is None and dims is None and len(seqs) > 1:
+        bucket = True
+    if bucket and dims is None:
+        from .bucket import search_batch_bucketed
+
+        return _audit_batch(seqs, model, search_batch_bucketed(
+            seqs, model, budget=budget, device=dev, hb=hb, dpor=dpor),
+            audit)
+    # the greedy witness and the prepass dispose of keys on the host;
+    # undecided keys keep their must-order maps (the device mask)
+    results, rest, masks, hbs = _dispose_batch(seqs, model, hb, dpor,
+                                               _prepass)
+    if results:
+        if rest:
+            sub = search_batch([seqs[i] for i in rest], model,
+                               budget=budget, dims=dims, device=dev,
+                               bucket=False, lint=False, audit=False,
+                               hb=False, dpor=dpor, _prepass=masks)
+            results.update(zip(rest, sub))
+        return _audit_batch(seqs, model,
+                            [results[i] for i in range(len(seqs))], audit)
+
+    ess = [encode_search(s) for s in seqs]
+    if any(e.window > MAX_WINDOW or e.n_crash > MAX_CRASH for e in ess):
+        # past the encoding: those keys go to the host sweep, the rest
+        # solo
+        out = []
+        for i, (s, e) in enumerate(zip(seqs, ess)):
+            if e.window > MAX_WINDOW or e.n_crash > MAX_CRASH:
+                r = _host_linear_fallback(s, model, hb, dpor)
+            else:
+                r = search_opseq(s, model, budget=budget, device=dev,
+                                 lint=False, audit=False, hb=hb, dpor=dpor,
+                                 _hbres=hbs[i])
+            out.append(r)
+        return _audit_batch(seqs, model, out, audit)
+    dims = dims or batch_dims(ess, model)
+    esps = _pad_batch(seqs, ess, masks, model, dims, dev, dpor_on)
+    return _audit_batch(seqs, model, _search_batch_ladder(
+        seqs, esps, model, dims, budget, dev), audit)
+
+
+def _dispose_batch(seqs: list[OpSeq], model, hb: bool, dpor,
+                   prepass: list | None = None):
+    """The host's disposal of a batch's keys before any device work (both
+    batch routes): the greedy witness, then, with ``hb``, the prepass,
+    each deciding with its certificate.  Returns ``(decided, rest,
+    masks, hbs)``: results by key index, the undecided indices, and for
+    each of them its must-order map and its prepass result
+    (``_HB_UNSET`` where none ran).  ``prepass`` gives the must-order
+    maps a caller already computed; the prepass does not run again."""
+    decided: dict = {}
+    rest, masks, hbs = [], [], []
+    for i, s in enumerate(seqs):
+        r = None
+        mp = prepass[i] if prepass is not None else None
+        hbres = _HB_UNSET
+        if greedy_witness(s, model):
+            r = _greedy_result(s)
+        elif hb and prepass is None:
+            hbres = maybe_hb(s, model, True, dpor)
+            if hbres is not None and hbres.decided is not None:
+                r = dict(hbres.decided)
+            elif hbres is not None and hbres.must_pred:
+                mp = hbres.must_pred
+        if r is not None:
+            decided[i] = r
+        else:
+            rest.append(i)
+            masks.append(mp)
+            hbs.append(hbres)
+    return decided, rest, masks, hbs
+
+
+def _pad_batch(seqs: list[OpSeq], ess: list[EncodedSearch], masks: list,
+               model, dims: SearchDims, dev, dpor_on: bool) -> list:
+    """The undecided keys' encodings padded to ``dims`` (both batch
+    routes): with DPOR on, each gets its reductions (its must-order map
+    and dead-value table), dropped again where the kernel takes the
+    starting rung; the dead tables pad to one width."""
+    if dpor_on:
+        for s, e, mp in zip(seqs, ess, masks):
+            attach_reductions(e, s, model, mp, dedup=True)
+            _strip_reductions_for_kernel(e, model, dims, dev)
+    dead_pad = batch_dead_pad(ess)
+    return [pad_search(e, dims.n_det_pad, dims.n_crash_pad,
+                       dead_pad=dead_pad) for e in ess]
+
+
+def _host_linear_fallback(seq: OpSeq, model, hb: bool, dpor) -> dict:
+    """A batch key past the device encoding: the host ``linear`` sweep."""
+    r = check_opseq_linear(seq, model, lint=False, hb=hb, dpor=dpor)
+    r["engine"] = "host-linear(fallback)"
+    return r
 
 
 def truncate_to_failure(seq: OpSeq, depth: int, window: int

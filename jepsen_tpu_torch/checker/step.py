@@ -491,3 +491,39 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
         return frontier, count, status, configs, max_depth, ovf
 
     return step
+
+
+def run_per_key(fn, dims: SearchDims, *args):
+    """One slice of a stacked batch of keys through the single-key step
+    ``fn``, key by key.  ``args`` is the step signature with a leading
+    key axis on the 15 tables, the four per-key scalars (int32 [B]) and
+    the carry ([B, F, words] and five [B] tensors); ``budget``,
+    ``lvl_cap`` and ``bail`` are shared.  The return suffix table may
+    carry padding past its ``n_det_pad + 1`` entries.  A key with
+    nothing to do (finished, dead, over budget, or bailed) is not run:
+    its step would return its carry unchanged, as a vmapped lane does."""
+    tables, per_key = args[:15], args[15:19]
+    budget, lvl_cap, bail = int(args[19]), int(args[20]), bool(args[21])
+    frontier = args[22]
+    counts = [t.tolist() for t in per_key]
+    scal = torch.stack([*args[23:27], args[27].to(torch.int32)],
+                       dim=1).tolist()
+    outs = []
+    for b, (count, status, configs, _depth, ovf) in enumerate(scal):
+        if not (status == -1 and count > 0 and configs < budget
+                and not (bail and ovf)):
+            outs.append((frontier[b],) + tuple(a[b] for a in args[23:28]))
+            continue
+        key_tables = [t[b] for t in tables]
+        key_tables[5] = key_tables[5][:dims.n_det_pad + 1]
+        outs.append(fn(*key_tables, *(c[b] for c in counts), budget,
+                       lvl_cap, bail, frontier[b],
+                       *(a[b] for a in args[23:28])))
+    i32 = torch.int32
+    return (torch.stack([o[0] for o in outs]),
+            *(torch.stack([torch.as_tensor(o[i], dtype=i32,
+                                           device=frontier.device)
+                           for o in outs]) for i in range(1, 5)),
+            torch.stack([torch.as_tensor(o[5], dtype=torch.bool,
+                                         device=frontier.device)
+                         for o in outs]))

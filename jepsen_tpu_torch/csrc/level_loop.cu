@@ -52,8 +52,25 @@
 // making one (the TPU kernel's one-hot gathers) is the detour this card
 // does not need.
 //
+// Grid over keys (the batch of independent keys; the TPU kernel runs one
+// grid program per key under jax.vmap, linearizable.py:2905-2916): block b
+// runs key b's slice on key b's tables, carry and scratch, with budget,
+// lvl_cap and bail shared.  Every per-key array is stacked along a leading
+// key axis with a fixed stride (the return suffix table's row is rounded
+// up to 16 bytes so every key's bulk copies stay aligned), and the keys'
+// n_det / n_crash come from two device arrays.  A key that has nothing to
+// do (finished, dead, over budget, or bailed) leaves the level loop at
+// once and writes its live rows and scalars back unchanged.  There is one
+// entry point: a single search launches it with B=1, which runs the
+// kernel's unkeyed instantiation (KEYED = false): the same code with the
+// key offsets compiled out, its table pointers in registers as a one-key
+// kernel keeps them.  Keys never
+// communicate, so the grid needs no synchronisation between blocks; small
+// batch shapes fit several blocks on one SM (jtt_level_loop_plan reports
+// the occupancy query's blocks per SM).
+//
 // Later work, not here: a cluster of blocks over distributed shared memory
-// for the widest rungs, and many searches per launch (a grid over keys).
+// for the widest rungs.
 //
 // Memory plan (plan_for): four regions -- the frontier (three buffers of F
 // rows plus per-row lane masks), the tables, the successor block (4F rows)
@@ -92,7 +109,19 @@ struct Tables {
 };
 
 struct Dims {
-  int F, W, NC, n_det_pad, n_det, n_crash, budget, lvl_cap, bail, kid;
+  int F, W, NC, n_det_pad, budget, lvl_cap, bail, kid;
+};
+
+// this block's key's n_det and n_crash (set at launch from Keys)
+__shared__ int key_n[2];
+
+// the key axis: key b's tables start b * n_det_pad (det), b * sfx (the
+// return suffix table) and b * NC (crash) entries after key 0's; n_det /
+// n_crash per key
+struct Keys {
+  int sfx;
+  const int* n_det;
+  const int* n_crash;
 };
 
 enum { R_FRONT, R_TABLES, R_SUCC, R_HASH, N_REGIONS };
@@ -264,19 +293,19 @@ __device__ void mask_phase(const Row<SW>* cur, int count, u64* vdet,
     for (int h = 0; h < 2; ++h) {
       int l = lane + 32 * h;
       int pos = p + l;
-      open[h] = l < d.W && pos < d.n_det && !((R.win >> l) & 1ull);
+      open[h] = l < d.W && pos < key_n[0] && !((R.win >> l) & 1ull);
       ret[h] = open[h] ? t.det_ret[pos] : INF32;
       inv[h] = open[h] ? t.det_inv[pos] : INF32;
       df[h] = open[h] ? t.det_f[pos] : 0;
       dv1[h] = open[h] ? t.det_v1[pos] : 0;
       dv2[h] = open[h] ? t.det_v2[pos] : 0;
-      copen[h] = l < d.NC && l < d.n_crash && !((R.cr >> l) & 1ull);
+      copen[h] = l < d.NC && l < key_n[1] && !((R.cr >> l) & 1ull);
       cinv[h] = copen[h] ? t.crash_inv[l] : INF32;
       cf[h] = copen[h] ? t.crash_f[l] : 0;
       cv1[h] = copen[h] ? t.crash_v1[l] : 0;
       cv2[h] = copen[h] ? t.crash_v2[l] : 0;
     }
-    int sfx = t.sfx[min(p + d.W, d.n_det)];
+    int sfx = t.sfx[min(p + d.W, key_n[0])];
     int best = INF32, bidx = 1 << 20;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -312,7 +341,7 @@ __device__ void mask_phase(const Row<SW>* cur, int count, u64* vdet,
       vdet[r] = dbits;
       vcr[r] = cbits;
     }
-    int remaining = d.n_det - (p + __popcll(R.win));
+    int remaining = key_n[0] - (p + __popcll(R.win));
     found |= (dbits && remaining <= 1) || (cbits && remaining <= 0);
     crash_any |= cbits != 0ull;
   }
@@ -461,19 +490,58 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
-template <int SW>
+template <int SW, bool KEYED>
 __global__ void __launch_bounds__(MAXT)
-level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
+level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
+                  const int* __restrict__ fin,
                   const int* __restrict__ scal_in, int* __restrict__ fout,
                   int* __restrict__ scal_out, unsigned char* scratch) {
   extern __shared__ __align__(128) unsigned char dsm[];
   __shared__ __align__(8) u64 tma_bar;
   __shared__ int wsum[2][32];
   __shared__ int maxp[2];
+  __shared__ Tables st;
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int F = d.F, WW = d.W / 32, CW = d.NC / 32;
   const int WORDS = 1 + WW + CW + SW, SCAP = 4 * F;
+
+  // this block's key: its tables, carry, scalars and scratch.  Nothing of
+  // the key stays in registers across the level loop: fout and scal_out
+  // are offset where they are written, and in the keyed form the table
+  // pointers (st) and counts (key_n) sit in shared memory.  Held in
+  // registers, they pushed the loop past the 64 registers a 1024-thread
+  // block allows, and the spills slowed every level
+  const long long b = KEYED ? blockIdx.x : 0;
+  if (KEYED) {
+    tg.det_f += b * d.n_det_pad;
+    tg.det_v1 += b * d.n_det_pad;
+    tg.det_v2 += b * d.n_det_pad;
+    tg.det_inv += b * d.n_det_pad;
+    tg.det_ret += b * d.n_det_pad;
+    tg.sfx += b * ks.sfx;
+    tg.crash_f += b * d.NC;
+    tg.crash_v1 += b * d.NC;
+    tg.crash_v2 += b * d.NC;
+    tg.crash_inv += b * d.NC;
+  }
+  if (tid == 0) {
+    key_n[0] = ks.n_det[b];
+    key_n[1] = ks.n_crash[b];
+  }
+  fin += b * F * WORDS;
+  scal_in += 5 * b;
+  scratch += b * pl.scratch_bytes;
+
+  // a key with nothing to do (a pad lane, a finished key) hands its
+  // frontier and scalars back as they came, before any table is read
+  if (!(scal_in[1] == -1 && scal_in[0] > 0 && scal_in[2] < d.budget &&
+        !(d.bail && scal_in[4]))) {
+    for (int i = tid; i < F * WORDS; i += nt) fout[b * F * WORDS + i] = fin[i];
+    if (tid < 5)
+      scal_out[5 * b + tid] = tid == 4 ? scal_in[4] != 0 : scal_in[tid];
+    return;
+  }
   unsigned char* base[N_REGIONS];
 #pragma unroll
   for (int r = 0; r < N_REGIONS; ++r)
@@ -530,6 +598,9 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
     }
   }
 
+  if (KEYED && tid == 0) st = t;
+  const Tables& tk = KEYED ? st : t;
+
   // the carry, while the tables are in flight
   int count = scal_in[0];
   int status = scal_in[1];
@@ -579,7 +650,7 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
     const int e = c, cnt0 = count, cfg0 = configs, md0 = md;
     const bool ovf0 = ovf;
     bool found = false, crash = false;
-    mask_phase<SW>(buf[c], count, vdet, vcr, t, d, found, crash);
+    mask_phase<SW>(buf[c], count, vdet, vcr, tk, d, found, crash);
     bool go = __syncthreads_or(crash);
     // every thread is past the last level's read of maxp[mph ^ 1]
     if (tid == 0) maxp[mph ^ 1] = 0;
@@ -588,7 +659,7 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
     bool progress = false;
     int rounds = 0;
     while (go) {
-      int total = build_succ<SW>(buf[c], count, vcr, false, succ, F, t, d,
+      int total = build_succ<SW>(buf[c], count, vcr, false, succ, F, tk, d,
                                  wsum[ph], nullptr);
       ph ^= 1;
       if (total > F) ovf = true;
@@ -603,10 +674,10 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
       count = min(nk, F);
       c = o;
       crash = false;
-      mask_phase<SW>(buf[c], count, vdet, vcr, t, d, found, crash);
+      mask_phase<SW>(buf[c], count, vdet, vcr, tk, d, found, crash);
       bool crash_any = __syncthreads_or(crash);
       ++rounds;
-      go = rounds < d.n_crash + 1 && progress;
+      go = rounds < key_n[1] + 1 && progress;
       if (go && !crash_any) {
         // the next round would merge an empty successor block into an
         // already pruned frontier: it keeps every row and ends with no
@@ -620,7 +691,7 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
     if (progress) ovf = true;
 
     // determinate successors into the next level
-    int total = build_succ<SW>(buf[c], count, vdet, true, succ, SCAP, t, d,
+    int total = build_succ<SW>(buf[c], count, vdet, true, succ, SCAP, tk, d,
                                wsum[ph], &maxp[mph]);
     ph ^= 1;
     if (total > SCAP) ovf = true;
@@ -650,6 +721,9 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, const int* __restrict__ fin,
   }
 
   const Row<SW>* cur = buf[c];
+  const long long bo = KEYED ? blockIdx.x : 0;
+  fout += bo * F * WORDS;
+  scal_out += 5 * bo;
   for (int r = tid; r < F; r += nt) {
     int* w = fout + (size_t)r * WORDS;
     int* cw = w + 1 + WW;
@@ -696,7 +770,7 @@ static bool dims_ok(int F, int W, int NC, int SW, int n_det_pad) {
 template <int SW>
 static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, level_loop_kernel<SW>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, level_loop_kernel<SW, true>);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, optin = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -731,6 +805,18 @@ static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
   return 0;
 }
 
+// blocks of this plan that fit one SM at once (the occupancy query,
+// for the keyed form: the grid's blocks)
+template <int SW>
+static int occupancy_sw(const Plan& pl, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      level_loop_kernel<SW, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, level_loop_kernel<SW, true>, pl.threads, pl.smem_bytes);
+}
+
 static int plan_for(int F, int NC, int SW, int n_det_pad, Plan* pl) {
   switch (SW) {
     case 1: return plan_sw<1>(F, NC, n_det_pad, pl);
@@ -740,18 +826,59 @@ static int plan_for(int F, int NC, int SW, int n_det_pad, Plan* pl) {
   }
 }
 
+static int occupancy_for(int SW, const Plan& pl, int* blocks) {
+  switch (SW) {
+    case 1: return occupancy_sw<1>(pl, blocks);
+    case 2: return occupancy_sw<2>(pl, blocks);
+    case 3: return occupancy_sw<3>(pl, blocks);
+    default: return occupancy_sw<4>(pl, blocks);
+  }
+}
+
 template <int SW>
-static int launch_sw(const Tables& t, const Dims& d, const Plan& pl,
-                     const int* fin, const int* scal_in, int* fout,
-                     int* scal_out, unsigned char* scratch,
+static int launch_sw(int B, const Tables& t, const Dims& d, const Plan& pl,
+                     const Keys& ks, const int* fin, const int* scal_in,
+                     int* fout, int* scal_out, unsigned char* scratch,
                      cudaStream_t stream) {
+  // one key: the unkeyed instantiation (see the head of this file)
+  auto kernel = B > 1 ? level_loop_kernel<SW, true>
+                      : level_loop_kernel<SW, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      level_loop_kernel<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pl.smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  level_loop_kernel<SW><<<1, pl.threads, pl.smem_bytes, stream>>>(
-      t, d, pl, fin, scal_in, fout, scal_out, scratch);
+  kernel<<<B, pl.threads, pl.smem_bytes, stream>>>(t, d, pl, ks, fin, scal_in,
+                                                   fout, scal_out, scratch);
   return (int)cudaGetLastError();
+}
+
+// The launch's checks, then one launch of B blocks.
+static int launch(int B, const Tables& t, const Keys& ks, const int* fin,
+                  const int* scal_in, int* fout, int* scal_out,
+                  void* scratch, long long scratch_bytes, int F, int W,
+                  int NC, int SW, int n_det_pad, int budget, int lvl_cap,
+                  int bail, int kid, void* stream) {
+  if (B < 1 || !dims_ok(F, W, NC, SW, n_det_pad) || !ks.n_det ||
+      !ks.n_crash || ks.sfx < n_det_pad + 1 || (B > 1 && ks.sfx % 4))
+    return (int)cudaErrorInvalidValue;
+  const int* ptrs[10] = {t.det_f,   t.det_v1,   t.det_v2,   t.det_inv,
+                         t.det_ret, t.sfx,      t.crash_f,  t.crash_v1,
+                         t.crash_v2, t.crash_inv};
+  for (int k = 0; k < 10; ++k)
+    if ((uintptr_t)ptrs[k] % 16) return (int)cudaErrorMisalignedAddress;
+  Plan pl;
+  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
+  if (rc) return rc;
+  if (scratch_bytes < (long long)B * pl.scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  Dims d = {F, W, NC, n_det_pad, budget, lvl_cap, bail, kid};
+  unsigned char* s = (unsigned char*)scratch;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (SW) {
+    case 1: return launch_sw<1>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
+    case 2: return launch_sw<2>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
+    case 3: return launch_sw<3>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
+    default: return launch_sw<4>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
+  }
 }
 
 extern "C" {
@@ -759,55 +886,48 @@ extern "C" {
 // The launch plan for these dims on the current device: out[0] dynamic
 // shared bytes, out[1] the regions in shared memory (bit 0 frontier,
 // 1 tables, 2 successor block, 3 hash table), out[2] threads, out[3]
-// scratch bytes the caller must allocate.  Returns a CUDA error code.
+// scratch bytes the caller must allocate per key, out[4] blocks of the
+// plan that fit one SM at once.  Returns a CUDA error code.
 int jtt_level_loop_plan(int F, int W, int NC, int SW, int n_det_pad,
                         long long* out) {
   if (!dims_ok(F, W, NC, SW, n_det_pad)) return (int)cudaErrorInvalidValue;
   Plan pl;
   int rc = plan_for(F, NC, SW, n_det_pad, &pl);
   if (rc) return rc;
+  int blocks = 0;
+  if ((rc = occupancy_for(SW, pl, &blocks))) return rc;
   out[0] = pl.smem_bytes;
   out[1] = pl.in_smem;
   out[2] = pl.threads;
   out[3] = pl.scratch_bytes;
+  out[4] = blocks;
   return 0;
 }
 
-// Launch one slice on `stream`.  Every table pointer must be 16-byte
-// aligned (the bulk copies need it) and `scratch` must hold the plan's
-// scratch bytes.  Returns cudaGetLastError() after the launch (0 on
-// success); does not synchronise.
+// Launch one slice of B keys on `stream`, one block per key (a single
+// search: B = 1).  Tables are [B, n_det_pad] (det), [B, sfx_stride] (the
+// return suffix table, stride > n_det_pad and, for B > 1, a multiple of 4)
+// and [B, NC] (crash), every one 16-byte aligned (the bulk copies need
+// it); frontiers [B, F, words]; scalars [B, 5]; n_det and n_crash [B]
+// int32 on the device; `scratch` holds B times the plan's scratch bytes.
+// Returns cudaGetLastError() after the launch (0 on success); does not
+// synchronise.
 int jtt_level_loop(const int* det_f, const int* det_v1, const int* det_v2,
                    const int* det_inv, const int* det_ret, const int* sfx,
                    const int* crash_f, const int* crash_v1,
-                   const int* crash_v2, const int* crash_inv,
+                   const int* crash_v2, const int* crash_inv, int sfx_stride,
+                   const int* n_det, const int* n_crash,
                    const int* frontier_in, const int* scal_in,
                    int* frontier_out, int* scal_out, void* scratch,
-                   long long scratch_bytes, int F, int W, int NC, int SW,
-                   int n_det_pad, int n_det, int n_crash, int budget,
-                   int lvl_cap, int bail, int kid, void* stream) {
-  if (!dims_ok(F, W, NC, SW, n_det_pad) || n_det < 0 ||
-      n_det > n_det_pad || n_crash < 0 || n_crash > NC)
-    return (int)cudaErrorInvalidValue;
+                   long long scratch_bytes, int B, int F, int W, int NC,
+                   int SW, int n_det_pad, int budget, int lvl_cap, int bail,
+                   int kid, void* stream) {
   Tables t = {det_f, det_v1, det_v2, det_inv, det_ret, sfx,
               crash_f, crash_v1, crash_v2, crash_inv};
-  const int* ptrs[10] = {det_f,   det_v1,   det_v2,   det_inv,  det_ret,
-                         sfx,     crash_f,  crash_v1, crash_v2, crash_inv};
-  for (int k = 0; k < 10; ++k)
-    if ((uintptr_t)ptrs[k] % 16) return (int)cudaErrorMisalignedAddress;
-  Plan pl;
-  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
-  if (rc) return rc;
-  if (scratch_bytes < pl.scratch_bytes) return (int)cudaErrorInvalidValue;
-  Dims d = {F, W, NC, n_det_pad, n_det, n_crash, budget, lvl_cap, bail, kid};
-  unsigned char* s = (unsigned char*)scratch;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (SW) {
-    case 1: return launch_sw<1>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
-    case 2: return launch_sw<2>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
-    case 3: return launch_sw<3>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
-    default: return launch_sw<4>(t, d, pl, frontier_in, scal_in, frontier_out, scal_out, s, st);
-  }
+  Keys ks = {sfx_stride, n_det, n_crash};
+  return launch(B, t, ks, frontier_in, scal_in, frontier_out, scal_out,
+                scratch, scratch_bytes, F, W, NC, SW, n_det_pad, budget,
+                lvl_cap, bail, kid, stream);
 }
 
 const char* jtt_error_string(int code) {

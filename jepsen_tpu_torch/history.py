@@ -156,6 +156,11 @@ class OpSeq:
     def __len__(self) -> int:
         return len(self.process)
 
+    @property
+    def n_must(self) -> int:
+        """Rows that must linearize (the ok ops)."""
+        return int(self.ok.sum())
+
 
 def encode_ops(history: Sequence[Op], f_codes: dict, *,
                encoder: ValueEncoder | None = None) -> OpSeq:

@@ -148,3 +148,74 @@ def test_masked_step_on_the_card_matches_the_host(cuda, monkeypatch):
     on_host = search_opseq(seq, model, device="cpu")
     for k in ("valid", "configs", "max_depth", "dpor"):
         assert on_card[k] == on_host[k], k
+
+
+def _grid_steps(model, dims, args, carry, bail, slices=3, lvl_cap=16):
+    """The grid form and its plain version from ``carry``: every key's
+    scalars and live rows identical after every slice."""
+    from chip_smoke import grid_diff
+
+    ck = cr = carry
+    for _ in range(slices):
+        before = lk.BATCH_LAUNCHES
+        ck = lk.level_loop_batch(model, dims, *args, 10**8, lvl_cap, bail,
+                                 *ck)
+        assert lk.BATCH_LAUNCHES == before + 1
+        cr = lk.level_loop_batch_reference(model, dims, *args, 10**8,
+                                           lvl_cap, bail, *cr)
+        torch.cuda.synchronize()
+        assert grid_diff(ck, cr) == 0
+    return ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,lanes,frontier,bail",
+                         [(1, 1, 32, True), (5, 8, 128, False),
+                          (64, 64, 32, True)])
+def test_grid_matches_reference(cuda, n_keys, lanes, frontier, bail):
+    """B=1, 5 (with 3 pad lanes) and 64 keys of the batch256 tier."""
+    from chip_smoke import batch_keys, grid_setup
+
+    keys, model = batch_keys(n_keys)
+    dims, args, carry = grid_setup(model, keys, frontier, cuda, lanes=lanes)
+    out = _grid_steps(model, dims, args, carry, bail)
+    # pad lanes come back as they went in
+    assert out[2][n_keys:].eq(lin.VALID).all()
+    assert out[1][n_keys:].eq(0).all()
+
+
+@pytest.mark.cuda
+def test_grid_equals_single_launches(cuda):
+    """Each key of a grid launch gets what its own single-key launch
+    gives, from rows that start at the stride the stacking rounds to
+    16 bytes (``n_det_pad + 1`` is never a multiple of 4)."""
+    from chip_smoke import batch_keys, grid_diff, grid_setup
+
+    keys, model = batch_keys(6)
+    dims, args, carry = grid_setup(model, keys, 32, cuda)
+    assert args[5].shape[1] == lk.sfx_stride(dims) != dims.n_det_pad + 1
+    grid = lk.level_loop_batch(model, dims, *args, 10**8, 32, True, *carry)
+    for b in range(len(keys)):
+        key_args = [t[b] for t in args[:15]]
+        key_args[5] = key_args[5][:dims.n_det_pad + 1]
+        assert key_args[5].data_ptr() % 16 == 0
+        one = lk.level_loop(model, dims, *key_args, int(args[15][b]),
+                            int(args[16][b]), int(args[17][b]),
+                            int(args[18][b]), 10**8, 32, True,
+                            *(c[b] for c in carry))
+        assert grid_diff(tuple(c[b:b + 1] for c in grid),
+                         tuple(c.reshape((1,) + c.shape) for c in one)) == 0
+
+
+@pytest.mark.cuda
+def test_grid_refuses_unaligned_suffix_rows(cuda):
+    """A suffix table stacked at its bare ``n_det_pad + 1`` stride would
+    put key 1's row off a 16-byte boundary: the wrapper refuses it."""
+    from chip_smoke import batch_keys, grid_setup
+
+    keys, model = batch_keys(4)
+    dims, args, carry = grid_setup(model, keys, 32, cuda)
+    bad = list(args)
+    bad[5] = args[5][:, :dims.n_det_pad + 1].contiguous()
+    with pytest.raises(ValueError, match="table 5"):
+        lk.level_loop_batch(model, dims, *bad, 10**8, 8, True, *carry)

@@ -47,7 +47,7 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "checker.seq", "checker.linear", "checker.linear_report",
     "analyze.shrink", "analyze.lint", "analyze.hb", "analyze.constraints",
     "analyze.dpor", "analyze.audit", "decompose.canonical",
-    "decompose.partition")}
+    "decompose.partition", "independent", "checker.core", "checker.bucket")}
 
 
 def _sources():

@@ -111,11 +111,14 @@ def test_linear_budget_and_refusals():
     out = tlinear.check_opseq_linear(st, mt, max_configs=10)
     assert out["valid"] == "unknown"
     assert out["info"] == "exceeded max_configs=10"
-    for kw, item in (({"decompose": True}, "A8"),
-                     ({"checkpoint_path": "x"}, "A3"),
-                     ({"resume_from": "x"}, "A3")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlinear.check_opseq_linear(st, mt, **kw)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tlinear.check_opseq_linear(st, mt, decompose=True)
+    # a checkpoint path without a period writes nothing; a missing
+    # resume file raises (tests/test_torch_checkpoint.py resumes real ones)
+    assert tlinear.check_opseq_linear(
+        st, mt, checkpoint_path="never-written")["valid"] is True
+    with pytest.raises(FileNotFoundError):
+        tlinear.check_opseq_linear(st, mt, resume_from="no-such-file")
     # the passes of item A7 answer True and None alike
     for kw in ({"lint": True}, {"hb": True}, {"dpor": True},
                {"audit": True}, {"lint": False, "hb": None, "dpor": False,

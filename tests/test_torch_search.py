@@ -132,8 +132,9 @@ def test_host_oracle_matches_reference(kind, seed, corrupt):
 
 
 def test_routes_of_later_slices_refuse(tmp_path):
-    """The routes of queue item A5 and the passes of item A7 answer;
-    the options of later items still refuse anything but off."""
+    """The routes of queue item A5, the passes of item A7 and the
+    checkpoints of A3 answer; the options of later items still refuse
+    anything but off."""
     test = {"store_base": str(tmp_path)}
     _, _, st, mt = _pair("register", 1, corrupt=True)
     big = tlin.linearizable(mt, device="cpu", host_threshold=10)
@@ -145,11 +146,16 @@ def test_routes_of_later_slices_refuse(tmp_path):
     for flag in ("decompose", "explain"):
         with pytest.raises(NotImplementedError):
             tlin.linearizable(mt, device="cpu", **{flag: True})
-    for arg in ("checkpoint_path", "resume_from"):
-        with pytest.raises(NotImplementedError):
-            tcheck_linear(st, mt, **{arg: str(tmp_path / "ckpt")})
+    # the checkpoints of queue item A3 answer (tests/test_torch_checkpoint.py)
+    ckpt = str(tmp_path / "ckpt")
+    out = tcheck_linear(st, mt, checkpoint_path=ckpt, checkpoint_every=1,
+                        hb=False)
+    assert tcheck_linear(st, mt, resume_from=ckpt)["valid"] == out["valid"]
     with pytest.raises(NotImplementedError):
         tcheck_linear(st, mt, decompose=True)
+    for kw in ({"decompose": True}, {"sharding": object()}):
+        with pytest.raises(NotImplementedError):
+            tlin.search_batch([st], mt, device="cpu", **kw)
     small = tlin.linearizable(mt, device="cpu", host_threshold=10**6)
     out = small.check(test, st)
     assert out["engine"] == "host-oracle" and out["valid"] is False

@@ -44,3 +44,18 @@ def test_queue_verdicts(name, fifo, want, monkeypatch):
     jmodel = (jm.fifo_queue if fifo else jm.unordered_queue)(16)
     out = jlinear.check_opseq_linear(_jax(seq), jmodel)
     assert out["valid"] is want
+
+
+def test_batch256_reference(monkeypatch):
+    """The batch256 keys' per-key verdicts, configs and depths
+    (``BATCH256_*``): the JAX package's ``search_batch`` with DPOR off."""
+    reference_defaults(monkeypatch)
+    keys, _model = chip_smoke.batch_keys()
+    out = lin.search_batch([_jax(s) for s in keys], jm.cas_register(),
+                           dpor=False)
+    assert {k for k, r in enumerate(out) if r["valid"] is False} == \
+        chip_smoke.BATCH256_INVALID
+    assert all(r["valid"] is True for k, r in enumerate(out)
+               if k not in chip_smoke.BATCH256_INVALID)
+    assert tuple(r["configs"] for r in out) == chip_smoke.BATCH256_CONFIGS
+    assert tuple(r["max_depth"] for r in out) == chip_smoke.BATCH256_DEPTH
