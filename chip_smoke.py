@@ -31,12 +31,24 @@ per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
 is present or the package is not beside this script.
 
+Telemetry (the JAX package's device-search aux block) is on by default,
+so every counted path runs the kernel's telemetry form, and every device
+result must carry its ``search_telemetry`` block; every lockstep case
+also runs the telemetry form, whose carry must equal the off form's and
+whose block must equal the plain version's.  One extra pass of the 1k
+paths and of batch256 runs with tracing on, and prints where the wall
+went by span (``bucket.prep``, ``bucket.device``, ``device.slice``,
+``device.transfer``), each path's device share and the process's
+device idle fraction.  Every single-key shape and the grid form's first
+rung are timed with telemetry off and on.
+
 The script imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import random
@@ -127,10 +139,19 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 OPS_PER_LANE = 8
 
-#: the single-key form's time on mutex2k at F=64 before the grid form
-#: (this script, the H100 80GB HBM3 at 700 W), the shape it is compared
-#: on to show it did not regress
-MUTEX2K_F64_BEFORE_GRID_MS = 2.6121
+#: the single-key form's time on mutex2k at F=64 before the telemetry
+#: form, and the grid form's at batch256's first rung (this script, the
+#: H100 80GB HBM3 at 700 W, the last run before it)
+MUTEX2K_F64_BEFORE_TELE_MS = 2.5092
+GRID_FIRST_RUNG_BEFORE_TELE_MS = 0.5761
+
+#: launches of the counted main paths by (form, telemetry), gathered
+#: over the paths by :func:`_read_counts`
+FORM_LAUNCHES: collections.Counter = collections.Counter()
+
+#: device results whose per-level occupancy was checked against their
+#: configs (a search that never overflowed, within the per-level cap)
+OCCUPANCY_CHECKED: list = []
 
 #: the interpreter's switch interval in the control race: a tenth of
 #: the 5 ms default, so a thread that wants the GIL back waits less
@@ -154,6 +175,61 @@ def emit(line: str) -> None:
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _zero_counts() -> None:
+    """Every launch count set to 0, just before a counted path."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    lk.LAUNCHES = lk.BATCH_LAUNCHES = 0
+    for k in lk.LAUNCHES_BY_FORM:
+        lk.LAUNCHES_BY_FORM[k] = 0
+
+
+def _read_counts(counted: bool = True) -> tuple:
+    """(single-key, grid) launches since :func:`_zero_counts`, just after
+    a path; a counted path's launches by form join
+    :data:`FORM_LAUNCHES`."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    if counted:
+        for (form, tele), n in lk.LAUNCHES_BY_FORM.items():
+            FORM_LAUNCHES[f"{form},{'on' if tele else 'off'}"] += n
+    return lk.LAUNCHES, lk.BATCH_LAUNCHES
+
+
+def _tele_totals(res) -> str:
+    """A result's telemetry block in one line."""
+    b = res.get("search_telemetry")
+    if b is None:
+        return "-"
+    return (f"levels={b['levels']} slices={b['slices']} "
+            f"max_occupancy={b['max_occupancy']} expanded={b['expanded']} "
+            f"mask_killed={b['mask_killed']} dedup_folds={b['dedup_folds']} "
+            f"crash_rounds={b['crash_rounds']} overflows={b['overflows']} "
+            f"goals={b['goals']} observed_prune_ratio="
+            f"{b['observed_prune_ratio']}")
+
+
+def _check_telemetry(label, res) -> None:
+    """A device result carries its ``search_telemetry`` block; where its
+    search never overflowed and kept every level's row (at most
+    ``BLOCK_LEVEL_CAP`` levels), the occupancy column adds up to its
+    configs."""
+    from jepsen_tpu_torch.obs.telemetry import BLOCK_LEVEL_CAP
+
+    b = res.get("search_telemetry")
+    check(b is not None, f"{label}: the device result ({res.get('engine')})"
+          " carries no search_telemetry")
+    check(b["levels"] > 0 and b["slices"] > 0,
+          f"{label}: an empty telemetry block {b}")
+    if (b["overflows"] == 0 and not b["truncated"]
+            and b["levels"] <= BLOCK_LEVEL_CAP
+            and "resumed" not in res.get("engine", "")):
+        occ = sum(r[0] for r in b["per_level"])
+        check(occ == res["configs"], f"{label}: the occupancy column sums "
+              f"to {occ}, the search counted {res['configs']} configs")
+        OCCUPANCY_CHECKED.append((label, occ))
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +388,9 @@ def lockstep_cases():
     """(label, model, OpSeq, frontier, bail, slices, lvl_cap) for the
     kernel-vs-plain phase: the JAX package's own Pallas lockstep cases,
     the bench tiers at the main path's F=64 rung, a wider cas-register
-    history with crashes at F=128 and F=512, mutex2k at F=128, and a
-    history whose tables only fit in device memory."""
+    history with crashes at F=128 and F=512, mutex2k at F=128 and in
+    300-level slices at F=64, and a history whose tables only fit in
+    device memory."""
     from jepsen_tpu_torch.history import encode_ops
     from jepsen_tpu_torch.models import cas_register, mutex
     from jepsen_tpu_torch.synth import (corrupt_read, register_history,
@@ -360,6 +437,9 @@ def lockstep_cases():
                         bail, 6, 8))
     seq, m = tier_history("mutex2k")
     out.append(("mutex2k-F128", m, seq, 128, False, 4, 64))
+    # slices of 300 levels: the telemetry block's last row folds the
+    # levels past its 128 rows
+    out.append(("mutex2k-F64-L300", m, seq, 64, False, 2, 300))
     seq, m = big_mutex_history()
     out.append(("mutex9k-device-tables-F64", m, seq, 64, False, 3, 64))
     return out
@@ -500,30 +580,82 @@ def _diff(ca, cb):
     return err
 
 
+class _EmptyRounds:
+    """Counts, while active, the closure rounds of the plain version
+    (the torch step) that merge an empty successor block: the rounds the
+    kernel's closure shortcut skips and its telemetry still counts."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker import step
+
+        self._saved = succ_block = step._succ_block
+
+        def spy(pieces, frontier, validf, cand, ns, cap, K):
+            if cap == frontier.shape[0] and not bool(validf.any()):
+                self.n += 1
+            return succ_block(pieces, frontier, validf, cand, ns, cap, K)
+
+        step._succ_block = spy
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.checker import step
+
+        step._succ_block = self._saved
+
+
+def _block_err(a, b) -> int:
+    """Max abs difference of two telemetry blocks."""
+    return int((a.to("cpu").long() - b.to("cpu").long()).abs().max())
+
+
 def _lockstep_one(label, model, dims, args, carry, bail, slices, lvl_cap):
-    """Kernel vs plain version from ``carry``, slice by slice; returns
-    the max abs error (0, or the phase fails)."""
+    """Kernel vs plain version from ``carry``, slice by slice, the
+    kernel's off and telemetry forms against the plain version's
+    telemetry build: the same carries, and the same block.  Returns
+    (max abs error, the blocks' last-row occupancy, empty closure rounds
+    of the plain version)."""
     from jepsen_tpu_torch.checker import level_kernel as lk
 
     check(lk.eligible(model, dims), f"{label}: {dims} not eligible")
     plan = lk.launch_plan(dims, carry[0].device)
-    ck = cr = carry
-    t_k, t_r = [], []
-    worst = 0
-    for s in range(slices):
-        ck, ms_k = _timed(lk.level_loop, model, dims, *args, 10**8,
-                          lvl_cap, bail, *ck)
-        cr, ms_r = _timed(lk.level_loop_reference, model, dims, *args,
-                          10**8, lvl_cap, bail, *cr)
-        t_k.append(ms_k)
-        t_r.append(ms_r)
-        err = _diff(ck, cr)
-        worst = max(worst, err)
-        check(err == 0, f"{label} slice {s}: kernel != plain "
-              f"(kernel {[int(v) for v in ck[1:]]}, plain "
-              f"{[int(v) for v in cr[1:]]}, max abs err {err})")
-        if int(cr[2]) != -1 or int(cr[1]) == 0 or (bail and bool(cr[5])):
-            break
+    ck = ct = cr = carry
+    t_k, t_t, t_r = [], [], []
+    worst = fold = 0
+    total = None
+    with _EmptyRounds() as empty:
+        for s in range(slices):
+            ck, ms_k = _timed(lk.level_loop, model, dims, *args, 10**8,
+                              lvl_cap, bail, *ck)
+            ot, ms_t = _timed(functools.partial(lk.level_loop,
+                                                telemetry=True),
+                              model, dims, *args, 10**8, lvl_cap, bail, *ct)
+            orf, ms_r = _timed(functools.partial(lk.level_loop_reference,
+                                                 telemetry=True),
+                               model, dims, *args, 10**8, lvl_cap, bail,
+                               *cr)
+            ct, cr = ot[:6], orf[:6]
+            t_k.append(ms_k)
+            t_t.append(ms_t)
+            t_r.append(ms_r)
+            err = _diff(ck, cr)
+            worst = max(worst, err)
+            check(err == 0, f"{label} slice {s}: kernel != plain "
+                  f"(kernel {[int(v) for v in ck[1:]]}, plain "
+                  f"{[int(v) for v in cr[1:]]}, max abs err {err})")
+            err = max(_diff(ct, ck), _block_err(ot[6], orf[6]))
+            worst = max(worst, err)
+            check(err == 0, f"{label} slice {s}: the telemetry form's "
+                  f"carry or block != the off form's / the plain "
+                  f"version's (max abs err {err})")
+            fold = max(fold, int(ot[6][-1, 0]))
+            total = ot[6] if total is None else total + ot[6]
+            if int(cr[2]) != -1 or int(cr[1]) == 0 or \
+                    (bail and bool(cr[5])):
+                break
     emit(f"lockstep {label}: F={dims.frontier} W={dims.window} "
           f"NC={dims.n_crash_pad} n_det_pad={dims.n_det_pad} "
           f"tables={plan['tables']} smem={plan['smem_bytes']} B "
@@ -531,9 +663,13 @@ def _lockstep_one(label, model, dims, args, carry, bail, slices, lvl_cap):
           f"threads={plan['threads']} "
           f"live_in={int(carry[1])} slices={s + 1} identical; "
           f"status={int(ck[2])} configs={int(ck[3])} depth={int(ck[4])} "
-          f"ovf={int(ck[5])}; kernel ms/slice {[round(t, 3) for t in t_k]} "
-          f"plain ms/slice {[round(t, 1) for t in t_r]}")
-    return worst
+          f"ovf={int(ck[5])}; telemetry on == off, block == plain: column "
+          f"sums {total.sum(0).tolist()}, last row occupancy {fold}, "
+          f"empty closure rounds {empty.n}; kernel ms/slice "
+          f"{[round(t, 3) for t in t_k]} (telemetry "
+          f"{[round(t, 3) for t in t_t]}) plain ms/slice "
+          f"{[round(t, 1) for t in t_r]}")
+    return worst, fold, empty.n
 
 
 def phase_lockstep(device):
@@ -541,16 +677,26 @@ def phase_lockstep(device):
     root; at least one case on each table path."""
     from jepsen_tpu_torch.checker import level_kernel as lk
 
-    worst = 0
+    worst = folded = empty = 0
     paths = set()
     for label, model, seq, frontier, bail, slices, lvl_cap in \
             lockstep_cases():
         dims, args, carry = _setup(model, seq, frontier, device)
         paths.add(lk.launch_plan(dims, device)["tables"])
-        worst = max(worst, _lockstep_one(label, model, dims, args, carry,
-                                         bail, slices, lvl_cap))
+        err, fold, n_empty = _lockstep_one(label, model, dims, args, carry,
+                                           bail, slices, lvl_cap)
+        worst = max(worst, err)
+        folded += fold > 1
+        empty += n_empty
     check(paths == {"shared", "device"},
           f"lockstep ran the table paths {sorted(paths)}, want both")
+    check(folded, "no lockstep case folded levels into the block's last row")
+    # the kernel's closure shortcut skips a round that would merge an
+    # empty successor block, which its telemetry counts all the same;
+    # such a round cannot arise (some kept row always keeps an enabled
+    # crash lane), and the plain version shows none
+    emit(f"lockstep telemetry: {folded} case(s) folded levels into the "
+         f"last row; empty closure rounds in the plain version: {empty}")
     return worst
 
 
@@ -597,10 +743,11 @@ def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
 
     check(lk.eligible(model, dims), f"{label}: {dims} not eligible")
     plan = lk.launch_plan(dims, carry[0].device)
-    ck = cr = carry
-    t_k, t_r = [], []
+    ck = ct = cr = carry
+    t_k, t_t, t_r = [], [], []
     worst = idle = mixed = 0
     B = carry[0].shape[0]
+    total = None
     for s in range(slices):
         idle += _idle_lanes(ck, 10**8, bail)
         done = _idle_lanes(ck, 10**8, bail, n_keys)
@@ -610,14 +757,28 @@ def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
                           lvl_cap, bail, *ck)
         check(lk.BATCH_LAUNCHES == before + 1,
               f"{label}: the grid form did not launch")
-        cr, ms_r = _timed(lk.level_loop_batch_reference, model, dims, *args,
-                          10**8, lvl_cap, bail, *cr)
+        ot, ms_t = _timed(functools.partial(lk.level_loop_batch,
+                                            telemetry=True),
+                          model, dims, *args, 10**8, lvl_cap, bail, *ct)
+        orf, ms_r = _timed(functools.partial(lk.level_loop_batch_reference,
+                                             telemetry=True),
+                           model, dims, *args, 10**8, lvl_cap, bail, *cr)
+        ct, cr = ot[:6], orf[:6]
         t_k.append(ms_k)
+        t_t.append(ms_t)
         t_r.append(ms_r)
         err = grid_diff(ck, cr)
         worst = max(worst, err)
         check(err == 0, f"{label} slice {s}: grid kernel != plain "
               f"(max abs err {err})")
+        err = max(grid_diff(ct, ck), _block_err(ot[6], orf[6]))
+        worst = max(worst, err)
+        check(err == 0, f"{label} slice {s}: the grid telemetry form's "
+              f"carry or blocks != the off form's / the plain version's "
+              f"(max abs err {err})")
+        pad = int(ot[6][n_keys:].abs().sum())
+        check(pad == 0, f"{label} slice {s}: pad lanes wrote telemetry")
+        total = ot[6] if total is None else total + ot[6]
         if _idle_lanes(cr, 10**8, bail) == B:
             break
     emit(f"grid-lockstep {label}: B={B} F={dims.frontier} W={dims.window} "
@@ -628,7 +789,10 @@ def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
          f"({mixed} slices with finished keys beside running ones); "
          f"status counts "
          f"{sorted(collections.Counter(cr[2].tolist()).items())}; "
-         f"kernel ms/slice {[round(t, 3) for t in t_k]} plain ms/slice "
+         f"telemetry on == off, blocks == plain: column sums "
+         f"{total.sum((0, 1)).tolist()}; kernel ms/slice "
+         f"{[round(t, 3) for t in t_k]} (telemetry "
+         f"{[round(t, 3) for t in t_t]}) plain ms/slice "
          f"{[round(t, 1) for t in t_r]}")
     return worst, mixed, plan["tables"]
 
@@ -736,18 +900,17 @@ def _check_batch_results(label, results, rechecked=()):
               f"the JAX package {ref}")
 
 
-def _batch_run(label, run):
+def _batch_run(label, run, counted=True):
     """One batch256 run, with both launch counts set to 0 just before it
-    and read just after; returns (results, seconds, grid launches,
+    and read just after (``counted``: the run is the path's counted one,
+    not its warm repeat); returns (results, seconds, grid launches,
     single-key launches, the grid trace)."""
-    from jepsen_tpu_torch.checker import level_kernel as lk
-
     with _GridTrace() as trace:
-        lk.BATCH_LAUNCHES = lk.LAUNCHES = 0
+        _zero_counts()
         t0 = time.perf_counter()
         results = run()
         wall = time.perf_counter() - t0
-        grid, single = lk.BATCH_LAUNCHES, lk.LAUNCHES
+        single, grid = _read_counts(counted)
     check(grid == sum(1 for s in trace.slices if s[3] == "cuda"),
           f"{label}: {grid} grid launches, {len(trace.slices)} batch slices")
     return results, wall, grid, single, trace
@@ -777,7 +940,8 @@ def phase_batch256(store_base):
     for way, run in ways:
         label = f"batch256[{way}]"
         res, cold, grid, single, trace = _batch_run(label, run)
-        res_w, warm, grid_w, single_w, _ = _batch_run(label, run)
+        res_w, warm, grid_w, single_w, _ = _batch_run(label, run,
+                                                      counted=False)
         for r in (res, res_w):
             if way == "independent":
                 check(r["valid"] is False and sorted(r["failures"])
@@ -790,6 +954,12 @@ def phase_batch256(store_base):
                 per_key = r
                 _check_batch_results(label, per_key)
         check(grid > 0, f"{label}: the grid form never launched")
+        blocks = [r["search_telemetry"] for r in per_key
+                  if "search_telemetry" in r]
+        # through independent.checker an invalid key's result is its
+        # own check's, which replaces the batch result carrying the block
+        check(blocks or way == "independent", f"{label}: no result "
+              "carries the batch's search_telemetry")
         stats = (res[0].get("bucket_batch") or {}) if way == "bucketed" \
             else {}
         launches[label] = {"grid": grid, "single": single}
@@ -799,7 +969,21 @@ def phase_batch256(store_base):
              f"grid_launches={grid} (warm {grid_w}) single_launches={single} "
              f"(warm {single_w}) rungs={rungs}; {trace.summary()}"
              + (f"; buckets={stats.get('n_buckets')} padding_efficiency="
-                f"{stats.get('padding_efficiency')}" if stats else ""))
+                f"{stats.get('padding_efficiency')}" if stats else "")
+             + f"; telemetry blocks={len(blocks)}: " + "; ".join(
+                 _tele_totals({"search_telemetry": b}) for b in blocks))
+    # one key alone through the single search, from the same tier: a
+    # search with no overflow whose every level keeps its row
+    res = lin.search_opseq(keys[0], model, device="cuda", hb=False,
+                           dpor=False)
+    emit(f"batch256 key 0 alone: valid={res['valid']} "
+         f"configs={res['configs']} max_depth={res['max_depth']} "
+         f"engine={res['engine']} telemetry: {_tele_totals(res)}")
+    check((res["configs"], res["max_depth"]) == (BATCH256_CONFIGS[0],
+                                                 BATCH256_DEPTH[0]),
+          f"batch256 key 0 alone: {res['configs']} configs, depth "
+          f"{res['max_depth']}")
+    _check_telemetry("batch256 key 0 alone", res)
     return launches
 
 
@@ -826,7 +1010,7 @@ def phase_checkpoint(store_base):
         if len(seen) == 3:
             stop.set()
 
-    lk.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     first = lin.search_opseq(seq, model, budget=budget, device="cuda",
                              on_slice=on_slice, stop=stop, hb=False,
@@ -835,13 +1019,17 @@ def phase_checkpoint(store_base):
     launches_first = lk.LAUNCHES
     out = lin.resume_opseq(seq, model, path, device="cuda")
     t2 = time.perf_counter()
-    launches = lk.LAUNCHES
+    launches, _ = _read_counts()
     emit(f"main[checkpoint] 1k: stopped after {len(seen)} slices "
          f"(frontier, depth, configs) {seen}: valid={first['valid']} "
          f"in {t1 - t0:.3f} s with {launches_first} launches; file "
          f"{os.path.getsize(path)} B; resumed: valid={out['valid']} "
          f"configs={out['configs']} max_depth={out['max_depth']} "
-         f"engine={out['engine']} in {t2 - t1:.3f} s; launches={launches}")
+         f"engine={out['engine']} in {t2 - t1:.3f} s; launches={launches}; "
+         f"telemetry stopped: {_tele_totals(first)}; resumed: "
+         f"{_tele_totals(out)}")
+    _check_telemetry("checkpoint 1k (stopped)", first)
+    _check_telemetry("checkpoint 1k (resumed)", out)
     check(len(seen) == 3 and first["valid"] == "unknown",
           f"checkpoint: the search was not stopped after its third slice "
           f"({len(seen)} slices, valid={first['valid']})")
@@ -877,6 +1065,12 @@ def phase_grid_timing(device):
     out, _ = _timed(lk.level_loop_batch, model, dims, *call)  # warm-up
     ms_k = sorted(_timed(lk.level_loop_batch, model, dims, *call)[1]
                   for _ in range(reps))
+    # then the telemetry form the same way
+    tele = functools.partial(lk.level_loop_batch, telemetry=True)
+    on, _ = _timed(tele, model, dims, *call)  # warm-up
+    check(grid_diff(on[:6], out) == 0,
+          "grid timing: the telemetry form's carry != the off form's")
+    ms_t = sorted(_timed(tele, model, dims, *call)[1] for _ in range(reps))
     ref, plain_ms = _timed(lk.level_loop_batch_reference, model, dims, *call)
     err = grid_diff(out, ref)
     check(err == 0, f"grid timing: kernel != plain (max abs err {err})")
@@ -916,6 +1110,7 @@ def phase_grid_timing(device):
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
     ms = ms_k[len(ms_k) // 2]
+    ms_tele = ms_t[len(ms_t) // 2]
     single_ms = ms_s[len(ms_s) // 2]
     plan = lk.launch_plan(dims, device)
     sm = torch.cuda.get_device_properties(device).multi_processor_count
@@ -926,13 +1121,16 @@ def phase_grid_timing(device):
          f"blocks/SM={plan['blocks_per_sm']} SMs={sm}: key_levels="
          f"{key_levels} configs={configs} kernel {ms:.4f} ms/launch "
          f"({ms / max(1, key_levels) * 1e3:.3f} us/key-level, min "
-         f"{ms_k[0]:.4f} max {ms_k[-1]:.4f} over {reps}); the same keys "
+         f"{ms_k[0]:.4f} max {ms_k[-1]:.4f} over {reps}); telemetry form "
+         f"{ms_tele:.4f} ms/launch (min {ms_t[0]:.4f} max {ms_t[-1]:.4f}, "
+         f"{ms_tele / ms - 1:+.2%}); the same keys "
          f"one by one through the single-key form {single_ms:.4f} ms "
          f"({n} launches); plain {plain_ms:.1f} ms; bound: bytes "
          f"{bytes_ms:.3e} ms ({n_bytes} B), operations {ops_ms:.3e} ms "
          f"({n_ops} int32 ops)")
     return {"shape": f"batch256 grid B={lanes} F={dims.frontier}",
-            "levels": key_levels, "ms": ms, "plain_ms": plain_ms,
+            "levels": key_levels, "ms": ms, "ms_tele": ms_tele,
+            "plain_ms": plain_ms,
             "single_key_ms": single_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err}
@@ -946,7 +1144,7 @@ def phase_lockstep_captured(captured):
         model, dims, args, carry, src = _captured_at(captured, frontier)
         worst = max(worst, _lockstep_one(
             f"1k-F{frontier}-captured(from F={src})", model, dims, args,
-            carry, False, 3, 8))
+            carry, False, 3, 8)[0])
     return worst
 
 
@@ -999,6 +1197,12 @@ def _time_shape(label, model, dims, args, carry, lvl_cap, bail, reps=20,
     levels = _levels_run(model, dims, args, carry, out, lvl_cap, bail)
     ms_k = [_timed(lk.level_loop, model, dims, *call)[1]
             for _ in range(reps)]
+    # then the telemetry form the same way
+    tele = functools.partial(lk.level_loop, telemetry=True)
+    on, _ = _timed(tele, model, dims, *call)  # warm-up
+    check(_diff(on[:6], out) == 0,
+          f"timing {label}: the telemetry form's carry != the off form's")
+    ms_t = [_timed(tele, model, dims, *call)[1] for _ in range(reps)]
     ref, _ = _timed(lk.level_loop_reference, model, dims, *call)
     ms_r = [_timed(lk.level_loop_reference, model, dims, *call)[1]
             for _ in range(plain_reps)]
@@ -1016,6 +1220,7 @@ def _time_shape(label, model, dims, args, carry, lvl_cap, bail, reps=20,
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
     ms = sorted(ms_k)[len(ms_k) // 2]
+    ms_tele = sorted(ms_t)[len(ms_t) // 2]
     plain_ms = sorted(ms_r)[len(ms_r) // 2]
     plan = lk.launch_plan(dims, carry[0].device)
     emit(f"timing {label} F={dims.frontier} W={dims.window} "
@@ -1023,11 +1228,13 @@ def _time_shape(label, model, dims, args, carry, lvl_cap, bail, reps=20,
           f"live_in={int(carry[1])} tables={plan['tables']}: "
           f"levels={levels} configs={configs} kernel {ms:.4f} ms/slice "
           f"({ms / max(1, levels) * 1e3:.2f} us/level, min {min(ms_k):.4f} "
-          f"max {max(ms_k):.4f} over {reps}); plain {plain_ms:.1f} "
-          f"ms/slice; bound: bytes {bytes_ms:.3e} ms ({n_bytes} B), "
-          f"operations {ops_ms:.3e} ms ({n_ops} int32 ops)")
+          f"max {max(ms_k):.4f} over {reps}); telemetry form "
+          f"{ms_tele:.4f} ms/slice (min {min(ms_t):.4f} max "
+          f"{max(ms_t):.4f}, {ms_tele / ms - 1:+.2%}); plain "
+          f"{plain_ms:.1f} ms/slice; bound: bytes {bytes_ms:.3e} ms "
+          f"({n_bytes} B), operations {ops_ms:.3e} ms ({n_ops} int32 ops)")
     return {"shape": f"{label} F={dims.frontier}", "levels": levels,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "ms_tele": ms_tele, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err}
@@ -1136,11 +1343,12 @@ class _Spy:
 
 
 def _default_route(label, seq, model, store_base, *, algorithm="auto",
-                   path="auto", **flags):
+                   path="auto", counted=True, **flags):
     """One history through ``linearizable(model, device="cuda",
     **flags)`` with ``algorithm``, its stages timed; the kernel launch
     count is set to 0 just before and read just after.  ``path`` names
-    the run in its ``main[...]`` line.  Returns (result, stats)."""
+    the run in its ``main[...]`` line; ``counted`` says whether it is one
+    of the counted main paths.  Returns (result, stats)."""
     from jepsen_tpu_torch.analyze import shrink
     from jepsen_tpu_torch.checker import level_kernel as lk
     from jepsen_tpu_torch.checker import linear_report
@@ -1152,12 +1360,12 @@ def _default_route(label, seq, model, store_base, *, algorithm="auto",
                (linear_report, "write_linear_html"))
     test = {"name": label, "store_base": store_base}
     with spy:
-        lk.LAUNCHES = 0
+        _zero_counts()
         t0 = time.perf_counter()
         out = lin.linearizable(model, algorithm=algorithm, device="cuda",
                                **flags).check(test, seq)
         wall = time.perf_counter() - t0
-        launches = lk.LAUNCHES
+        launches, _ = _read_counts(counted)
     sec = spy.seconds
     st = {"wall": wall, "launches": launches,
           "race_s": sec.get("check_competition", 0.0),
@@ -1194,7 +1402,8 @@ def _default_route(label, seq, model, store_base, *, algorithm="auto",
                         f"brute_force={sh['brute_force']})")
          + " report_s=" + ("-" if st["report_s"] is None
                            else f"{st['report_s']:.4f}")
-         + f" report_file={out.get('report_file')} launches={launches}")
+         + f" report_file={out.get('report_file')} launches={launches}"
+         + " telemetry=" + ("-" if dev is None else _tele_totals(dev)))
     if out["valid"] is False:
         report = out.get("report_file")
         if report is None:
@@ -1209,6 +1418,7 @@ def _default_route(label, seq, model, store_base, *, algorithm="auto",
                 check("Linearizability failure" in fh.read(),
                       f"{label}: {report} is not a failure report")
     if dev is not None and dev["engine"].startswith("device-bfs"):
+        _check_telemetry(f"{label} ({path}) device leg", dev)
         # the kernel takes the search of a kernel model whose
         # reductions were dropped; the torch step all others
         red = dev.get("dpor") or {}
@@ -1315,6 +1525,7 @@ def phase_main_path(store_base):
         cold = lin.search_opseq(seq, model, device="cuda", **off)
         cold_s = time.perf_counter() - t0
         _check_search(name, "the device search (cold)", cold, want)
+        _check_telemetry(f"{name} (cold)", cold)
 
         out, st = _default_route(name, seq, model, store_base)
         launches["auto"][name] = st["launches"]
@@ -1325,7 +1536,8 @@ def phase_main_path(store_base):
         try:
             out_c, st_c = _default_route(
                 name, seq, model, store_base,
-                path=f"auto,off,switch={CONTROL_SWITCH_S * 1e3:g}ms", **off)
+                path=f"auto,off,switch={CONTROL_SWITCH_S * 1e3:g}ms",
+                counted=False, **off)
         finally:
             sys.setswitchinterval(interval)
         _check_race(name, out_c, st_c, want)
@@ -1370,6 +1582,8 @@ def phase_main_path(store_base):
             f"{route} F={f}: {n} slices, depth +{d}, configs +{c}, "
             f"{t:.3f} s" for (route, f), (n, d, c, t) in slices.items()))
         _check_search(name, "the device search (warm)", dev, want)
+        _check_telemetry(f"{name} (warm)", dev)
+        emit(f"telemetry {name}: {_tele_totals(dev)}")
         torch_rungs = sorted(f for route, f in slices if route != "cuda")
         check(not torch_rungs,
               f"{name}: slices at F={torch_rungs} ran the torch step")
@@ -1400,7 +1614,12 @@ def phase_masked_control():
          f"configs={out['configs']} max_depth={out['max_depth']} "
          f"engine={out['engine']} frontier={out['frontier']} "
          f"dpor={out['dpor']} wall_s={wall:.3f} "
-         f"({_us_per_level(wall, out)} us/level) launches={lk.LAUNCHES}")
+         f"({_us_per_level(wall, out)} us/level) launches={lk.LAUNCHES} "
+         f"telemetry: {_tele_totals(out)}")
+    _check_telemetry("control 1k", out)
+    check(out["search_telemetry"]["mask_killed"] > 0,
+          f"control 1k: the masked step's block shows no mask kills: "
+          f"{_tele_totals(out)}")
     _check_search("1k", "the masked torch step", out,
                   REFERENCE_REDUCED["1k"])
     check(out["dpor"]["device_masked"] and out["dpor"]["dedup"]
@@ -1413,7 +1632,8 @@ def phase_default_route(store_base):
     its expected verdict; past the device encoding the host legs must
     decide alone."""
     for label, seq, model, want in extra_histories():
-        out, st = _default_route(label, seq, model, store_base)
+        out, st = _default_route(label, seq, model, store_base,
+                                 counted=False)
         check(out["valid"] is want,
               f"{label}: verdict {out['valid']}, want {want}")
         if label == "past-encoding":
@@ -1441,6 +1661,86 @@ def phase_queues(store_base):
                   f"{name}: no device leg ran the torch step "
                   f"({dev and dev['engine']})")
     return launches
+
+
+def phase_traced(store_base):
+    """One more pass of 1k's default route and ``algorithm="device"``
+    path and of batch256's bucketed ``search_batch``, with tracing on:
+    per path, its wall split by span (``bucket.prep``, ``bucket.device``,
+    ``device.slice``, ``device.transfer`` and the rest), its device
+    share (the ``device.slice`` seconds over the wall), and after them
+    the process's ``device_idle_fraction``.  Not counted."""
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    seq, model = tier_history("1k")
+    keys, bmodel = batch_keys()
+    test = {"name": "traced", "store_base": store_base}
+    paths = (
+        ("1k[auto]", lambda: lin.linearizable(
+            model, device="cuda").check(test, seq)),
+        ("1k[device]", lambda: lin.linearizable(
+            model, algorithm="device", device="cuda").check(test, seq)),
+        ("batch256[bucketed]", lambda: lin.search_batch(
+            keys, bmodel, device="cuda")))
+    shares = {}
+    obs.enable(True)
+    try:
+        for label, run in paths:
+            obs.set_run(label)
+            try:
+                t0 = time.perf_counter()
+                run()
+                wall = time.perf_counter() - t0
+            finally:
+                obs.set_run(None)
+            spans = obs.recorder(label).spans()
+            obs.drop_recorder(label)
+            by = collections.defaultdict(lambda: [0, 0.0])
+            for sp in spans:
+                by[sp["name"]][0] += 1
+                by[sp["name"]][1] += sp["dur"] / 1e6
+            xfer = sum(sp["args"].get("bytes", 0) for sp in spans
+                       if sp["name"] == "device.transfer")
+            check(by["device.slice"][0] > 0,
+                  f"traced {label}: no device.slice span")
+            shares[label] = by["device.slice"][1] / wall
+            named = ("bucket.prep", "bucket.device", "device.slice",
+                     "device.transfer")
+            emit(f"spans {label}: wall_s={wall:.4f} " + " ".join(
+                f"{n}={by[n][0]}/{by[n][1]:.4f}s" for n in named)
+                + f" transfer_bytes={xfer} device_share="
+                f"{shares[label]:.4f}; other spans (count/seconds): "
+                + " ".join(f"{n}={c}/{t:.4f}s" for n, (c, t)
+                           in sorted(by.items()) if n not in named))
+    finally:
+        obs.enable(False)
+    idle = obs.metrics.derived_stats(obs.REGISTRY)["device_idle_fraction"]
+    emit(f"device idle fraction of this process so far: {idle}")
+    return shares
+
+
+def _ptxas(report: str) -> list:
+    """(instantiation, registers, spill store bytes) of each kernel in
+    nvcc's -Xptxas -v report."""
+    import re
+
+    out, name = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"level_loop_kernelILi(\d)ELb([01])ELb([01])E",
+                          m.group(1))
+            name = (f"SW={t.group(1)},KEYED={t.group(2)},TELE={t.group(3)}"
+                    if t else m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def main() -> int:
@@ -1474,10 +1774,12 @@ def main() -> int:
         from jepsen_tpu_torch import _build
 
         _build.build_all()
-        regs = [ln.strip() for ln in
-                _build.PTXAS_REPORT.get("level_loop", "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        emit(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas: {regs}")
+        kernels = _ptxas(_build.PTXAS_REPORT.get("level_loop", ""))
+        emit(f"build: {_build.BUILD_SECONDS:.2f} s; ptxas (kernel, "
+             f"registers, spill store bytes): {sorted(kernels)}")
+        check(len(kernels) == 16 and all(sp == 0 for _, _, sp in kernels),
+              f"ptxas: want 16 kernels without spill stores, got "
+              f"{sorted(kernels)}")
         worst = phase_lockstep(device)
         worst = max(worst, phase_grid_lockstep(device))
         with tempfile.TemporaryDirectory() as store_base:
@@ -1488,18 +1790,31 @@ def main() -> int:
             launches["queues"] = phase_queues(store_base)
             launches.update(phase_batch256(store_base))
             launches["checkpoint"] = phase_checkpoint(store_base)
+            shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
         shapes.append(phase_grid_timing(device))
+        check(OCCUPANCY_CHECKED, "no device result had its occupancy "
+              "column checked against its configs")
+        check(FORM_LAUNCHES["single,on"] > 0 and FORM_LAUNCHES["grid,on"] > 0,
+              f"the main paths did not run the telemetry forms: "
+              f"{dict(FORM_LAUNCHES)}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     timing = shapes[0]  # the first port's shape: mutex2k, F=64
-    emit(f"single-key form: mutex2k F=64 {timing['ms']:.4f} ms/slice "
-         f"({MUTEX2K_F64_BEFORE_GRID_MS} ms/slice before the grid form)")
+    grid = shapes[-1]
+    emit(f"single-key form: mutex2k F=64 {timing['ms']:.4f} ms/slice, "
+         f"telemetry form {timing['ms_tele']:.4f} "
+         f"({MUTEX2K_F64_BEFORE_TELE_MS} ms/slice before the telemetry "
+         f"form); grid form at batch256's first rung {grid['ms']:.4f} "
+         f"ms/launch, telemetry form {grid['ms_tele']:.4f} "
+         f"({GRID_FIRST_RUNG_BEFORE_TELE_MS} before); occupancy checked "
+         f"on {len(OCCUPANCY_CHECKED)} results; device share by path "
+         f"{ {k: round(v, 4) for k, v in shares.items()} }")
     total = sum(n for by_tier in launches.values() for n in by_tier.values())
-    if total == 0:
-        print("chip_smoke: FAILED: B1 never launched on the main path",
-              file=sys.stderr)
+    if total == 0 or sum(FORM_LAUNCHES.values()) != total:
+        print(f"chip_smoke: FAILED: B1 launched {total} times on the main "
+              f"path, {dict(FORM_LAUNCHES)} by form", file=sys.stderr)
         return 1
     record = {"kernels": [{
         "name": "level_loop",
@@ -1508,15 +1823,17 @@ def main() -> int:
         "replaces": "jepsen_tpu/checker/pallas_level.py:132",
         "launches": total,
         "launches_by_path": launches,
+        "launches_by_form": dict(FORM_LAUNCHES),
         "max_abs_err": max([worst] + [t["max_abs_err"] for t in shapes]),
         "ms": timing["ms"],
+        "ms_tele": timing["ms_tele"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-        "shapes": [{k: t[k] for k in ("shape", "levels", "ms", "plain_ms",
-                                      "single_key_ms", "bound_ms",
-                                      "bound_by") if k in t}
+        "shapes": [{k: t[k] for k in ("shape", "levels", "ms", "ms_tele",
+                                      "plain_ms", "single_key_ms",
+                                      "bound_ms", "bound_by") if k in t}
                    for t in shapes],
     }]}
     print(json.dumps(record), flush=True)

@@ -39,8 +39,8 @@ _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "level_loop": {
         "jtt_level_loop": ([_VP] * 10 + [_INT] + [_VP] * 7 + [_LL]
-                           + [_INT] * 10 + [_VP], _INT),
-        "jtt_level_loop_plan": ([_INT] * 5 + [_VP], _INT),
+                           + [_INT] * 10 + [_VP] * 2, _INT),
+        "jtt_level_loop_plan": ([_INT] * 6 + [_VP], _INT),
         "jtt_error_string": ([_INT], ctypes.c_char_p),
     },
 }
@@ -99,6 +99,14 @@ def build_all() -> dict[str, ctypes.CDLL]:
             _LIBS[src.stem] = lib
         BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
+
+
+def prebuilt() -> bool:
+    """Whether every source's library is already in the build directory
+    (built by an earlier process or call): the port's persistent compile
+    cache.  A file check; builds nothing."""
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    return bool(srcs) and all(_target(src).exists() for src in srcs)
 
 
 def library(stem: str) -> ctypes.CDLL:

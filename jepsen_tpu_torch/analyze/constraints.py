@@ -27,8 +27,18 @@ import bisect
 import numpy as np
 
 from ..history import NIL, OpSeq
+from ..obs.metrics import REGISTRY
 from .hb import (EDGE_CAP_FACTOR, EDGE_CAP_MIN, HBAnalysis, _edge,
                  _must_pred, _prune_bound, _verify_witness)
+
+_M_PREPASS = REGISTRY.counter(
+    "jtpu_constraint_prepass_total",
+    "Constraint-compiler pre-pass outcomes by model family",
+    ("family", "outcome"))
+_M_EDGES = REGISTRY.counter(
+    "jtpu_constraint_edges_total",
+    "Forced constraint edges inferred beyond real time, by kind",
+    ("kind",))
 
 
 def family_of(model) -> str | None:
@@ -52,6 +62,30 @@ def analyze_prepass(seq: OpSeq, model) -> HBAnalysis:
     if family_of(model) is None:
         return analyze_hb(seq, model)
     return analyze_constraints(seq, model)
+
+
+def maybe_constraints(seq: OpSeq, model) -> HBAnalysis:
+    """:func:`analyze_constraints` in a ``constraints.prepass`` span,
+    feeding the ``jtpu_constraint_*`` metrics: the queue and lock
+    families' side of ``hb.maybe_hb`` (which resolved the flag)."""
+    from .. import obs
+
+    fam = family_of(model) or "none"
+    with obs.span("constraints.prepass", cat="analyze", rows=len(seq),
+                  family=fam):
+        a = analyze_constraints(seq, model)
+    if not a.applies:
+        _M_PREPASS.inc(family=fam, outcome="skipped")
+        return a
+    if a.decided is not None:
+        _M_PREPASS.inc(family=fam, outcome="decided_valid"
+                       if a.decided["valid"] else "decided_invalid")
+    else:
+        _M_PREPASS.inc(family=fam, outcome="undecided")
+        for k, v in a.stats["edges"].items():
+            if v:
+                _M_EDGES.inc(v, kind=k)
+    return a
 
 
 def _decided(valid, *, certificate: dict, stats: dict) -> dict:

@@ -29,6 +29,26 @@ import numpy as np
 
 from ..history import OpSeq
 from ..models import R_READ
+from ..obs.metrics import REGISTRY
+
+_M_SLEEP = REGISTRY.counter(
+    "jtpu_dpor_sleep_prunes_total",
+    "Host-DFS candidates skipped because they were sleeping "
+    "(covered by an already-explored commuting sibling)")
+_M_DEDUP = REGISTRY.counter(
+    "jtpu_dpor_dedup_total",
+    "Canonical-state frontier dedup events, by site/kind "
+    "(rewrite = a successor state collapsed onto the dead token; "
+    "hit = a rewritten config merged with an existing frontier row)",
+    ("site", "event"))
+_M_MASK = REGISTRY.counter(
+    "jtpu_dpor_mask_total",
+    "Must-order mask effects, by site (lanes/candidates killed on "
+    "host frames and the DFS; masked rows shipped to device planes)",
+    ("site",))
+_M_EDGES = REGISTRY.counter(
+    "jtpu_dpor_dup_edges_total",
+    "Duplicate-op canonical must-order edges inferred")
 
 #: cap on duplicate-op edges (per history)
 DUP_EDGE_CAP_FACTOR = 2
@@ -97,6 +117,7 @@ def merge_dup_edges(seq: OpSeq, model, hb, flag: bool | None = None):
     st["enabled"] = True
     if not edges:
         return hb
+    _M_EDGES.inc(len(edges))
     must = {d: list(s) for d, s in hb.must_pred.items()}
     for (src, dst, _k) in edges:
         must.setdefault(int(dst), []).append(int(src))

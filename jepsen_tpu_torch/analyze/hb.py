@@ -37,6 +37,20 @@ import numpy as np
 
 from ..history import INF_RET, NIL, OpSeq
 from ..models import R_CAS, R_READ, R_WRITE
+from ..obs.metrics import REGISTRY
+
+_M_PREPASS = REGISTRY.counter(
+    "jtpu_hb_prepass_total",
+    "HB pre-pass outcomes (decided_valid/decided_invalid/undecided/"
+    "skipped)", ("outcome",))
+_M_EDGES = REGISTRY.counter(
+    "jtpu_hb_edges_total",
+    "Forced/canonical HB edges inferred beyond real time, by kind",
+    ("kind",))
+_M_RATIO = REGISTRY.gauge(
+    "jtpu_hb_prune_ratio",
+    "pruned/raw config-bound ratio of the most recent HB pre-pass "
+    "(0 = decided without search)")
 
 #: cap on emitted edges: the prune degrades (fewer mask edges) instead
 #: of going quadratic on pathological cluster structures
@@ -646,15 +660,37 @@ def maybe_hb(seq: OpSeq, model, flag: bool | None = None,
              dpor: bool | None = None) -> HBAnalysis | None:
     """The engines' prepass slot: None when ``flag`` is False or the
     history is empty; else register-family models run
-    :func:`analyze_hb` and the queue and lock families the constraint
-    compiler (``constraints.py``), and the dpor layer's duplicate-op
-    edges join the must-order map (``dpor.merge_dup_edges``)."""
+    :func:`analyze_hb` in an ``hb.prepass`` span, feeding the
+    ``jtpu_hb_*`` metrics, and the queue and lock families the
+    constraint compiler (``constraints.maybe_constraints``), and the
+    dpor layer's duplicate-op edges join the must-order map
+    (``dpor.merge_dup_edges``)."""
     if not resolve_hb(flag) or len(seq) == 0:
         return None
-    from .constraints import analyze_prepass
+    from .. import obs
+    from .constraints import family_of, maybe_constraints
     from .dpor import merge_dup_edges
 
-    return merge_dup_edges(seq, model, analyze_prepass(seq, model), dpor)
+    if family_of(model) is not None:
+        return merge_dup_edges(seq, model, maybe_constraints(seq, model),
+                               dpor)
+    with obs.span("hb.prepass", cat="analyze", rows=len(seq)):
+        hb = analyze_hb(seq, model)
+    merge_dup_edges(seq, model, hb, dpor)
+    if not hb.applies:
+        _M_PREPASS.inc(outcome="skipped")
+        return hb
+    if hb.decided is not None:
+        _M_PREPASS.inc(outcome="decided_valid"
+                       if hb.decided["valid"] else "decided_invalid")
+        _M_RATIO.set(0.0)
+    else:
+        _M_PREPASS.inc(outcome="undecided")
+        _M_RATIO.set(hb.stats.get("prune_ratio") or 1.0)
+        for k, v in hb.stats["edges"].items():
+            if v:
+                _M_EDGES.inc(v, kind=k)
+    return hb
 
 
 def attach(result: dict, hb: HBAnalysis | None) -> dict:

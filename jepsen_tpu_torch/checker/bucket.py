@@ -17,7 +17,10 @@ Bucketing gives the same verdicts as the fused batch: the searches are
 exact at any padding, and every key rides the same ladder.  The first
 result carries a ``bucket_batch`` stats dict (per-bucket padding
 efficiency, the fused batch's for comparison, slice-function cache hits
-and misses).
+and misses).  Each bucket's host stage runs in a ``bucket.prep`` span
+and its device stage in a ``bucket.device`` span; the
+``jtpu_bucket_seconds`` histogram times both stages and
+``jtpu_bucket_ops_total`` counts useful and padded rows.
 """
 
 from __future__ import annotations
@@ -25,7 +28,18 @@ from __future__ import annotations
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import obs
 from ..history import OpSeq
+
+#: padded against useful rows shipped to the device, and the seconds of
+#: each bucket stage, process-wide (the ``bucket_batch`` dict's numbers
+#: per run)
+_M_BUCKET_OPS = obs.REGISTRY.counter(
+    "jtpu_bucket_ops_total",
+    "Bucketed device batch rows, useful vs padded", ("kind",))
+_M_BUCKET_S = obs.REGISTRY.histogram(
+    "jtpu_bucket_seconds",
+    "Wall seconds per bucket stage (prep/device)", ("stage",))
 
 #: the most buckets one batch splits into: each is a ladder of its own
 MAX_BUCKETS = 8
@@ -76,16 +90,21 @@ def plan_buckets(keys: list[tuple[int, int, int]],
 def search_batch_bucketed(seqs: list[OpSeq], model, *,
                           budget: int = 2_000_000, device="cuda",
                           hb: bool | None = None,
-                          dpor: bool | None = None) -> list[dict]:
+                          dpor: bool | None = None,
+                          telemetry: bool | None = None) -> list[dict]:
     """``search_batch``'s route by buckets.  Per-key results are the
     engines' own (greedy witness, prepass, the batch ladder, or the host
     ``linear`` sweep past the device encoding); the first result also
-    carries the ``bucket_batch`` stats dict."""
+    carries the ``bucket_batch`` stats dict.  ``telemetry`` (None: on)
+    goes to each bucket's ladder, whose first result carries the
+    bucket's ``search_telemetry``."""
     from ..analyze.dpor import resolve_dpor
     from ..analyze.hb import resolve_hb
+    from ..obs.telemetry import resolve
     from . import linearizable as lin
 
     dev = lin._resolve_device(device)
+    telemetry = resolve(telemetry)
     hb = resolve_hb(hb)
     dpor_on = resolve_dpor(dpor)
     n = len(seqs)
@@ -102,20 +121,29 @@ def search_batch_bucketed(seqs: list[OpSeq], model, *,
     stats: dict = {"n_keys": n, "n_buckets": len(plans), "buckets": [],
                    "greedy": 0, "hard": len(hard), "hb_decided": 0,
                    "constraint_decided": 0}
+    # the prep thread's spans go to the run this call started in, even
+    # if the process's current run moves on meanwhile
+    run_pin = obs.current_run()
 
     def prep(idxs: list[int]):
         """Host stage of one bucket: greedy witness and prepass disposal,
         then tight dims and padding for the keys left.  Numpy and Python
-        only, so it runs beside the previous bucket's device stage."""
-        decided, rest, masks, _ = lin._dispose_batch(
-            [seqs[i] for i in idxs], model, hb, dpor)
-        ready = {idxs[j]: r for j, r in decided.items()}
-        run = [idxs[j] for j in rest]
-        if not run:
-            return ready, run, None, None
-        dims = lin.batch_dims([ess[i] for i in run], model)
-        esps = lin._pad_batch([seqs[i] for i in run], [ess[i] for i in run],
-                              masks, model, dims, dev, dpor_on)
+        only, so it runs beside the previous bucket's device stage (its
+        span on the prep thread's track shows the overlap)."""
+        t_prep = time.perf_counter()
+        with obs.span("bucket.prep", cat="host", run=run_pin,
+                      keys=len(idxs)):
+            decided, rest, masks, _ = lin._dispose_batch(
+                [seqs[i] for i in idxs], model, hb, dpor)
+            ready = {idxs[j]: r for j, r in decided.items()}
+            run = [idxs[j] for j in rest]
+            dims = esps = None
+            if run:
+                dims = lin.batch_dims([ess[i] for i in run], model)
+                esps = lin._pad_batch([seqs[i] for i in run],
+                                      [ess[i] for i in run], masks, model,
+                                      dims, dev, dpor_on)
+        _M_BUCKET_S.observe(time.perf_counter() - t_prep, stage="prep")
         return ready, run, dims, esps
 
     useful_total = padded_total = 0
@@ -141,12 +169,18 @@ def search_batch_bucketed(seqs: list[OpSeq], model, *,
                 stats["greedy"] += len(ready) - n_hb - n_cs
                 t0 = time.perf_counter()
                 if run:
-                    sub = lin._search_batch_ladder(
-                        [seqs[i] for i in run], esps, model, dims, budget,
-                        dev)
+                    with obs.span("bucket.device", cat="device", bucket=b,
+                                  keys=len(run),
+                                  dims=[dims.n_det_pad, dims.window,
+                                        dims.n_crash_pad]):
+                        sub = lin._search_batch_ladder(
+                            [seqs[i] for i in run], esps, model, dims,
+                            budget, dev, telemetry)
                     for i, r in zip(run, sub):
                         results[i] = r
                 dt = time.perf_counter() - t0
+                if run:
+                    _M_BUCKET_S.observe(dt, stage="device")
                 useful = sum(ess[i].n_det + ess[i].n_crash for i in run)
                 padded = (len(run) * (dims.n_det_pad + dims.n_crash_pad)
                           if run else 0)
@@ -177,6 +211,9 @@ def search_batch_bucketed(seqs: list[OpSeq], model, *,
         fdims = lin.batch_dims([ess[i] for i in run_all], model)
         fused_padded = len(run_all) * (fdims.n_det_pad + fdims.n_crash_pad)
     kc1 = lin.kernel_cache_stats()
+    if useful_total or padded_total:
+        _M_BUCKET_OPS.inc(useful_total, kind="useful")
+        _M_BUCKET_OPS.inc(padded_total, kind="padded")
     stats.update({
         "useful_ops": useful_total,
         "padded_ops": padded_total,

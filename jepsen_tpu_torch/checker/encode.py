@@ -400,9 +400,14 @@ def _widen_carry(carry, old_f: int, new_f: int):
 
 def carry_to_device(carry, device) -> tuple:
     """A numpy carry (frontier, count, status, configs, max_depth, ovf)
-    as device tensors: int32 frontier and scalars, bool ovf."""
+    as device tensors: int32 frontier and scalars, bool ovf.  The
+    frontier's bytes count as staged (``obs.telemetry.record_transfer``)."""
+    from ..obs.telemetry import record_transfer
+
     dev = torch.device(device)
-    out = [torch.as_tensor(np.asarray(carry[0], np.int32), device=dev)]
+    frontier = np.asarray(carry[0], np.int32)
+    record_transfer(frontier.nbytes)
+    out = [torch.as_tensor(frontier, device=dev)]
     out += [torch.tensor(int(np.asarray(c)), dtype=torch.int32, device=dev)
             for c in carry[1:5]]
     out.append(torch.tensor(bool(np.asarray(carry[5])), device=dev))
@@ -419,11 +424,15 @@ def search_args(esp: EncodedSearch, es: EncodedSearch | None = None, *,
                 device) -> tuple:
     """The positional table/scalar arguments of the step functions: 15
     int32 tensors, then ``n_det, n_crash, dead_lo, dead_tok`` as Python
-    ints.  ``es`` supplies the true counts when ``esp`` is padded."""
+    ints.  ``es`` supplies the true counts when ``esp`` is padded.  The
+    tables' bytes count as staged (``obs.telemetry.record_transfer``)."""
+    from ..obs.telemetry import record_transfer, transfer_bytes
+
     src = es if es is not None else esp
     dev = torch.device(device)
-    return tuple(torch.as_tensor(np.asarray(getattr(esp, k), np.int32),
-                                 device=dev) for k in _TABLES) + (
+    tables = [np.asarray(getattr(esp, k), np.int32) for k in _TABLES]
+    record_transfer(transfer_bytes(tables))
+    return tuple(torch.as_tensor(t, device=dev) for t in tables) + (
         int(src.n_det), int(src.n_crash), int(esp.dead_lo),
         int(esp.dead_tok))
 
@@ -442,12 +451,17 @@ def stack_batch(esps: list[EncodedSearch], *, pad_to: int | None = None,
     return suffix table's rows are padded with +inf to a multiple of 4
     entries, so that each key's row starts on a 16-byte boundary (the
     grid kernel's bulk copies need it); no step reads past entry
-    ``n_det_pad``."""
+    ``n_det_pad``.  The tables' bytes count as staged
+    (``obs.telemetry.record_transfer``)."""
+    from ..obs.telemetry import record_transfer
+
     dev = torch.device(device)
     b = pad_to or len(esps)
     pad = b - len(esps)
+    nbytes = 0
 
     def st(attr):
+        nonlocal nbytes
         rows = [getattr(e, attr) for e in esps]
         a = np.stack(rows + [rows[0]] * pad).astype(np.int32, copy=False)
         if attr == "suffix_min_ret":
@@ -455,14 +469,17 @@ def stack_batch(esps: list[EncodedSearch], *, pad_to: int | None = None,
             out = np.full((b, (n + 3) // 4 * 4), INF32, np.int32)
             out[:, :n] = a
             a = out
+        nbytes += a.nbytes
         return torch.as_tensor(a, device=dev)
 
     def sc(attr):
         vals = [int(getattr(e, attr)) for e in esps] + [0] * pad
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
-    return tuple(st(a) for a in _TABLES) + tuple(sc(a)
-                                                 for a in _BATCH_SCALARS)
+    out = tuple(st(a) for a in _TABLES) + tuple(sc(a)
+                                                for a in _BATCH_SCALARS)
+    record_transfer(nbytes)
+    return out
 
 
 def from_reference(es_arrays: dict, carry=None, device="cuda"):

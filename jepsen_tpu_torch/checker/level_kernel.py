@@ -24,12 +24,18 @@ memory where they fit.
     (shared or device memory), how much scratch it needs per key and
     how many blocks fit one SM;
   * :data:`LAUNCHES`, :data:`BATCH_LAUNCHES` — kernel launches so far,
-    single-key and grid form (plain versions excluded).
+    single-key and grid form (plain versions excluded), and
+    :data:`LAUNCHES_BY_FORM`, the same split by telemetry off and on.
 
 All take ``(model, dims, *step_args)`` where ``step_args`` are the 28
 arguments of a step function, stacked along a leading key axis for the
 grid form (:func:`~.linearizable.stack_batch`);
-:func:`build_level_loop_fn` binds the first two.
+:func:`build_level_loop_fn` binds the first two.  With
+``telemetry=True`` each launches the kernel's telemetry form (the TPU
+kernel's ``telemetry=True`` build) and returns, as a 7th output, the
+aux block (``obs/telemetry.py``): int32 ``[TELE_ROWS, TELE_COLS]``, or
+``[B, TELE_ROWS, TELE_COLS]`` for the grid form; its plain version is
+the torch step's telemetry build.  The carry is the same on and off.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import weakref
 
 import torch
 
+from ..obs.telemetry import TELE_COLS, TELE_ROWS
 from . import step
 from .encode import NEVER_DEAD, SearchDims
 from .step import build_search_step_fn
@@ -51,6 +58,9 @@ SAFE_MODELS = frozenset({"register", "cas-register", "mutex", "noop"})
 LAUNCHES = 0
 #: grid-form launches so far (one per batch slice, whatever its keys)
 BATCH_LAUNCHES = 0
+#: launches so far by (form, telemetry): form "single" or "grid"
+LAUNCHES_BY_FORM = {("single", False): 0, ("single", True): 0,
+                    ("grid", False): 0, ("grid", True): 0}
 
 _CUDA = torch.device("cuda")
 
@@ -77,18 +87,21 @@ def eligible(model, dims: SearchDims, *, masked: bool = False,
 _REFERENCE_STEPS: dict = {}
 
 
-def _reference_step(model, dims: SearchDims, device: torch.device):
-    key = (model.name, dims, str(device))
+def _reference_step(model, dims: SearchDims, device: torch.device,
+                    telemetry: bool = False):
+    key = (model.name, dims, str(device), telemetry)
     fn = _REFERENCE_STEPS.get(key)
     if fn is None:
         fn = _REFERENCE_STEPS[key] = build_search_step_fn(
-            model, dims, device, use_allpairs=True)
+            model, dims, device, use_allpairs=True, telemetry=telemetry)
     return fn
 
 
-def level_loop_reference(model, dims: SearchDims, *args):
-    """The plain torch version of one kernel launch."""
-    return _reference_step(model, dims, args[22].device)(*args)
+def level_loop_reference(model, dims: SearchDims, *args,
+                         telemetry: bool = False):
+    """The plain torch version of one kernel launch (its telemetry
+    build with ``telemetry``)."""
+    return _reference_step(model, dims, args[22].device, telemetry)(*args)
 
 
 _N_TABLES = 10  # det_f .. crash_inv
@@ -140,7 +153,7 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(dims: SearchDims, device_index: int) -> dict:
+def _plan(dims: SearchDims, device_index: int, telemetry: bool) -> dict:
     from .._build import library
 
     lib = library("level_loop")
@@ -148,7 +161,7 @@ def _plan(dims: SearchDims, device_index: int) -> dict:
     with torch.cuda.device(device_index):
         rc = lib.jtt_level_loop_plan(dims.frontier, dims.window,
                                      dims.n_crash_pad, dims.state_width,
-                                     dims.n_det_pad, out)
+                                     dims.n_det_pad, int(telemetry), out)
     _raise_on(lib, rc, "plan")
     smem, bits, threads, scratch, blocks = (int(v) for v in out)
     return {"smem_bytes": smem, "threads": threads, "scratch_bytes": scratch,
@@ -157,8 +170,10 @@ def _plan(dims: SearchDims, device_index: int) -> dict:
             "tables": "shared" if bits & _IN_SMEM["tables"] else "device"}
 
 
-def launch_plan(dims: SearchDims, device=None) -> dict:
-    """The kernel's launch plan at ``dims`` on a CUDA ``device``:
+def launch_plan(dims: SearchDims, device=None, *,
+                telemetry: bool = False) -> dict:
+    """The kernel's launch plan at ``dims`` on a CUDA ``device`` (of its
+    telemetry form with ``telemetry``):
     ``smem_bytes`` of dynamic shared memory, ``threads``,
     ``scratch_bytes`` of device memory per key, the regions
     ``in_smem``, ``tables``: "shared" (brought in by bulk copies at
@@ -168,7 +183,7 @@ def launch_plan(dims: SearchDims, device=None) -> dict:
     dev = torch.device(device or "cuda")
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    return _plan(dims, index)
+    return _plan(dims, index, telemetry)
 
 
 def sfx_stride(dims: SearchDims) -> int:
@@ -180,13 +195,15 @@ def sfx_stride(dims: SearchDims) -> int:
 
 def _launch(who: str, model, dims: SearchDims, lead: tuple, tables,
             sfx: int, n_det, n_crash, frontier, scal_in, budget, lvl_cap,
-            bail):
+            bail, telemetry: bool):
     """One launch of the kernel over the keys of ``frontier``
     (``[*lead, F, words]``; ``lead`` is ``(B,)`` for a stacked batch and
     ``()`` for one key, ``B = 1``): tables ``[*lead, n]`` (the return
     suffix table ``[*lead, sfx]``), ``n_det``/``n_crash`` int32 ``[B]``
     on the card, scalars ``[*lead, 5]``.  Returns ``(frontier_out,
-    scal_out)`` shaped as the inputs."""
+    scal_out, tele)`` shaped as the inputs; ``tele`` is the
+    ``[*lead, TELE_ROWS, TELE_COLS]`` block of the telemetry form
+    (zeros where a key ran no level), None without ``telemetry``."""
     if frontier.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {frontier.device}")
     if not eligible(model, dims):
@@ -216,11 +233,15 @@ def _launch(who: str, model, dims: SearchDims, lead: tuple, tables,
             raise ValueError(f"{who}: n_det and n_crash must be contiguous "
                              f"int32 [{B}] tensors on {frontier.device}")
     dev = frontier.device
-    plan = launch_plan(dims, dev)
+    plan = launch_plan(dims, dev, telemetry=telemetry)
     frontier_out = torch.empty_like(frontier)
     scal_out = torch.empty((*lead, 5), dtype=torch.int32, device=dev)
     scratch = torch.empty(max(16, B * plan["scratch_bytes"]),
                           dtype=torch.uint8, device=dev)
+    # zeros: the kernel adds its rows, and a key that runs no level
+    # writes none
+    tele = (torch.zeros((*lead, TELE_ROWS, TELE_COLS), dtype=torch.int32,
+                        device=dev) if telemetry else None)
 
     from .._build import library
 
@@ -233,9 +254,10 @@ def _launch(who: str, model, dims: SearchDims, lead: tuple, tables,
             frontier_out.data_ptr(), scal_out.data_ptr(), scratch.data_ptr(),
             scratch.numel(), B, dims.frontier, dims.window, dims.n_crash_pad,
             dims.state_width, dims.n_det_pad, budget, lvl_cap, int(bail),
-            model.kernel_id, stream)
+            model.kernel_id, stream,
+            tele.data_ptr() if telemetry else None)
     _raise_on(lib, rc, "kernel launch")
-    return frontier_out, scal_out
+    return frontier_out, scal_out, tele
 
 
 @functools.lru_cache(maxsize=64)
@@ -246,16 +268,17 @@ def _key_counts(n_det: int, n_crash: int, device: torch.device):
     return t[0:1], t[1:2]
 
 
-def level_loop(model, dims: SearchDims, *args):
+def level_loop(model, dims: SearchDims, *args, telemetry: bool = False):
     """One slice through the CUDA kernel (CUDA tensors) or through
     :func:`level_loop_reference` (CPU tensors).  Returns the carry
-    ``(frontier, count, status, configs, max_depth, ovf)``.  On the card
-    it is the grid launch with one key (``B = 1``)."""
+    ``(frontier, count, status, configs, max_depth, ovf)``, and with
+    ``telemetry`` the aux block as a 7th output.  On the card it is the
+    grid launch with one key (``B = 1``)."""
     global LAUNCHES
     frontier = args[22]
     _check_inert(args)
     if frontier.device.type == "cpu":
-        return level_loop_reference(model, dims, *args)
+        return level_loop_reference(model, dims, *args, telemetry=telemetry)
     n_det, n_crash = int(args[15]), int(args[16])
     if not (0 <= n_det <= dims.n_det_pad and 0 <= n_crash <= dims.n_crash_pad):
         raise ValueError(f"level_loop: n_det={n_det}, n_crash={n_crash} out "
@@ -265,28 +288,35 @@ def level_loop(model, dims: SearchDims, *args):
               else (None, None))
     scal_in = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
                            for v in args[23:28]])
-    out, scal = _launch("level_loop", model, dims, (), args[:_N_TABLES],
-                        dims.n_det_pad + 1, *counts, frontier, scal_in,
-                        int(args[19]), int(args[20]), bool(args[21]))
+    out, scal, tele = _launch("level_loop", model, dims, (),
+                              args[:_N_TABLES], dims.n_det_pad + 1, *counts,
+                              frontier, scal_in, int(args[19]),
+                              int(args[20]), bool(args[21]), telemetry)
     LAUNCHES += 1
-    return out, scal[0], scal[1], scal[2], scal[3], scal[4] != 0
+    LAUNCHES_BY_FORM["single", telemetry] += 1
+    carry = (out, scal[0], scal[1], scal[2], scal[3], scal[4] != 0)
+    return carry + (tele,) if telemetry else carry
 
 
-def level_loop_batch_reference(model, dims: SearchDims, *args):
+def level_loop_batch_reference(model, dims: SearchDims, *args,
+                               telemetry: bool = False):
     """The plain torch version of one grid launch: the all-pairs step
     of :func:`level_loop_reference`, key by key (``step.run_per_key``)."""
     return step.run_per_key(
-        _reference_step(model, dims, args[22].device), dims, *args)
+        _reference_step(model, dims, args[22].device, telemetry), dims,
+        *args, telemetry=telemetry)
 
 
-def level_loop_batch(model, dims: SearchDims, *args):
+def level_loop_batch(model, dims: SearchDims, *args,
+                     telemetry: bool = False):
     """One slice of every key of a stacked batch: the grid-over-keys
     kernel (CUDA tensors; one block per key) or
     :func:`level_loop_batch_reference` (CPU tensors).  Tables are
     stacked ``[B, n]`` (the return suffix table ``[B, sfx_stride]``),
     the per-key ``n_det``/``n_crash``/``dead_lo``/``dead_tok`` are int32
     ``[B]``, and the carry is ``[B, F, words]`` and five ``[B]``
-    tensors.  Returns the stacked carry."""
+    tensors.  Returns the stacked carry, and with ``telemetry`` the
+    ``[B, TELE_ROWS, TELE_COLS]`` aux blocks as a 7th output."""
     global BATCH_LAUNCHES
     frontier = args[22]
     n_det, n_crash = args[15], args[16]
@@ -294,19 +324,23 @@ def level_loop_batch(model, dims: SearchDims, *args):
         (n_det, (n_det < 0) | (n_det > dims.n_det_pad)),
         (n_crash, (n_crash < 0) | (n_crash > dims.n_crash_pad))))
     if frontier.device.type == "cpu":
-        return level_loop_batch_reference(model, dims, *args)
+        return level_loop_batch_reference(model, dims, *args,
+                                          telemetry=telemetry)
     scal_in = torch.stack([args[23], args[24], args[25], args[26],
                            args[27].to(torch.int32)], dim=1).contiguous()
-    out, scal = _launch("level_loop_batch", model, dims, (frontier.shape[0],),
-                        args[:_N_TABLES], sfx_stride(dims), n_det, n_crash,
-                        frontier, scal_in, int(args[19]), int(args[20]),
-                        bool(args[21]))
+    out, scal, tele = _launch(
+        "level_loop_batch", model, dims, (frontier.shape[0],),
+        args[:_N_TABLES], sfx_stride(dims), n_det, n_crash, frontier,
+        scal_in, int(args[19]), int(args[20]), bool(args[21]), telemetry)
     BATCH_LAUNCHES += 1
-    return (out, scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3],
-            scal[:, 4] != 0)
+    LAUNCHES_BY_FORM["grid", telemetry] += 1
+    carry = (out, scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3],
+             scal[:, 4] != 0)
+    return carry + (tele,) if telemetry else carry
 
 
-def build_level_loop_fn(model, dims: SearchDims):
+def build_level_loop_fn(model, dims: SearchDims, *,
+                        telemetry: bool = False):
     """A step function (the 28-argument signature) backed by
-    :func:`level_loop`."""
-    return functools.partial(level_loop, model, dims)
+    :func:`level_loop`, its telemetry form with ``telemetry``."""
+    return functools.partial(level_loop, model, dims, telemetry=telemetry)

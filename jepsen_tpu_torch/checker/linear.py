@@ -115,7 +115,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
     as in ``seq.check_opseq``; with dpor the result carries ``dpor``
     stats.  ``decompose`` takes None or False."""
     from ..analyze.audit import maybe_audit
-    from ..analyze.dpor import resolve_dpor
+    from ..analyze.dpor import _M_DEDUP, _M_MASK, resolve_dpor
     from ..analyze.hb import attach, maybe_hb
     from ..analyze.lint import maybe_lint
 
@@ -177,6 +177,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
         if v == dead_tok or v == NIL or p < dead_cut.get(v, 0):
             return ns
         dpor_stats["dedup_rewrites"] += 1
+        _M_DEDUP.inc(site="host-linear", event="rewrite")
         return (dead_tok,)
 
     # must-order mask: per det position / crash index, its det-position
@@ -236,6 +237,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
             if dp and not all(det_done(q) for q in dp):
                 if dpor_stats is not None:
                     dpor_stats["mask_lanes_killed"] += 1
+                    _M_MASK.inc(site="host-frame")
                 return True
             return False
 
@@ -374,6 +376,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
                     work.append((nk, ncm))
                 elif dead_cut is not None and ns[0] == dead_tok:
                     dpor_stats["dedup_hits"] += 1
+                    _M_DEDUP.inc(site="host-linear", event="hit")
 
         # goal test
         for (p, win, s), ac in level.items():
@@ -408,6 +411,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
                                  (p, win, state), cmask)
                     elif dead_cut is not None and ns[0] == dead_tok:
                         dpor_stats["dedup_hits"] += 1
+                        _M_DEDUP.inc(site="host-linear", event="hit")
             why = over_budget()
             if why:
                 return finish({"valid": "unknown", "configs": configs,

@@ -27,6 +27,13 @@ reductions are dropped for the whole search
 (:func:`_strip_reductions_for_kernel`).  ``audit=True`` replays every
 certificate (``analyze/audit.py``).
 
+Every device search carries the reference's telemetry by default
+(``telemetry=None`` on every entry point; ``False`` turns it off): its
+slice functions also return a per-level aux block, gathered into the
+result's ``search_telemetry`` (``obs/telemetry.py``), with
+``device.slice`` spans and the ``jtpu_*`` metrics (``obs``).  The
+verdict and its certificate are the same either way.
+
 A search can be checkpointed after any slice (:func:`save_checkpoint`
 from ``on_slice``) and resumed (:func:`resume_opseq`) in either package:
 the file is the JAX package's npz.  :func:`search_batch` checks a batch
@@ -56,11 +63,13 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..analyze.audit import maybe_audit
-from ..analyze.dpor import resolve_dpor
+from ..analyze.dpor import _M_MASK, resolve_dpor
 from ..analyze.hb import attach, maybe_hb
 from ..analyze.lint import maybe_lint
 from ..history import OpSeq, encode_ops
+from ..obs import telemetry as _tele
 from . import level_kernel
 from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, EncodedSearch,
                      SearchDims, _grid_width, _init_carry, _init_config,
@@ -79,10 +88,6 @@ _STATUS = {2: True, 1: False, 0: "unknown"}
 _SLICE_LEVELS0 = 32
 _SLICE_TARGET_S = 2.0
 _SLICE_MAX = 16384
-
-#: configurations each host leg of the race may visit, before the
-#: memory cap of :func:`check_competition`
-COMPETITION_MAX_CONFIGS = 50_000_000
 
 
 def _resolve_device(device) -> torch.device:
@@ -151,35 +156,56 @@ _STEP_CACHE: dict = {}
 #: slice-function cache hits and misses (single and batch)
 KERNEL_CACHE_STATS = {"hits": 0, "misses": 0}
 
+#: the registry's twin of KERNEL_CACHE_STATS
+_M_KCACHE = obs.REGISTRY.counter(
+    "jtpu_kernel_cache_total",
+    "Compiled-kernel cache lookups (hit/miss)", ("event",))
+
 
 def kernel_cache_stats() -> dict:
     """A copy of :data:`KERNEL_CACHE_STATS`."""
     return dict(KERNEL_CACHE_STATS)
 
 
-def _cached(key, build):
+def _cached(key, build, model, dims: SearchDims, use_k: bool,
+            **coords):
+    """The cached slice function under ``key``; a miss builds it inside
+    a ``device.compile`` span carrying the cache key's coordinates."""
     fn = _STEP_CACHE.get(key)
-    KERNEL_CACHE_STATS["hits" if fn is not None else "misses"] += 1
+    hit = fn is not None
+    KERNEL_CACHE_STATS["hits" if hit else "misses"] += 1
+    _M_KCACHE.inc(event="hit" if hit else "miss")
     if fn is None:
-        fn = _STEP_CACHE[key] = build()
+        with _tele.compile_span(
+                engine="cuda" if use_k else "torch",
+                frontier=dims.frontier, n_det_pad=dims.n_det_pad,
+                n_crash_pad=dims.n_crash_pad, window=dims.window, k=dims.k,
+                model=model.name, model_init=int(model.init[0]),
+                model_width=model.state_width, **coords):
+            fn = _STEP_CACHE[key] = build()
     return fn
 
 
 def get_kernel(model, dims: SearchDims, device: torch.device, *,
                masked: bool = False, masked_crash: bool = False,
-               dedup: bool = False):
+               dedup: bool = False, telemetry: bool = False):
     """The slice function for (model, dims) on ``device`` and the
     search's reductions: the CUDA level loop where :func:`_use_kernel`
-    says so, else the torch step."""
+    says so, else the torch step; their telemetry builds with
+    ``telemetry`` (a 7th output, the aux block)."""
     from . import step
 
     use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
     key = (model.name, dims, str(device), step._DOMINANCE_MODE, use_k,
-           masked, masked_crash, dedup)
+           masked, masked_crash, dedup, telemetry)
     return _cached(key, lambda: (
-        level_kernel.build_level_loop_fn(model, dims) if use_k
+        level_kernel.build_level_loop_fn(model, dims, telemetry=telemetry)
+        if use_k
         else build_search_step_fn(model, dims, device, masked=masked,
-                                  masked_crash=masked_crash, dedup=dedup)))
+                                  masked_crash=masked_crash, dedup=dedup,
+                                  telemetry=telemetry)),
+        model, dims, use_k, masked=masked, masked_crash=masked_crash,
+        dedup=dedup, telemetry=telemetry)
 
 
 #: the active single-key slice driver's "a slice ran the fused kernel"
@@ -191,7 +217,8 @@ _RUN_KERNEL = threading.local()
 
 def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
                 on_slice=None, resume=None, used_kernel0: bool = False,
-                deadline: float | None = None, stop=None):
+                deadline: float | None = None, stop=None,
+                telemetry: bool = True):
     """Drive the sliced search to completion with an adaptive width.
 
     Escalation climbs two grid steps (4x) from the level that
@@ -203,10 +230,16 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
     every slice (the checkpoint hook); ``resume`` is a carry to start
     from, at ``dims.frontier`` width.
 
-    Returns (status, configs, max_depth, dims, used_kernel): status is
-    final (-1 never escapes), dims carries the final width, and
+    Each slice runs in a ``device.slice`` span and its wall seconds feed
+    ``jtpu_device_seconds_total``.  With ``telemetry`` the slices run
+    their telemetry builds and their aux blocks gather into a
+    :class:`~..obs.telemetry.SearchTelemetry`.
+
+    Returns (status, configs, max_depth, dims, used_kernel, acc): status
+    is final (-1 never escapes), dims carries the final width,
     ``used_kernel`` says whether any slice ran the CUDA level loop, or
-    ``used_kernel0`` (a resumed search's earlier slices) was set."""
+    ``used_kernel0`` (a resumed search's earlier slices) was set, and
+    ``acc`` is the telemetry (None without ``telemetry``)."""
     args = search_args(esp, es, device=device)
     masked, masked_crash, dedup = _reduction_key(esp)
     carry = carry_to_device(
@@ -217,15 +250,23 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
     low_streak = 0  # consecutive slices whose live width fit a lower rung
     used_kernel = used_kernel0
     timed_out = False
+    acc = _tele.SearchTelemetry() if telemetry else None
     while True:
         bail = F < MAX_FRONTIER
         use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
         fn = get_kernel(model, dims, device, masked=masked,
-                        masked_crash=masked_crash, dedup=dedup)
+                        masked_crash=masked_crash, dedup=dedup,
+                        telemetry=telemetry)
         t0 = time.perf_counter()
-        carry = fn(*args, budget, lvl_cap, bail, *carry)
-        status = int(carry[2])  # waits for the slice
+        with obs.span("device.slice", cat="device", frontier=F,
+                      levels=lvl_cap, first=first):
+            res = fn(*args, budget, lvl_cap, bail, *carry)
+            carry = res[:6]
+            status = int(carry[2])  # waits for the slice
         dt = time.perf_counter() - t0
+        _tele.record_device_seconds(dt)
+        if acc is not None:
+            acc.add_slice(res[6].cpu().numpy(), t0, t0 + dt, frontier=F)
         used_kernel = used_kernel or use_k
         if on_slice is not None:
             _RUN_KERNEL.flag = used_kernel
@@ -279,7 +320,7 @@ def _run_kernel(esp, es, model, dims: SearchDims, budget: int, device, *,
         # died out with no goal: invalid unless it ever overflowed;
         # budget exhausted, deadline passed or stopped: unknown
         status = UNKNOWN if timed_out or count > 0 or ovf else INVALID
-    return status, configs, int(carry[4]), dims, used_kernel
+    return status, configs, int(carry[4]), dims, used_kernel, acc
 
 
 def greedy_witness(seq: OpSeq, model) -> bool:
@@ -333,6 +374,7 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                  on_slice=None, deadline: float | None = None, stop=None,
                  lint: bool | None = None, audit: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
+                 telemetry: bool | None = None,
                  _hbres=_HB_UNSET) -> dict:
     """Check one columnar history on ``device``.  Returns
     ``{"valid": True|False|"unknown", "configs", "max_depth", "engine",
@@ -356,9 +398,13 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
     must-order edges and the dead-value table to the device search as
     reduction planes, and adds ``dpor`` stats to the result
     (``device_masked``, ``device_mask_rows``, ``dedup``).  ``audit=True``
-    replays the certificate.  ``_hbres`` is a prepass result the
-    caller already has (the batch's fallback)."""
+    replays the certificate.  ``telemetry`` (None: on) adds the device
+    search's ``search_telemetry`` block (``obs/telemetry.py``); a
+    history the prepass decides gets only its ``search.telemetry`` span.
+    ``_hbres`` is a prepass result the caller already has (the batch's
+    fallback)."""
     dev = _resolve_device(device)
+    tele_on = _tele.resolve(telemetry)
     maybe_lint(seq, model, lint)
     hbres = maybe_hb(seq, model, hb, dpor) if _hbres is _HB_UNSET \
         else _hbres
@@ -367,7 +413,9 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
         return maybe_audit(seq, model, attach(out, hbres), audit)
 
     if hbres is not None and hbres.decided is not None:
-        return maybe_audit(seq, model, dict(hbres.decided), audit)
+        return _tele.emit_decided(
+            maybe_audit(seq, model, dict(hbres.decided), audit),
+            hbres=hbres, telemetry=tele_on)
     es = encode_search(seq)
     if es.n_det == 0 and es.n_crash == 0:
         return finish({"valid": True, "configs": 0, "max_depth": 0,
@@ -398,10 +446,12 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
                    | (es.crash_cpred != 0)).sum())
         dpor_stats = {"enabled": True, "device_masked": es.masked,
                       "device_mask_rows": n_mask_rows, "dedup": es.dedup}
+        if es.masked:
+            _M_MASK.inc(n_mask_rows, site="device-rows")
     esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
-    status, configs, max_depth, dims, used_kernel = _run_kernel(
+    status, configs, max_depth, dims, used_kernel, acc = _run_kernel(
         esp, es, model, dims, budget, dev, on_slice=on_slice,
-        deadline=deadline, stop=stop)
+        deadline=deadline, stop=stop, telemetry=tele_on)
     out = {"valid": _STATUS[status], "configs": configs,
            "max_depth": max_depth, "engine": _engine_label(used_kernel),
            "frontier": dims.frontier, "window": es.window,
@@ -412,14 +462,15 @@ def search_opseq(seq: OpSeq, model, *, budget: int = 20_000_000,
         out["witness_dropped"] = WITNESS_DROPPED_DEVICE
     elif out["valid"] is False:
         out["frontier_dropped"] = FRONTIER_DROPPED_DEVICE
+    _tele.finalize_result(out, acc, hbres=hbres, device=dev)
     return finish(out)
 
 
 def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
-                      device="cuda",
+                      max_configs: int = 50_000_000, device="cuda",
                       lint: bool | None = None, audit: bool | None = None,
-                      hb: bool | None = None,
-                      dpor: bool | None = None) -> dict:
+                      hb: bool | None = None, dpor: bool | None = None,
+                      telemetry: bool | None = None) -> dict:
     """Race the two exact host engines against the device search; the
     first conclusive verdict wins and retires the losers (knossos'
     ``competition``).  The WGL DFS (``seq.py``) can dive straight to a
@@ -433,9 +484,12 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
     before any host leg starts.  Past the device encoding the host legs
     decide alone.  The winner's certificate comes with its verdict.
 
-    One lint at the race's boundary (``lint``, None: on); the legs run
-    without it, each with its own prepass and reductions (``hb``,
-    ``dpor``).  ``audit=True`` replays the winner's certificate."""
+    ``max_configs`` caps each host leg's configurations, at most what
+    fits about 4 GB of the WGL leg's memo.  One lint at the race's
+    boundary (``lint``, None: on); the legs run without it, each with
+    its own prepass and reductions (``hb``, ``dpor``).  ``telemetry``
+    goes to the device leg (:func:`search_opseq`).  ``audit=True``
+    replays the winner's certificate."""
     from . import seq as seqmod
 
     dev = _resolve_device(device)
@@ -448,7 +502,7 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
     # parents) as a (bigint set, state) pair: cap it to about 4 GB, so a
     # loser thread cannot eat the host while the device works
     per_cfg = 2 * (len(seq) // 8 + 200)
-    max_configs = min(COMPETITION_MAX_CONFIGS, 4_000_000_000 // per_cfg)
+    max_configs = min(max_configs, 4_000_000_000 // per_cfg)
 
     done = threading.Event()
     lock = threading.Lock()
@@ -507,7 +561,8 @@ def check_competition(seq: OpSeq, model, *, budget: int = 20_000_000,
 
     try:
         dev_out = search_opseq(seq, model, budget=budget, device=dev,
-                               stop=done, lint=False, hb=hb, dpor=dpor)
+                               stop=done, lint=False, hb=hb, dpor=dpor,
+                               telemetry=telemetry)
     except BaseException:
         done.set()
         for t in threads:
@@ -590,12 +645,13 @@ def load_checkpoint(path: str):
 
 def resume_opseq(seq: OpSeq, model, path: str, *, device="cuda",
                  on_slice=None, deadline: float | None = None,
-                 stop=None) -> dict:
+                 stop=None, telemetry: bool | None = None) -> dict:
     """Continue a search from :func:`save_checkpoint`'s file.  A model or
     history other than the checkpoint's raises.  ``on_slice``,
-    ``deadline`` and ``stop`` as in :func:`search_opseq`: a resumed
-    search stopped again is again a checkpoint.  The engine label gains
-    ``resumed``."""
+    ``deadline``, ``stop`` and ``telemetry`` as in :func:`search_opseq`:
+    a resumed search stopped again is again a checkpoint, and its
+    ``search_telemetry`` covers the resumed slices.  The engine label
+    gains ``resumed``."""
     dev = _resolve_device(device)
     carry, dims, model_name, budget, digest, prior = load_checkpoint(path)
     if model_name != model.name:
@@ -606,14 +662,16 @@ def resume_opseq(seq: OpSeq, model, path: str, *, device="cuda",
             "checkpoint was taken on a different history (digest mismatch)")
     es = encode_search(seq)
     esp = pad_search(es, dims.n_det_pad, dims.n_crash_pad)
-    status, configs, max_depth, dims, used_kernel = _run_kernel(
+    status, configs, max_depth, dims, used_kernel, acc = _run_kernel(
         esp, es, model, dims, budget, dev, on_slice=on_slice, resume=carry,
-        used_kernel0=prior, deadline=deadline, stop=stop)
-    return {"valid": _STATUS[status], "configs": configs,
-            "max_depth": max_depth,
-            "engine": _engine_label(used_kernel, resumed=True),
-            "frontier": dims.frontier, "window": es.window,
-            "concurrency": es.concurrency}
+        used_kernel0=prior, deadline=deadline, stop=stop,
+        telemetry=_tele.resolve(telemetry))
+    out = {"valid": _STATUS[status], "configs": configs,
+           "max_depth": max_depth,
+           "engine": _engine_label(used_kernel, resumed=True),
+           "frontier": dims.frontier, "window": es.window,
+           "concurrency": es.concurrency}
+    return _tele.finalize_result(out, acc, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -677,32 +735,37 @@ def pad_batch_carry(carry, pad: int, dims: SearchDims, model,
 
 def get_batch_kernel(model, dims: SearchDims, device: torch.device, *,
                      masked: bool = False, masked_crash: bool = False,
-                     dedup: bool = False):
+                     dedup: bool = False, telemetry: bool = False):
     """The batch slice function for (model, dims) on ``device``: the
     fused kernel's grid over keys where :func:`_use_kernel` says so,
     else the torch step key by key (``step.run_per_key``; other models,
     masked or dedup batches, rungs past the kernel's range).  Each key's
     result equals its solo run's, as each lane of the JAX package's
-    vmapped step does."""
+    vmapped step does.  With ``telemetry`` the keys' aux blocks come
+    back stacked as a 7th output."""
     from . import step
 
     use_k = _use_kernel(model, dims, device, masked=masked, dedup=dedup)
     key = ("batch", model.name, dims, str(device), step._DOMINANCE_MODE,
-           use_k, masked, masked_crash, dedup)
+           use_k, masked, masked_crash, dedup, telemetry)
 
     def build():
         if use_k:
             return functools.partial(level_kernel.level_loop_batch, model,
-                                     dims)
+                                     dims, telemetry=telemetry)
         fn = build_search_step_fn(model, dims, device, masked=masked,
-                                  masked_crash=masked_crash, dedup=dedup)
-        return functools.partial(run_per_key, fn, dims)
+                                  masked_crash=masked_crash, dedup=dedup,
+                                  telemetry=telemetry)
+        return functools.partial(run_per_key, fn, dims,
+                                 telemetry=telemetry)
 
-    return _cached(key, build)
+    return _cached(key, build, model, dims, use_k, batch=True,
+                   masked=masked, masked_crash=masked_crash, dedup=dedup,
+                   telemetry=telemetry)
 
 
 def _drive_batch_compacting(fn, esps, model, dims: SearchDims, budget: int,
-                            device, *, bail: bool = False):
+                            device, *, bail: bool = False, tele_acc=None):
     """Slice driver of one batch rung, with active-key compaction.
 
     Between slices, finished keys are recorded on the host; once the
@@ -711,6 +774,10 @@ def _drive_batch_compacting(fn, esps, model, dims: SearchDims, budget: int,
     carry status VALID and count 0: they do nothing).  Lanes step by
     powers of two up to 32, then by multiples of 32.  With ``bail`` a
     key that overflowed stops (a wider rung is coming) and retires.
+    Each slice runs in a ``device.slice`` span and its
+    wall seconds feed ``jtpu_device_seconds_total``; with ``tele_acc``
+    (``fn`` a telemetry build) the slices' aux blocks, summed over the
+    keys, add to its totals.
 
     Returns (status, count, configs, depth, ovf) numpy arrays over all
     keys, in input order."""
@@ -737,10 +804,17 @@ def _drive_batch_compacting(fn, esps, model, dims: SearchDims, budget: int,
     first = True
     while True:
         t0 = time.perf_counter()
-        carry = fn(*args, budget, lvl_cap, bail, *carry)
-        scal = torch.stack([carry[2], carry[1], carry[3], carry[4],
-                            carry[5].to(torch.int32)]).cpu().numpy()
+        with obs.span("device.slice", cat="device", frontier=dims.frontier,
+                      levels=lvl_cap, lanes=b, first=first):
+            res = fn(*args, budget, lvl_cap, bail, *carry)
+            carry = res[:6]
+            scal = torch.stack([carry[2], carry[1], carry[3], carry[4],
+                                carry[5].to(torch.int32)]).cpu().numpy()
         dt = time.perf_counter() - t0
+        _tele.record_device_seconds(dt)
+        if tele_acc is not None:
+            # the keys pace differently: only the sum over the lanes
+            tele_acc.add_totals(res[6].sum(dim=0).cpu().numpy())
         live = []  # lanes still running
         for i, k in enumerate(lanes):
             if k in fin:
@@ -794,14 +868,15 @@ def _device_batch_certificate(r: dict) -> dict:
 
 def _search_batch_ladder(seqs: list[OpSeq], esps: list[EncodedSearch],
                          model, dims: SearchDims, budget: int,
-                         device) -> list[dict]:
+                         device, telemetry: bool = True) -> list[dict]:
     """The batch's device route over padded encodings at ``dims``: every
     pending key runs at the current rung; keys that overflow it run
     together at the next, 4x wider, up to :data:`BATCH_FRONTIER_CAP`.
     Each key's configs add up over the rungs, and its budget bounds the
     sum.  Keys still overflowing at the cap run solo
     (:func:`search_opseq`) on what is left of their budget.  A failing
-    kernel raises."""
+    kernel raises.  With ``telemetry`` the first result carries the
+    batch's ``search_telemetry`` (totals over every key and rung)."""
     n = len(seqs)
     status = np.full(n, UNKNOWN, np.int32)
     count = np.zeros(n, np.int32)
@@ -817,15 +892,17 @@ def _search_batch_ladder(seqs: list[OpSeq], esps: list[EncodedSearch],
     b_mcrash = any(e.mask_has_crash for e in esps)
     b_dedup = any(e.dedup for e in esps)
     used_kernel = False
+    acc = _tele.SearchTelemetry("device-batch") if telemetry else None
     while pending:
         d = SearchDims(**{**dims.__dict__, "frontier": rung})
         use_k = _use_kernel(model, d, device, masked=b_masked,
                             dedup=b_dedup)
         fn = get_batch_kernel(model, d, device, masked=b_masked,
-                              masked_crash=b_mcrash, dedup=b_dedup)
+                              masked_crash=b_mcrash, dedup=b_dedup,
+                              telemetry=telemetry)
         st, ct, cf, dp, ov = _drive_batch_compacting(
             fn, [esps[i] for i in pending], model, d, budget, device,
-            bail=True)
+            bail=True, tele_acc=acc)
         used_kernel = used_kernel or use_k
         nxt = []
         for j, i in enumerate(pending):
@@ -854,7 +931,8 @@ def _search_batch_ladder(seqs: list[OpSeq], esps: list[EncodedSearch],
         elif needs_solo:
             r = search_opseq(seqs[i], model,
                              budget=max(1000, budget - int(spent[i])),
-                             device=device, lint=False, audit=False)
+                             device=device, lint=False, audit=False,
+                             telemetry=telemetry)
             r["configs"] = int(r.get("configs", 0)) + int(spent[i])
             out.append(r)
         else:
@@ -862,6 +940,9 @@ def _search_batch_ladder(seqs: list[OpSeq], esps: list[EncodedSearch],
                 {"valid": _STATUS[int(status[i])],
                  "configs": int(configs[i]), "max_depth": int(depth[i]),
                  "engine": engine}))
+    if acc is not None and out:
+        # one block for the batch, on the first result only
+        _tele.finalize_result(out[0], acc, device=device)
     return out
 
 
@@ -885,7 +966,7 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
                  sharding=None, decompose: bool = False,
                  bucket: bool | None = None, lint: bool | None = None,
                  audit: bool | None = None, hb: bool | None = None,
-                 dpor: bool | None = None,
+                 dpor: bool | None = None, telemetry: bool | None = None,
                  _prepass: list | None = None) -> list[dict]:
     """Check a batch of independent per-key histories: the knossos
     ``independent`` checker's per-key searches, run together on
@@ -904,9 +985,12 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     (None: on) lints every key first; errors raise naming the key.
     ``hb`` and ``dpor`` (None: on) as in :func:`search_opseq`; where the
     kernel takes the batch's starting rung the reductions are dropped.
-    ``audit=True`` replays every key's certificate.  ``decompose`` and
-    ``sharding`` accept only off.  ``_prepass`` carries per-key
-    must-order maps a caller already computed."""
+    ``audit=True`` replays every key's certificate.  ``telemetry``
+    (None: on) puts the ladder's ``search_telemetry`` on its first
+    result (one per bucket when bucketed); a key searched alone carries
+    its own.  ``decompose`` and ``sharding`` accept only off.
+    ``_prepass`` carries per-key must-order maps a caller already
+    computed."""
     from ..analyze.hb import resolve_hb
     from ..analyze.lint import Diagnostic, HistoryLintError, lint_opseq
 
@@ -915,6 +999,7 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     dev = _resolve_device(device)
     if not seqs:
         return []
+    telemetry = _tele.resolve(telemetry)
     hb = resolve_hb(hb)
     dpor_on = resolve_dpor(dpor)
     audit = bool(audit)
@@ -935,8 +1020,8 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
         from .bucket import search_batch_bucketed
 
         return _audit_batch(seqs, model, search_batch_bucketed(
-            seqs, model, budget=budget, device=dev, hb=hb, dpor=dpor),
-            audit)
+            seqs, model, budget=budget, device=dev, hb=hb, dpor=dpor,
+            telemetry=telemetry), audit)
     # the greedy witness and the prepass dispose of keys on the host;
     # undecided keys keep their must-order maps (the device mask)
     results, rest, masks, hbs = _dispose_batch(seqs, model, hb, dpor,
@@ -946,7 +1031,8 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
             sub = search_batch([seqs[i] for i in rest], model,
                                budget=budget, dims=dims, device=dev,
                                bucket=False, lint=False, audit=False,
-                               hb=False, dpor=dpor, _prepass=masks)
+                               hb=False, dpor=dpor, telemetry=telemetry,
+                               _prepass=masks)
             results.update(zip(rest, sub))
         return _audit_batch(seqs, model,
                             [results[i] for i in range(len(seqs))], audit)
@@ -962,13 +1048,13 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
             else:
                 r = search_opseq(s, model, budget=budget, device=dev,
                                  lint=False, audit=False, hb=hb, dpor=dpor,
-                                 _hbres=hbs[i])
+                                 telemetry=telemetry, _hbres=hbs[i])
             out.append(r)
         return _audit_batch(seqs, model, out, audit)
     dims = dims or batch_dims(ess, model)
     esps = _pad_batch(seqs, ess, masks, model, dims, dev, dpor_on)
     return _audit_batch(seqs, model, _search_batch_ladder(
-        seqs, esps, model, dims, budget, dev), audit)
+        seqs, esps, model, dims, budget, dev, telemetry), audit)
 
 
 def _dispose_batch(seqs: list[OpSeq], model, hb: bool, dpor,
@@ -1073,8 +1159,9 @@ class Linearizable:
     before anything else: errors raise ``HistoryLintError``, warnings
     ride the result as ``lint_warnings``.  ``hb`` and ``dpor`` (None:
     on) reach every route; the host confirmation after a device win
-    runs with both at their defaults.  ``audit=True`` replays the
-    returned certificate."""
+    runs with both at their defaults.  ``telemetry`` (None: on) reaches
+    the device search.  ``audit=True`` replays the returned
+    certificate."""
 
     name = "linearizable"
 
@@ -1093,7 +1180,7 @@ class Linearizable:
                  lint: bool | None = None, explain: bool | None = None,
                  audit: bool | None = None, shrink: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
-                 device="cuda"):
+                 telemetry: bool | None = None, device="cuda"):
         _refuse(decompose, "decompose", "A8")
         _refuse(explain, "explain", "A12")
         try:
@@ -1110,6 +1197,7 @@ class Linearizable:
         self.audit = audit
         self.hb = hb
         self.dpor = dpor
+        self.telemetry = telemetry
         self.device = device
 
     def check(self, test, history, opts=None):
@@ -1156,10 +1244,12 @@ class Linearizable:
             return out
         if self.algorithm in ("auto", "competition"):
             out = check_competition(seq, model, budget=self.budget,
-                                    device=self.device, **red)
+                                    device=self.device,
+                                    telemetry=self.telemetry, **red)
         else:
             out = search_opseq(seq, model, budget=self.budget,
-                               device=self.device, **red)
+                               device=self.device,
+                               telemetry=self.telemetry, **red)
         if out["valid"] is False:
             eng = out.get("engine", "")
             if "host-oracle" in eng or "host-linear" in eng:

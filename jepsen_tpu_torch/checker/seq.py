@@ -63,7 +63,8 @@ def check_opseq(seq: OpSeq, model, *,
     register states; the result then carries ``dpor`` stats.
     ``audit=True`` replays the certificate (``analyze/audit.py``)."""
     from ..analyze.audit import maybe_audit
-    from ..analyze.dpor import SleepSets, resolve_dpor, sleep_visit
+    from ..analyze.dpor import (_M_DEDUP, _M_MASK, _M_SLEEP, SleepSets,
+                                resolve_dpor, sleep_visit)
     from ..analyze.hb import attach, maybe_hb
     from ..analyze.lint import maybe_lint
 
@@ -207,6 +208,7 @@ def check_opseq(seq: OpSeq, model, *,
             if preds[j2] & ~mask:
                 if dpor_stats is not None:
                     dpor_stats["mask_skips"] += 1
+                    _M_MASK.inc(site="dfs")
                 continue  # a must-predecessor is not linearized yet
             explorable |= 1 << j2
             if missing and not (missing >> j2) & 1:
@@ -214,6 +216,7 @@ def check_opseq(seq: OpSeq, model, *,
             if (sleep >> j2) & 1:
                 # covered through a commuting sibling explored first
                 dpor_stats["sleep_prunes"] += 1
+                _M_SLEEP.inc()
                 continue
             new_state = pystep(state, f[j2], v1[j2], v2[j2])
             if new_state is None:
@@ -228,6 +231,7 @@ def check_opseq(seq: OpSeq, model, *,
                         # is dead, so collapse onto the token
                         new_state = (dead_tok,)
                         dpor_stats["dedup_rewrites"] += 1
+                        _M_DEDUP.inc(site="dfs", event="rewrite")
             pushes.append((j2, (nm, new_state)))
         # child sleep sets: a child pushed at t is popped after
         # pushes[t+1:], so those siblings are explored first and join
@@ -252,6 +256,7 @@ def check_opseq(seq: OpSeq, model, *,
                 stack.append((nk[0], nk[1], csl))
             elif cmp_masks is not None and nk[1] == (dead_tok,):
                 dpor_stats["dedup_hits"] += 1
+                _M_DEDUP.inc(site="dfs", event="hit")
 
     final_paths = [{"linearized": _walk_parents(parent_of, k),
                     "state": k[1]} for k in best_keys[:10]]

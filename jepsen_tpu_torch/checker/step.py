@@ -4,16 +4,25 @@ This is the search engine for every frontier rung the fused CUDA level
 loop does not take (``level_kernel.eligible``: other models, wider
 rungs, and every search with reductions), and, unreduced and pinned to
 the all-pairs prune, that kernel's plain version.  It computes bit for
-bit what the JAX package's ``build_search_step_fn`` computes (no
-telemetry): same 28-argument signature, same 6-tuple carry
-``(frontier, count, status, configs, max_depth, ovf)``, and the same
-two optional reductions.  ``masked``: a candidate lane is enabled only
+bit what the JAX package's ``build_search_step_fn`` computes: same
+28-argument signature, same 6-tuple carry ``(frontier, count, status,
+configs, max_depth, ovf)``, the same two optional reductions, and, in
+its telemetry build, the same per-level aux block as a 7th output.  ``masked``: a candidate lane is enabled only
 once its must-order predecessors (``encode.attach_reductions``) are
 linearized, det ones by the prefix/window test, crash ones
 (``masked_crash``) by a subset test of packed words against the
 configuration's crash mask.  ``dedup``: a successor state whose value
 is dead at the configuration's prefix is rewritten to the dead token,
 so symmetric configurations merge in the prune.
+
+``telemetry``: the step also returns an int32 ``[TELE_ROWS, TELE_COLS]``
+block (``obs/telemetry.py``), one row per level run, added at row
+``min(level, TELE_ROWS - 1)``: occupancy after the closure, valid lanes
+expanded, lanes the mask killed, dead-value folds (both summed over the
+closure's mask phases), closure rounds, the count after the revert,
+whether the level newly overflowed, and whether it found the goal.  The
+row index is the loop counter, so the block adds no device-to-host read;
+nothing reads it back, so the carry is the same on and off.
 
 A level's depth counts DETERMINATE linearizations only.  Per level:
 
@@ -39,6 +48,8 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.telemetry import (C_DEDUP, C_EXP, C_GOAL, C_KILL, C_NEXT,
+                             C_OCC, C_OVF, C_ROUNDS, TELE_COLS, TELE_ROWS)
 from .encode import (INF32, SearchDims, _pack_bits, _round_up, _u32,
                      _unpack_bits)
 
@@ -231,12 +242,16 @@ _DET_TABLES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret")
 
 
 def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
-                        masked_crash: bool = False, dedup: bool = False):
+                        masked_crash: bool = False, dedup: bool = False,
+                        telemetry: bool = False):
     """The per-level building blocks: ``expand_mask`` (enabled
     candidates, model step and goal test for every row, K lanes each;
     no successor words) and ``succ`` (a survivor's packed successor
     words from its source row, candidate lane and new state).
-    ``masked``/``masked_crash``/``dedup`` add the reductions' checks."""
+    ``masked``/``masked_crash``/``dedup`` add the reductions' checks;
+    ``telemetry`` makes ``expand_mask`` also return the lanes the mask
+    killed and the successor states the dedup folded (0-d tensors, or 0
+    where the reduction is off)."""
     W, K, NC = dims.window, dims.k, dims.n_crash_pad
     WW, CW, SW = dims.win_words, dims.crash_words, dims.state_width
     W2P = min(_round_up(2 * W + NC, 32), dims.n_det_pad)
@@ -286,6 +301,9 @@ def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
         c_lanes = torch.arange(NC, device=dev)
         c_en = ((c_lanes < n_crash) & ~crash
                 & (tables["crash_inv"][None, :] < m1_tot[:, None]))
+        if telemetry and masked:
+            # the enabled lanes before the mask, so its kills count
+            pre = det_en.sum(dim=1) + c_en.sum(dim=1)
         if masked:
             det_en = det_en & done_preds(t["det_mpred"][rel], p, win)
             c_en = c_en & done_preds(
@@ -331,7 +349,13 @@ def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
         remaining = n_det - (p + win.sum(dim=1))
         goal = valid & torch.where(is_det, remaining[:, None] <= 1,
                                    remaining[:, None] <= 0)
-        return valid, cand, new_state, goal
+        if not telemetry:
+            return valid, cand, new_state, goal
+        killed = (torch.where(alive, pre - det_en.sum(dim=1)
+                              - c_en.sum(dim=1), 0).sum()
+                  if masked else 0)
+        folds = (valid & is_dead).sum() if dedup else 0
+        return valid, cand, new_state, goal, killed, folds
 
     def succ(cfgs, lane, ns):
         dev = cfgs.device
@@ -376,18 +400,20 @@ _TABLE_NAMES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret", "sfx",
 def build_search_step_fn(model, dims: SearchDims, device, *,
                          use_allpairs: bool | None = None,
                          masked: bool = False, masked_crash: bool = False,
-                         dedup: bool = False):
+                         dedup: bool = False, telemetry: bool = False):
     """One slice of the search for (model, dims) on ``device``.
 
     ``use_allpairs`` pins the prune at both sites; None picks per site
     (`_use_allpairs`) at build time.  ``masked``, ``masked_crash`` and
     ``dedup`` read the reduction planes (see the module doc); off, the
-    planes are not read."""
+    planes are not read.  ``telemetry`` returns the aux block as a 7th
+    output (module doc); off, the step is unchanged."""
     dev = torch.device(device)
     K, F, W = dims.k, dims.frontier, dims.window
     S = 4 * F
     pieces = _make_kernel_pieces(model, dims, masked=masked,
-                                 masked_crash=masked_crash, dedup=dedup)
+                                 masked_crash=masked_crash, dedup=dedup,
+                                 telemetry=telemetry)
     ap_cl = _use_allpairs(2 * F, dev) if use_allpairs is None \
         else use_allpairs
     ap_det = _use_allpairs(S, dev) if use_allpairs is None \
@@ -415,6 +441,8 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
         ovf = torch.as_tensor(ovf, dtype=torch.bool, device=fdev)
         rows = torch.arange(F, device=fdev)
         false = torch.zeros((), dtype=torch.bool, device=fdev)
+        tele = (torch.zeros((TELE_ROWS, TELE_COLS), dtype=i32, device=fdev)
+                if telemetry else None)
 
         def mask_phase(fr, alive):
             return pieces["expand_mask"](fr, alive, tables, n_det,
@@ -425,7 +453,7 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
             src, n_kept = _compact_indices(kept, F)
             return scfgs[src], n_kept, kept, origin
 
-        for _lvl in range(lvl_cap):
+        for lvl in range(lvl_cap):
             go = (status == -1) & (count > 0) & (configs < budget)
             if bail:
                 go = go & ~ovf
@@ -435,7 +463,8 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
             # committed, so the wider re-run resumes from here
             f_in, c_in, cfg_in, md_in, ovf_in = (frontier, count,
                                                  configs, max_depth, ovf)
-            valid2, cand2, ns2, goal2 = mask_phase(frontier, rows < count)
+            valid2, cand2, ns2, goal2, *red = mask_phase(frontier,
+                                                         rows < count)
             found = goal2.any()
 
             # crash closure within the level
@@ -457,8 +486,11 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
                 count = n_kept.clamp(max=F).to(i32)
                 # progress iff a successor-block row survived the merge
                 progress = (kept & (origin >= F)).any()
-                valid2, cand2, ns2, goal2 = mask_phase(frontier,
-                                                       rows < count)
+                valid2, cand2, ns2, goal2, *red2 = mask_phase(frontier,
+                                                              rows < count)
+                if telemetry:
+                    # kills and folds add up over the closure's rounds
+                    red = [a + b for a, b in zip(red, red2)]
                 found = found | goal2.any()
                 rounds += 1
                 go_closure = rounds < n_crash + 1 and bool(progress)
@@ -484,16 +516,33 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
             # uncommit an overflowing level when a wider re-run is
             # coming and no goal was found
             revert = (ovf & ~ovf_in & ~found) if bail else false
+            occupancy = count
             frontier = torch.where(revert, f_in, new_frontier)
             count = torch.where(revert, c_in, new_count)
             configs = torch.where(revert, cfg_in, configs)
             max_depth = torch.where(revert, md_in, max_depth)
+            if telemetry:
+                # one row per level, built by column index so the order
+                # stays the one telemetry.COLUMNS names
+                cols = [None] * TELE_COLS
+                cols[C_OCC] = occupancy
+                cols[C_EXP] = valid2.sum()
+                cols[C_KILL], cols[C_DEDUP] = red
+                cols[C_ROUNDS] = rounds
+                cols[C_NEXT] = count
+                cols[C_OVF] = ovf & ~ovf_in
+                cols[C_GOAL] = found
+                tele[min(lvl, TELE_ROWS - 1)] += torch.stack(
+                    [torch.as_tensor(c, device=fdev).to(i32)
+                     for c in cols])
+        if telemetry:
+            return frontier, count, status, configs, max_depth, ovf, tele
         return frontier, count, status, configs, max_depth, ovf
 
     return step
 
 
-def run_per_key(fn, dims: SearchDims, *args):
+def run_per_key(fn, dims: SearchDims, *args, telemetry: bool = False):
     """One slice of a stacked batch of keys through the single-key step
     ``fn``, key by key.  ``args`` is the step signature with a leading
     key axis on the 15 tables, the four per-key scalars (int32 [B]) and
@@ -501,7 +550,10 @@ def run_per_key(fn, dims: SearchDims, *args):
     ``lvl_cap`` and ``bail`` are shared.  The return suffix table may
     carry padding past its ``n_det_pad + 1`` entries.  A key with
     nothing to do (finished, dead, over budget, or bailed) is not run:
-    its step would return its carry unchanged, as a vmapped lane does."""
+    its step would return its carry unchanged, as a vmapped lane does.
+    With ``telemetry`` (``fn`` is a telemetry build) the per-key blocks
+    come back stacked ``[B, TELE_ROWS, TELE_COLS]`` as a 7th output, a
+    key that did not run reading zero."""
     tables, per_key = args[:15], args[15:19]
     budget, lvl_cap, bail = int(args[19]), int(args[20]), bool(args[21])
     frontier = args[22]
@@ -512,7 +564,12 @@ def run_per_key(fn, dims: SearchDims, *args):
     for b, (count, status, configs, _depth, ovf) in enumerate(scal):
         if not (status == -1 and count > 0 and configs < budget
                 and not (bail and ovf)):
-            outs.append((frontier[b],) + tuple(a[b] for a in args[23:28]))
+            idle = (frontier[b],) + tuple(a[b] for a in args[23:28])
+            if telemetry:
+                idle += (torch.zeros((TELE_ROWS, TELE_COLS),
+                                     dtype=torch.int32,
+                                     device=frontier.device),)
+            outs.append(idle)
             continue
         key_tables = [t[b] for t in tables]
         key_tables[5] = key_tables[5][:dims.n_det_pad + 1]
@@ -520,10 +577,13 @@ def run_per_key(fn, dims: SearchDims, *args):
                        lvl_cap, bail, frontier[b],
                        *(a[b] for a in args[23:28])))
     i32 = torch.int32
-    return (torch.stack([o[0] for o in outs]),
-            *(torch.stack([torch.as_tensor(o[i], dtype=i32,
-                                           device=frontier.device)
-                           for o in outs]) for i in range(1, 5)),
-            torch.stack([torch.as_tensor(o[5], dtype=torch.bool,
-                                         device=frontier.device)
-                         for o in outs]))
+    carry = (torch.stack([o[0] for o in outs]),
+             *(torch.stack([torch.as_tensor(o[i], dtype=i32,
+                                            device=frontier.device)
+                            for o in outs]) for i in range(1, 5)),
+             torch.stack([torch.as_tensor(o[5], dtype=torch.bool,
+                                          device=frontier.device)
+                          for o in outs]))
+    if telemetry:
+        return carry + (torch.stack([o[6] for o in outs]),)
+    return carry

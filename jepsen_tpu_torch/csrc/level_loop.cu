@@ -69,6 +69,22 @@
 // batch shapes fit several blocks on one SM (jtt_level_loop_plan reports
 // the occupancy query's blocks per SM).
 //
+// Telemetry form (TELE = true; the TPU kernel's telemetry=True build,
+// pallas_level.py:90-92, :203-204, :413, :477, :500-519): the same search,
+// plus a write-only int32 [TELE_ROWS, TELE_COLS] block per key, one row per
+// level added at min(level, TELE_ROWS - 1), in the column order of
+// jepsen_tpu_torch/obs/telemetry.py: occupancy after the closure, valid
+// lanes after the level's last mask phase, 0 mask kills and 0 dedup folds
+// (the kernel takes no reduced search), closure rounds, the count after
+// the revert, the level's new overflow, the goal.  The block is zero on
+// entry (the caller allocates it so), and a key that leaves at once writes
+// nothing.  Nothing of it is read back, so the carry is the same on and
+// off.  Its state stays out of the loop's registers: the row's host values
+// go through a shared row that thread 0 flushes once per level, the
+// expanded count is a shared atomic add in the successor build, and the
+// block's pointer sits in shared memory.  TELE = false is the kernel
+// without any of it.
+//
 // Later work, not here: a cluster of blocks over distributed shared memory
 // for the widest rungs.
 //
@@ -86,6 +102,9 @@
 #include <stdint.h>
 
 #define MAXF 2048                // widest frontier the kernel takes
+#define TELE_ROWS 128            // telemetry block: rows (levels)
+#define TELE_COLS 8              //   and columns, as obs/telemetry.py
+enum { C_OCC, C_EXP, C_KILL, C_DEDUP, C_ROUNDS, C_NEXT, C_OVF, C_GOAL };
 #define MAXT 1024                // most threads per block
 #define FULL 0xffffffffu
 #define INF32 0x7fffffff
@@ -114,6 +133,11 @@ struct Dims {
 
 // this block's key's n_det and n_crash (set at launch from Keys)
 __shared__ int key_n[2];
+
+// telemetry form only: the level's row before its flush, and this key's
+// block
+__shared__ int tele_row[TELE_COLS];
+__shared__ int* tele_blk;
 
 // the key axis: key b's tables start b * n_det_pad (det), b * sfx (the
 // return suffix table) and b * NC (crash) entries after key 0's; n_det /
@@ -351,8 +375,10 @@ __device__ void mask_phase(const Row<SW>* cur, int count, u64* vdet,
 // row-major, lane-ascending order, the first `cap` of them into `succ`.
 // Each thread takes a contiguous run of rows; one block scan places its
 // successors.  Returns the uncapped total.  With `maxp`, also folds the
-// rows' largest p into *maxp.
-template <int SW>
+// rows' largest p into *maxp.  EXPANDED (the det call of the telemetry
+// form) also adds the rows' valid det and crash lanes -- vmask is vdet, and
+// vcr follows it at F -- into tele_row[C_EXP].
+template <int SW, bool EXPANDED = false>
 __device__ int build_succ(const Row<SW>* cur, int count, const u64* vmask,
                           bool det, Row<SW>* succ, int cap, const Tables& t,
                           const Dims& d, int* wsum, int* maxp) {
@@ -363,6 +389,12 @@ __device__ int build_succ(const Row<SW>* cur, int count, const u64* vmask,
   for (int r = r0; r < r1; ++r) {
     n += __popcll(vmask[r]);
     if (maxp) mp = max(mp, cur[r].p);
+  }
+  if (EXPANDED) {
+    int e = n;
+    for (int r = r0; r < r1; ++r) e += __popcll(vmask[d.F + r]);
+    e = (int)__reduce_add_sync(FULL, (unsigned)e);
+    if ((threadIdx.x & 31) == 0 && e) atomicAdd(&tele_row[C_EXP], e);
   }
   if (maxp) {
     mp = warp_max(mp);
@@ -490,12 +522,13 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
-template <int SW, bool KEYED>
+template <int SW, bool KEYED, bool TELE>
 __global__ void __launch_bounds__(MAXT)
 level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
                   const int* __restrict__ fin,
                   const int* __restrict__ scal_in, int* __restrict__ fout,
-                  int* __restrict__ scal_out, unsigned char* scratch) {
+                  int* __restrict__ scal_out, unsigned char* scratch,
+                  int* __restrict__ tele) {
   extern __shared__ __align__(128) unsigned char dsm[];
   __shared__ __align__(8) u64 tma_bar;
   __shared__ int wsum[2][32];
@@ -623,6 +656,10 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
   }
   for (int s = tid; s < pl.tmax; s += nt) hs.head[s] = hs.chain[s] = -1;
   if (tid == 0) maxp[0] = maxp[1] = 0;
+  if (TELE && tid < TELE_COLS) {
+    tele_row[tid] = 0;
+    if (tid == 0) tele_blk = tele + b * TELE_ROWS * TELE_COLS;
+  }
   __syncthreads();
   if (tables_smem) {
     u32 done = 0;
@@ -681,18 +718,29 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
       if (go && !crash_any) {
         // the next round would merge an empty successor block into an
         // already pruned frontier: it keeps every row and ends with no
-        // progress, so take its outcome without running it
+        // progress, so take its outcome without running it.  The TPU
+        // kernel and the torch step run and count such a round, so the
+        // telemetry counts it.  It does not arise, though: a row with an
+        // enabled crash lane is dropped only for a row of the same key
+        // with a smaller crash mask, which has every lane it has, and
+        // kept rows of the level come before any successor, so the F
+        // cap never cuts them: some kept row keeps an enabled lane
         progress = false;
         go = false;
+        if (TELE) ++rounds;
       }
     }
     // leaving by the round cap while still adding rows: not proven
     // closed, which degrades like an overflow
     if (progress) ovf = true;
+    if (TELE && tid == 0) {
+      tele_row[C_OCC] = count;
+      tele_row[C_ROUNDS] = rounds;
+    }
 
     // determinate successors into the next level
-    int total = build_succ<SW>(buf[c], count, vdet, true, succ, SCAP, tk, d,
-                               wsum[ph], &maxp[mph]);
+    int total = build_succ<SW, TELE>(buf[c], count, vdet, true, succ, SCAP,
+                                     tk, d, wsum[ph], &maxp[mph]);
     ph ^= 1;
     if (total > SCAP) ovf = true;
     int ns = min(total, SCAP);
@@ -717,6 +765,18 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
     } else {
       count = min(nk, F);
       c = o;
+    }
+    if (TELE && tid == 0) {
+      // the level's row; tele_row[C_EXP] is complete: the successor
+      // build's adds are behind the prune's barriers
+      int* row = tele_blk + min(lvl, TELE_ROWS - 1) * TELE_COLS;
+      row[C_OCC] += tele_row[C_OCC];
+      row[C_EXP] += tele_row[C_EXP];
+      row[C_ROUNDS] += tele_row[C_ROUNDS];
+      row[C_NEXT] += count;
+      row[C_OVF] += ovf && !ovf0;
+      row[C_GOAL] += found;
+      tele_row[C_EXP] = 0;
     }
   }
 
@@ -767,10 +827,11 @@ static bool dims_ok(int F, int W, int NC, int SW, int n_det_pad) {
          n_det_pad % 4 == 0;
 }
 
-template <int SW>
+template <int SW, bool TELE>
 static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, level_loop_kernel<SW, true>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, level_loop_kernel<SW, true, TELE>);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, optin = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -807,31 +868,41 @@ static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
 
 // blocks of this plan that fit one SM at once (the occupancy query,
 // for the keyed form: the grid's blocks)
-template <int SW>
+template <int SW, bool TELE>
 static int occupancy_sw(const Plan& pl, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(
-      level_loop_kernel<SW, true>,
+      level_loop_kernel<SW, true, TELE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, level_loop_kernel<SW, true>, pl.threads, pl.smem_bytes);
+      blocks, level_loop_kernel<SW, true, TELE>, pl.threads, pl.smem_bytes);
 }
 
+template <bool TELE>
 static int plan_for(int F, int NC, int SW, int n_det_pad, Plan* pl) {
   switch (SW) {
-    case 1: return plan_sw<1>(F, NC, n_det_pad, pl);
-    case 2: return plan_sw<2>(F, NC, n_det_pad, pl);
-    case 3: return plan_sw<3>(F, NC, n_det_pad, pl);
-    default: return plan_sw<4>(F, NC, n_det_pad, pl);
+    case 1: return plan_sw<1, TELE>(F, NC, n_det_pad, pl);
+    case 2: return plan_sw<2, TELE>(F, NC, n_det_pad, pl);
+    case 3: return plan_sw<3, TELE>(F, NC, n_det_pad, pl);
+    default: return plan_sw<4, TELE>(F, NC, n_det_pad, pl);
   }
 }
 
+// the plan of the off (tele = 0) or telemetry form: their static shared
+// memory differs by the telemetry row
+static int plan_for(int F, int NC, int SW, int n_det_pad, int tele,
+                    Plan* pl) {
+  return tele ? plan_for<true>(F, NC, SW, n_det_pad, pl)
+              : plan_for<false>(F, NC, SW, n_det_pad, pl);
+}
+
+template <bool TELE>
 static int occupancy_for(int SW, const Plan& pl, int* blocks) {
   switch (SW) {
-    case 1: return occupancy_sw<1>(pl, blocks);
-    case 2: return occupancy_sw<2>(pl, blocks);
-    case 3: return occupancy_sw<3>(pl, blocks);
-    default: return occupancy_sw<4>(pl, blocks);
+    case 1: return occupancy_sw<1, TELE>(pl, blocks);
+    case 2: return occupancy_sw<2, TELE>(pl, blocks);
+    case 3: return occupancy_sw<3, TELE>(pl, blocks);
+    default: return occupancy_sw<4, TELE>(pl, blocks);
   }
 }
 
@@ -839,15 +910,18 @@ template <int SW>
 static int launch_sw(int B, const Tables& t, const Dims& d, const Plan& pl,
                      const Keys& ks, const int* fin, const int* scal_in,
                      int* fout, int* scal_out, unsigned char* scratch,
-                     cudaStream_t stream) {
-  // one key: the unkeyed instantiation (see the head of this file)
-  auto kernel = B > 1 ? level_loop_kernel<SW, true>
-                      : level_loop_kernel<SW, false>;
+                     int* tele, cudaStream_t stream) {
+  // one key: the unkeyed instantiation (see the head of this file); a
+  // telemetry block: the telemetry form
+  auto kernel = tele ? (B > 1 ? level_loop_kernel<SW, true, true>
+                              : level_loop_kernel<SW, false, true>)
+                     : (B > 1 ? level_loop_kernel<SW, true, false>
+                              : level_loop_kernel<SW, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, pl.threads, pl.smem_bytes, stream>>>(t, d, pl, ks, fin, scal_in,
-                                                   fout, scal_out, scratch);
+  kernel<<<B, pl.threads, pl.smem_bytes, stream>>>(
+      t, d, pl, ks, fin, scal_in, fout, scal_out, scratch, tele);
   return (int)cudaGetLastError();
 }
 
@@ -856,7 +930,7 @@ static int launch(int B, const Tables& t, const Keys& ks, const int* fin,
                   const int* scal_in, int* fout, int* scal_out,
                   void* scratch, long long scratch_bytes, int F, int W,
                   int NC, int SW, int n_det_pad, int budget, int lvl_cap,
-                  int bail, int kid, void* stream) {
+                  int bail, int kid, int* tele, void* stream) {
   if (B < 1 || !dims_ok(F, W, NC, SW, n_det_pad) || !ks.n_det ||
       !ks.n_crash || ks.sfx < n_det_pad + 1 || (B > 1 && ks.sfx % 4))
     return (int)cudaErrorInvalidValue;
@@ -866,7 +940,7 @@ static int launch(int B, const Tables& t, const Keys& ks, const int* fin,
   for (int k = 0; k < 10; ++k)
     if ((uintptr_t)ptrs[k] % 16) return (int)cudaErrorMisalignedAddress;
   Plan pl;
-  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
+  int rc = plan_for(F, NC, SW, n_det_pad, tele != nullptr, &pl);
   if (rc) return rc;
   if (scratch_bytes < (long long)B * pl.scratch_bytes)
     return (int)cudaErrorInvalidValue;
@@ -874,28 +948,31 @@ static int launch(int B, const Tables& t, const Keys& ks, const int* fin,
   unsigned char* s = (unsigned char*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
   switch (SW) {
-    case 1: return launch_sw<1>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
-    case 2: return launch_sw<2>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
-    case 3: return launch_sw<3>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
-    default: return launch_sw<4>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, st);
+    case 1: return launch_sw<1>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, tele, st);
+    case 2: return launch_sw<2>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, tele, st);
+    case 3: return launch_sw<3>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, tele, st);
+    default: return launch_sw<4>(B, t, d, pl, ks, fin, scal_in, fout, scal_out, s, tele, st);
   }
 }
 
 extern "C" {
 
-// The launch plan for these dims on the current device: out[0] dynamic
-// shared bytes, out[1] the regions in shared memory (bit 0 frontier,
-// 1 tables, 2 successor block, 3 hash table), out[2] threads, out[3]
-// scratch bytes the caller must allocate per key, out[4] blocks of the
-// plan that fit one SM at once.  Returns a CUDA error code.
+// The launch plan for these dims on the current device, of the off form
+// (tele = 0) or the telemetry form: out[0] dynamic shared bytes, out[1] the
+// regions in shared memory (bit 0 frontier, 1 tables, 2 successor block,
+// 3 hash table), out[2] threads, out[3] scratch bytes the caller must
+// allocate per key, out[4] blocks of the plan that fit one SM at once.
+// Returns a CUDA error code.
 int jtt_level_loop_plan(int F, int W, int NC, int SW, int n_det_pad,
-                        long long* out) {
+                        int tele, long long* out) {
   if (!dims_ok(F, W, NC, SW, n_det_pad)) return (int)cudaErrorInvalidValue;
   Plan pl;
-  int rc = plan_for(F, NC, SW, n_det_pad, &pl);
+  int rc = plan_for(F, NC, SW, n_det_pad, tele, &pl);
   if (rc) return rc;
   int blocks = 0;
-  if ((rc = occupancy_for(SW, pl, &blocks))) return rc;
+  rc = tele ? occupancy_for<true>(SW, pl, &blocks)
+            : occupancy_for<false>(SW, pl, &blocks);
+  if (rc) return rc;
   out[0] = pl.smem_bytes;
   out[1] = pl.in_smem;
   out[2] = pl.threads;
@@ -909,9 +986,11 @@ int jtt_level_loop_plan(int F, int W, int NC, int SW, int n_det_pad,
 // return suffix table, stride > n_det_pad and, for B > 1, a multiple of 4)
 // and [B, NC] (crash), every one 16-byte aligned (the bulk copies need
 // it); frontiers [B, F, words]; scalars [B, 5]; n_det and n_crash [B]
-// int32 on the device; `scratch` holds B times the plan's scratch bytes.
-// Returns cudaGetLastError() after the launch (0 on success); does not
-// synchronise.
+// int32 on the device; `scratch` holds B times the plan's scratch bytes
+// (the plan of the form launched).  `tele` null launches the off form;
+// else the telemetry form adds each key's rows into tele [B, TELE_ROWS,
+// TELE_COLS], which the caller zeroes.  Returns cudaGetLastError() after
+// the launch (0 on success); does not synchronise.
 int jtt_level_loop(const int* det_f, const int* det_v1, const int* det_v2,
                    const int* det_inv, const int* det_ret, const int* sfx,
                    const int* crash_f, const int* crash_v1,
@@ -921,13 +1000,13 @@ int jtt_level_loop(const int* det_f, const int* det_v1, const int* det_v2,
                    int* frontier_out, int* scal_out, void* scratch,
                    long long scratch_bytes, int B, int F, int W, int NC,
                    int SW, int n_det_pad, int budget, int lvl_cap, int bail,
-                   int kid, void* stream) {
+                   int kid, void* stream, int* tele) {
   Tables t = {det_f, det_v1, det_v2, det_inv, det_ret, sfx,
               crash_f, crash_v1, crash_v2, crash_inv};
   Keys ks = {sfx_stride, n_det, n_crash};
   return launch(B, t, ks, frontier_in, scal_in, frontier_out, scal_out,
                 scratch, scratch_bytes, F, W, NC, SW, n_det_pad, budget,
-                lvl_cap, bail, kid, stream);
+                lvl_cap, bail, kid, tele, stream);
 }
 
 const char* jtt_error_string(int code) {

@@ -88,11 +88,14 @@ def bounded_pmap(f: Callable, xs: Iterable,
 
 class IndependentChecker(Checker):
     """A checker over values lifted to ``[k v]`` histories: valid iff
-    every key's subhistory is.  ``"unknown"`` keys are not failures."""
+    every key's subhistory is.  ``"unknown"`` keys are not failures.
+    ``telemetry`` (None: on) goes to the batch's ``search_batch``."""
 
-    def __init__(self, checker: Checker, *, batch_device: bool = True):
+    def __init__(self, checker: Checker, *, batch_device: bool = True,
+                 telemetry: bool | None = None):
         self.checker = checker
         self.batch_device = batch_device
+        self.telemetry = telemetry
 
     def _device_batch(self, test, subhistories: dict) -> dict:
         """Keys up to the checker's host threshold on the host, the rest
@@ -114,7 +117,8 @@ class IndependentChecker(Checker):
         big = [i for i in range(len(keys)) if i not in small]
         if big:
             batch = search_batch([seqs[i] for i in big], model,
-                                 budget=chk.budget, device=chk.device)
+                                 budget=chk.budget, device=chk.device,
+                                 telemetry=self.telemetry)
             for i, r in zip(big, batch):
                 if r["valid"] is False:
                     results[keys[i]] = check_safe(
@@ -143,5 +147,7 @@ class IndependentChecker(Checker):
                 "results": results, "failures": failures}
 
 
-def checker(sub: Checker, **kw) -> Checker:
-    return IndependentChecker(sub, **kw)
+def checker(sub: Checker, *, batch_device: bool = True,
+            telemetry: bool | None = None) -> Checker:
+    return IndependentChecker(sub, batch_device=batch_device,
+                              telemetry=telemetry)

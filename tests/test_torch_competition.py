@@ -124,6 +124,47 @@ def test_competition_past_the_encoding(seed, corrupt):
     assert not _race_threads()
 
 
+@pytest.mark.parametrize("seed,corrupt", CRASH_HEAVY)
+def test_competition_max_configs_caps_the_host_legs(seed, corrupt):
+    """Past the encoding the host legs race alone; capped at a handful
+    of configurations each gives up, and the race ends exhausted in both
+    packages (with the default cap they decide: the test above)."""
+    sj, mj, st, mt = crash_heavy(seed, corrupt=corrupt)
+    oj = lin.check_competition(sj, mj, max_configs=5, **OFF)
+    ot = tlin.check_competition(st, mt, max_configs=5, device="cpu", **OFF)
+    assert ot == oj
+    assert ot["valid"] == "unknown"
+    assert ot["engine"] == "competition(exhausted; device encoding limits)"
+
+
+def test_competition_clamps_max_configs_as_the_reference(monkeypatch):
+    """The cap each host leg gets: ``max_configs``, at most the ~4 GB
+    memo bound for the history's length, the reference's default
+    otherwise."""
+    from jepsen_tpu.checker import linear as jlinear
+    from jepsen_tpu.checker import seq as jseq
+
+    sj, mj, st, mt = _pair("register", 1, corrupt=True)
+    seen = {"port": [], "jax": []}
+    for key, owner, name in (("port", tseq, "check_opseq"),
+                             ("port", tlin, "check_opseq_linear"),
+                             ("jax", jseq, "check_opseq"),
+                             ("jax", jlinear, "check_opseq_linear")):
+        def leg(*a, max_configs, key=key, name=name, **kw):
+            seen[key].append((name, max_configs))
+            return {"valid": "unknown", "configs": 0}
+        monkeypatch.setattr(owner, name, leg)
+    for cap in (None, 1000, 10**12):
+        kw = {} if cap is None else {"max_configs": cap}
+        lin.check_competition(sj, mj, budget=1, **OFF, **kw)
+        tlin.check_competition(st, mt, budget=1, device="cpu", **OFF, **kw)
+    assert sorted(seen["port"]) == sorted(seen["jax"])
+    per_cfg = 2 * (len(st) // 8 + 200)
+    assert sorted(c for _, c in seen["port"]) == sorted(
+        2 * [min(50_000_000, 4_000_000_000 // per_cfg), 1000,
+             4_000_000_000 // per_cfg])
+
+
 @pytest.mark.parametrize("kind,seed,corrupt", CASES[:4])
 def test_default_route_matches_reference(kind, seed, corrupt, tmp_path):
     """``linearizable(model)`` with its defaults above ``host_threshold``

@@ -219,3 +219,112 @@ def test_grid_refuses_unaligned_suffix_rows(cuda):
     bad[5] = args[5][:, :dims.n_det_pad + 1].contiguous()
     with pytest.raises(ValueError, match="table 5"):
         lk.level_loop_batch(model, dims, *bad, 10**8, 8, True, *carry)
+
+
+def _tele_steps(launch, plain, diff, args, carry, bail, slices, lvl_cap):
+    """Telemetry form, off form and the plain telemetry build from
+    ``carry``, slice by slice: the two forms' carries identical, equal
+    to the plain version's, and the blocks equal.  Returns the blocks'
+    sum."""
+    ck = ct = cr = carry
+    total = None
+    for _ in range(slices):
+        ck = launch(*args, 10**8, lvl_cap, bail, *ck)
+        on = launch(*args, 10**8, lvl_cap, bail, *ct, telemetry=True)
+        ref = plain(*args, 10**8, lvl_cap, bail, *cr, telemetry=True)
+        torch.cuda.synchronize()
+        assert diff(on[:6], ck) == 0 and diff(ck, ref[:6]) == 0
+        assert torch.equal(on[6].cpu(), ref[6].cpu())
+        total = on[6] if total is None else total + on[6]
+        ct, cr = on[:6], ref[:6]
+    return total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,bail", [(2, False), (21, True)])
+def test_telemetry_form_matches_reference(cuda, seed, bail):
+    """B1-T at B=1 against the all-pairs torch step's telemetry build,
+    with crash-closure rounds and with an overflow under bail; and over
+    a 300-level slice of mutex2k, whose last row folds the levels past
+    the buffer."""
+    from chip_smoke import _diff, tier_history
+
+    model = cas_register()
+    rng = random.Random(seed)
+    h = register_history(rng, n_ops=64, n_procs=8 if bail else 4,
+                         overlap=7 if bail else 3, crash_p=0.06,
+                         max_crashes=3, n_values=2 if bail else 3)
+    seq = encode_ops(h, model.f_codes)
+    es = enc.encode_search(seq)
+    dims = enc.choose_dims(es, model, device=cuda, frontier=16)
+    esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = enc.search_args(esp, es, device=cuda)
+    carry = enc.carry_to_device(enc._init_carry(dims, model), cuda)
+    before = dict(lk.LAUNCHES_BY_FORM)
+    total = _tele_steps(lambda *a, **k: lk.level_loop(model, dims, *a, **k),
+                        lambda *a, **k: lk.level_loop_reference(
+                            model, dims, *a, **k),
+                        _diff, args, carry, bail, 4, 16)
+    assert lk.LAUNCHES_BY_FORM["single", True] == \
+        before["single", True] + 4
+    assert int(total[:, 4 if not bail else 6].sum()) > 0
+    seq, model = tier_history("mutex2k")
+    es = enc.encode_search(seq)
+    dims = enc.choose_dims(es, model, device=cuda, frontier=64)
+    esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+    args = enc.search_args(esp, es, device=cuda)
+    carry = enc.carry_to_device(enc._init_carry(dims, model), cuda)
+    total = _tele_steps(lambda *a, **k: lk.level_loop(model, dims, *a, **k),
+                        lambda *a, **k: lk.level_loop_reference(
+                            model, dims, *a, **k),
+                        _diff, args, carry, False, 1, 300)
+    assert int(total[127, 0]) > int(total[126, 0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,lanes,frontier,bail",
+                         [(1, 1, 32, True), (5, 8, 128, False),
+                          (37, 64, 32, True)])
+def test_grid_telemetry_form_matches_reference(cuda, n_keys, lanes,
+                                               frontier, bail):
+    """The grid form's telemetry build against the plain version, key by
+    key, with pad lanes whose blocks read zero."""
+    from chip_smoke import batch_keys, grid_diff, grid_setup
+
+    keys, model = batch_keys(n_keys)
+    dims, args, carry = grid_setup(model, keys, frontier, cuda, lanes=lanes)
+    total = _tele_steps(
+        lambda *a, **k: lk.level_loop_batch(model, dims, *a, **k),
+        lambda *a, **k: lk.level_loop_batch_reference(model, dims, *a, **k),
+        grid_diff, args, carry, bail, 3, 16)
+    assert total.shape == (lanes, 128, 8)
+    assert int(total[n_keys:].abs().sum()) == 0
+    assert int(total[:n_keys, :, 0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_search_carries_the_reference_block_on_the_card(cuda, monkeypatch):
+    """A device search on the card with telemetry at its default: the
+    block rides the result, and with the slicing pinned it equals the
+    block of the same search on the card's torch step (the kernel kept
+    out); off, the result is the same without it."""
+    model = mutex()
+    h = sim_mutex_history(random.Random(5), n_ops=300, n_procs=4,
+                          crash_p=0.02, max_crashes=4)
+    # an acquire chain longer than the crashed ops can explain
+    for p in range(100, 106):
+        h += [invoke_op(p, "acquire"), ok_op(p, "acquire")]
+    seq = encode_ops(h, model.f_codes)
+    off = {"hb": False, "dpor": False}
+    on_card = search_opseq(seq, model, device="cuda", **off)
+    bare = search_opseq(seq, model, device="cuda", telemetry=False, **off)
+    assert "search_telemetry" not in bare
+    assert {k: v for k, v in on_card.items() if k != "search_telemetry"} \
+        == bare
+    monkeypatch.setattr(lin, "_SLICE_TARGET_S", 1e9)
+    pinned = search_opseq(seq, model, device="cuda", **off)
+    assert "cuda" in pinned["engine"]
+    monkeypatch.setattr(lin, "_use_kernel", lambda *a, **kw: False)
+    stepped = search_opseq(seq, model, device="cuda", **off)
+    assert stepped["engine"] == "device-bfs"
+    assert pinned["search_telemetry"] == stepped["search_telemetry"]

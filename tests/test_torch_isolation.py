@@ -47,7 +47,8 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "checker.seq", "checker.linear", "checker.linear_report",
     "analyze.shrink", "analyze.lint", "analyze.hb", "analyze.constraints",
     "analyze.dpor", "analyze.audit", "decompose.canonical",
-    "decompose.partition", "independent", "checker.core", "checker.bucket")}
+    "decompose.partition", "independent", "checker.core", "checker.bucket",
+    "obs", "obs.metrics", "obs.trace", "obs.telemetry")}
 
 
 def _sources():
@@ -78,6 +79,22 @@ def test_no_source_names_jax_or_reference():
                 if name.split(".")[0] in FORBIDDEN:
                     offenders.append(f"{path.relative_to(REPO)}:"
                                      f"{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+def test_no_source_reads_the_environment():
+    """The port's knobs are arguments: no source reads ``os.environ`` or
+    ``os.getenv`` (the JAX package's ``JEPSEN_TPU_*`` variables
+    included)."""
+    offenders = []
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Attribute)
+                    and node.attr in ("environ", "getenv")
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == "os"):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno}")
     assert not offenders, offenders
 
 

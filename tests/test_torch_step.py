@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import jepsen_tpu.checker.linearizable as lin
 from jepsen_tpu import models as jm
@@ -20,6 +21,16 @@ from jepsen_tpu.synth import (corrupt_read, register_history,
 from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch.checker import encode as enc
 from jepsen_tpu_torch.checker import step as tstep
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the step's small tensor ops gain nothing from
+    more, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _case(kind, seed):
@@ -103,18 +114,16 @@ def test_step_lockstep_wide_allpairs(frontier, bail):
     package's step, on a 12-process cas-register history with crashes
     whose frontier fills hundreds of rows."""
     rng = random.Random(31)
-    h = register_history(rng, n_ops=200, n_procs=12, overlap=10,
+    h = register_history(rng, n_ops=120, n_procs=12, overlap=10,
                          crash_p=0.06, max_crashes=6, n_values=3)
     h = corrupt_read(rng, h, at=0.85)
     count, status, _configs, _depth, ovf = _lockstep(
         jm.cas_register(), tm.cas_register(), h, frontier=frontier,
-        bail=bail, mode="allpairs", slices=6)
+        bail=bail, mode="allpairs", slices=3)
     assert ovf and status == -1 and count > 0
 
 
 def test_prune_selection_follows_device():
-    import torch
-
     assert tstep._DOMINANCE_MODE == "auto"
     assert tstep._use_allpairs(256, torch.device("cuda"))
     assert not tstep._use_allpairs(256, torch.device("cpu"))
@@ -122,8 +131,6 @@ def test_prune_selection_follows_device():
 
 
 def test_hash_words_matches_reference():
-    import torch
-
     rng = np.random.default_rng(5)
     words = rng.integers(-2**31, 2**31, size=(33, 5), dtype=np.int64)
     words = words.astype(np.int32)
