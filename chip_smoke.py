@@ -25,9 +25,16 @@ the default entry point on three more histories (valid but not decided
 by the greedy witness, past the device encoding, BASELINE config 1 with
 its shrink) and on a fifo-queue and an unordered-queue history (state 16
 words wide: the torch step); and the kernel timed at every shape the
-main path uses.  Every phase prints one line per case, timed lines with
-the card's name and power limit; the line before the last is the
-per-kernel JSON record and the last line the device record.  Any failed
+main path uses.  The decomposition layer runs on the card too: the
+batch256 keys through ``search_batch(decompose=True)`` with a verdict
+cache file, cold (searched on the grid form), warm and from a reloaded
+file (every key a hit, no launch), and a 32,768-op multi-register
+history built from the same keys through the decomposed
+``linearizable`` (in-process cells) and the device scheduler (its cells
+as one batch on the grid form), each held to the JAX package's verdict
+and ``decompose`` dict.  Every phase prints one line per case, timed
+lines with the card's name and power limit; the line before the last is
+the per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
 is present or the package is not beside this script.
 
@@ -131,6 +138,47 @@ BATCH256_DEPTH = (
     68, 94, 97, 90, 82, 92, 100, 99, 79, 97, 92, 99, 77, 96, 103, 87, 82,
     97, 90, 90, 89, 98, 97, 88, 84, 96, 95, 95, 74, 97, 93, 96, 71, 84, 96,
     93, 87, 91, 86, 95, 87, 92, 106, 103, 75, 94, 94, 93)
+
+#: ``decompose_batch`` of the JAX package's ``search_batch(keys,
+#: cas_register(), decompose=True, dpor=False)`` on the batch256 keys on
+#: the CPU, with a fresh cache and then again on it: the 256 keys are 256
+#: distinct canonical shapes, so the cold run searches each (verdicts,
+#: configs and depths as ``BATCH256_*``) and the warm run hits each
+BATCH256_DECOMP_COLD = {"n_keys": 256, "cache_hits": 0, "cache_misses": 256,
+                        "deduped": 0, "searched": 256, "hit_rate": 0.0}
+BATCH256_DECOMP_WARM = {"n_keys": 256, "cache_hits": 256, "cache_misses": 0,
+                        "deduped": 0, "searched": 0, "hit_rate": 1.0}
+
+#: the JAX package's answer on the multireg256 histories
+#: (:func:`multireg_history`, with and without the corrupted keys) on the
+#: CPU, no JEPSEN_TPU_* variable set: the verdict and ``decompose`` dict of
+#: ``Linearizable(multi_register(256), decompose=True, verdict_cache=<a
+#: fresh file>)`` (in-process cells, host engines; the corrupted history
+#: stops at its first cell, key 0, which the prepass decides), and of
+#: ``check_opseq_decomposed(seq, model, scheduler="device")`` with
+#: JEPSEN_TPU_DPOR=0 (the card's kernel drops the reductions, as for
+#: ``BATCH256_*``), whose ``cell_engines`` the card tags "(cuda)"
+MULTIREG256 = {
+    "multireg256": (False, {
+        "cells": 256, "segments": 1, "cache_hits": 0, "cache_misses": 2,
+        "configs_searched": 0, "methods": ["key-partition", "sub-search"],
+        "cache_inserts": 2}),
+    "multireg256-valid": (True, {
+        "cells": 256, "segments": 256, "cache_hits": 0, "cache_misses": 257,
+        "configs_searched": 609640,
+        "methods": ["key-partition", "sub-search"], "stitched": True,
+        "cache_inserts": 257}),
+}
+MULTIREG256_DEVICE = {
+    "multireg256": (False, {
+        "cells": 256, "segments": 0, "cache_hits": 0, "cache_misses": 0,
+        "configs_searched": 55625, "methods": ["device", "key-partition"],
+        "cell_engines": ["device-batch", "greedy-witness", "hb-decide"]}),
+    "multireg256-valid": (True, {
+        "cells": 256, "segments": 0, "cache_hits": 0, "cache_misses": 0,
+        "configs_searched": 72827, "methods": ["device", "key-partition"],
+        "cell_engines": ["device-batch", "greedy-witness"]}),
+}
 
 #: H100 SXM peaks for the kernel's bound (NVIDIA data sheet): memory
 #: rate, and the float32 rate outside the tensor cores standing in for
@@ -481,6 +529,31 @@ def keyed_history(n: int = BATCH_KEYS):
         h, model = batch_key_history(k)
         out += [replace(op, value=tuple_(k, op.value)) for op in h]
     return out, model
+
+
+def multireg_history(n: int = BATCH_KEYS, *, corrupt: bool = True):
+    """(history, model): BASELINE config 3's size as one
+    ``multi_register(n)`` history.  Key k's ops come from the batch256
+    generator with ``cas=False`` (every 4th key with a corrupted read
+    when ``corrupt``), its processes 8k..8k+7 and its values ``(k, v)``;
+    the keys' events are merged round-robin onto one clock, each key's
+    own order kept."""
+    from jepsen_tpu_torch.models import multi_register
+    from jepsen_tpu_torch.synth import corrupt_read, register_history
+
+    per_key = []
+    for k in range(n):
+        rng = random.Random(f"bench-batch-{k}")
+        h = register_history(rng, n_ops=128, n_procs=8, overlap=4,
+                             crash_p=0.01, max_crashes=2, n_values=4,
+                             cas=False)
+        if corrupt and k % 4 == 0:
+            h = corrupt_read(rng, h, at=0.85)
+        per_key.append([replace(op, process=8 * k + op.process,
+                                value=(k, op.value)) for op in h])
+    merged = [h[j] for j in range(max(map(len, per_key)))
+              for h in per_key if j < len(h)]
+    return merged, multi_register(n)
 
 
 def grid_setup(model, seqs, frontier, device, *, lanes=None):
@@ -984,6 +1057,129 @@ def phase_batch256(store_base):
           f"batch256 key 0 alone: {res['configs']} configs, depth "
           f"{res['max_depth']}")
     _check_telemetry("batch256 key 0 alone", res)
+    return launches
+
+
+def phase_batch256_decomposed(store_base):
+    """The batch256 keys through ``search_batch(decompose=True)`` on the
+    card with a verdict cache file, three runs: cold (every key a
+    distinct shape, searched on the grid form, each verdict, configs and
+    depth the JAX package's), warm on the same cache (256 hits, no
+    launch), and a fresh cache on the same file (256 hits, no launch: the
+    file persists).  The plain bucketed ``search_batch`` is timed beside
+    them, uncounted."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.decompose import VerdictCache
+
+    keys, model = batch_keys()
+    path = os.path.join(store_base, "verdict_cache", "verdicts.jsonl")
+    cache = VerdictCache(path)
+    label = "batch256[decomposed]"
+
+    def run(c):
+        return lambda: lin.search_batch(keys, model, device="cuda",
+                                        decompose=True, decompose_cache=c)
+
+    _, plain, _, _, _ = _batch_run(label, lambda: lin.search_batch(
+        keys, model, device="cuda"), counted=False)
+    res, cold, grid, single, trace = _batch_run(label, run(cache))
+    _check_batch_results(label, res)
+    st = res[0]["decompose_batch"]
+    check(st == BATCH256_DECOMP_COLD, f"{label} cold: {st}")
+    check(st["searched"] + st["deduped"] + st["cache_hits"] == BATCH_KEYS,
+          f"{label} cold: {st}")
+    check(grid > 0, f"{label} cold: the grid form never launched")
+    runs = []
+    for what, c in (("warm", cache), ("reload", VerdictCache(path))):
+        r, wall, g, s1, _ = _batch_run(label, run(c))
+        check([x["valid"] for x in r] == [x["valid"] for x in res],
+              f"{label} {what}: verdicts differ from the cold run")
+        check(r[0]["decompose_batch"] == BATCH256_DECOMP_WARM,
+              f"{label} {what}: {r[0]['decompose_batch']}")
+        check(g == 0 and s1 == 0, f"{label} {what}: {g} grid and {s1} "
+              "single-key launches, want none")
+        check({x["engine"] for x in r} == {"decompose-cache"},
+              f"{label} {what}: engines {sorted({x['engine'] for x in r})}")
+        runs.append((what, wall, r[0]["decompose_batch"]["cache_hits"]))
+    blocks = [r["search_telemetry"] for r in res if "search_telemetry" in r]
+    emit(f"main[{label}]: keys={BATCH_KEYS} routes={_route_counts(res)} "
+         f"cold_s={cold:.3f} " + " ".join(
+             f"{w}_s={t:.3f} ({h} hits)" for w, t, h in runs)
+         + f" plain_bucketed_s={plain:.3f}; cold stats {st}; "
+         f"grid_launches={grid} single_launches={single} (warm and reload "
+         f"0); file {os.path.getsize(path)} B; {trace.summary()}; "
+         f"telemetry blocks={len(blocks)}")
+    return {label: {"grid": grid, "single": single}}
+
+
+def phase_multireg256(store_base):
+    """BASELINE config 3's size as one multi-register history (256 keys,
+    32,768 ops), with and without its corrupted keys, down both
+    decomposed routes on the card: ``Linearizable(decompose=True,
+    verdict_cache=...)`` (in-process cells, host engines; then again,
+    one whole-history hit) and ``check_opseq_decomposed(...,
+    scheduler="device")`` (every cell in one ``search_batch`` on the
+    grid form).  Each is held to the JAX package's verdict and
+    ``decompose`` dict."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.decompose import check_opseq_decomposed
+    from jepsen_tpu_torch.history import encode_ops
+
+    launches = {}
+    for name, (want_valid, want) in MULTIREG256.items():
+        history, model = multireg_history(corrupt=name == "multireg256")
+        chk = lin.Linearizable(model, decompose=True, device="cuda",
+                               verdict_cache=os.path.join(
+                                   store_base, name, "verdicts.jsonl"))
+        test = {"name": name, "store_base": store_base}
+        label = f"{name}[in-process]"
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = chk.check(test, history)
+        wall = time.perf_counter() - t0
+        single, grid = _read_counts()
+        launches[label] = {"grid": grid, "single": single}
+        t0 = time.perf_counter()
+        again = chk.check(test, history)
+        warm = time.perf_counter() - t0
+        check(out["valid"] is want_valid and out["decompose"] == want,
+              f"{label}: valid={out['valid']} decompose {out['decompose']}, "
+              f"the JAX package {want_valid} {want}")
+        check(again["valid"] is want_valid
+              and again["decompose"]["methods"] == ["cache"],
+              f"{label} again: {again['valid']} {again['decompose']}")
+        check(want_valid or out.get("report_file"),
+              f"{label}: an invalid verdict without its report")
+        emit(f"main[{label}]: ops={len(encode_ops(history, model.f_codes))} "
+             f"valid={out['valid']} engine={out['engine']} wall_s={wall:.3f} "
+             f"again_s={warm:.3f} (whole-history hit); decompose "
+             f"{out['decompose']}; launches grid={grid} single={single}")
+        if name not in MULTIREG256_DEVICE:
+            continue
+        want_valid, want = MULTIREG256_DEVICE[name]
+        seq = encode_ops(history, model.f_codes)
+        label = f"{name}[device]"
+        with _GridTrace() as trace:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = check_opseq_decomposed(seq, model, scheduler="device",
+                                         device="cuda")
+            wall = time.perf_counter() - t0
+            single, grid = _read_counts()
+        launches[label] = {"grid": grid, "single": single}
+        got = dict(out["decompose"])
+        got["cell_engines"] = sorted({e.replace("(cuda)", "")
+                                      for e in got["cell_engines"]})
+        check(out["valid"] is want_valid and got == want,
+              f"{label}: valid={out['valid']} decompose {out['decompose']}, "
+              f"the JAX package {want_valid} {want}")
+        check(grid > 0 and "device-batch(cuda)"
+              in out["decompose"]["cell_engines"],
+              f"{label}: the grid form never launched ({grid} launches, "
+              f"engines {out['decompose']['cell_engines']})")
+        emit(f"main[{label}]: valid={out['valid']} wall_s={wall:.3f}; "
+             f"decompose {out['decompose']}; launches grid={grid} "
+             f"single={single}; {trace.summary()}")
     return launches
 
 
@@ -1789,6 +1985,8 @@ def main() -> int:
             phase_default_route(store_base)
             launches["queues"] = phase_queues(store_base)
             launches.update(phase_batch256(store_base))
+            launches.update(phase_batch256_decomposed(store_base))
+            launches.update(phase_multireg256(store_base))
             launches["checkpoint"] = phase_checkpoint(store_base)
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)

@@ -51,6 +51,10 @@ _M_RATIO = REGISTRY.gauge(
     "jtpu_hb_prune_ratio",
     "pruned/raw config-bound ratio of the most recent HB pre-pass "
     "(0 = decided without search)")
+_M_FOLDS = REGISTRY.counter(
+    "jtpu_hb_fold_total",
+    "Streamed/decomposed segment folds answered by the HB interval "
+    "pass")
 
 #: cap on emitted edges: the prune degrades (fewer mask edges) instead
 #: of going quadratic on pathological cluster structures
@@ -61,6 +65,12 @@ EDGE_CAP_MIN = 256
 #: witness one scan each; past this many the decision is left to the
 #: engines
 NIL_INSERT_CAP = 512
+
+#: input states a segment fold runs the interval pass for before it
+#: leaves the fold to the sweep
+FOLD_INSTATE_CAP = 8
+#: distinct reachable output states the fold builds witnesses for
+FOLD_WITNESS_STATES = 8
 
 
 def resolve_hb(flag: bool | None) -> bool:
@@ -693,6 +703,18 @@ def maybe_hb(seq: OpSeq, model, flag: bool | None = None,
     return hb
 
 
+def hb_dispose(seq: OpSeq, model, flag: bool | None = True) -> dict | None:
+    """Decide-fast only: the prepass's decided result (certificate
+    included) for one key, or None when the key must be searched.  Goes
+    through :func:`maybe_hb`, so queue and lock keys dispose on the
+    constraint compiler's verdicts as register keys do on this
+    solver's."""
+    hbres = maybe_hb(seq, model, flag)
+    if hbres is not None and hbres.decided is not None:
+        return dict(hbres.decided)
+    return None
+
+
 def attach(result: dict, hb: HBAnalysis | None) -> dict:
     """Record the prepass summary on an engine result (decided results
     carry it already): ``result["hb"]`` for this solver,
@@ -703,3 +725,95 @@ def attach(result: dict, hb: HBAnalysis | None) -> dict:
         if key not in result:
             result[key] = hb.stats
     return result
+
+
+def hb_fold_states(sseq: OpSeq, model, instates, *, witness: bool = False):
+    """One crash-free segment's fold by the interval pass: the set of
+    final states reachable from ``instates`` (the value of each block
+    that can come last, per input state) without the level sweep.
+    Returns ``states``, or ``(states, wit)`` with ``witness=True``
+    (``wit`` maps each output state to ``(input state, row chain)``),
+    or None outside the decidable class, where the caller sweeps.  Every
+    witness replays clean or the whole fold is left to the sweep, so the
+    state set is exact or absent, never truncated."""
+    from dataclasses import replace as _dc_replace
+
+    if _family(model) != "register":
+        return None
+    n = len(sseq)
+    instates = [tuple(int(x) for x in s) for s in instates]
+    if not instates or len(instates) > FOLD_INSTATE_CAP:
+        return None
+    if n and not bool(np.asarray(sseq.ok, dtype=bool).all()):
+        return None
+    states: set = set()
+    wit: dict | None = {} if witness else None
+    for ins in instates:
+        m = _dc_replace(model, init=ins)
+        sc = _scan(sseq, m)
+        if sc is None or sc.has_cas or \
+                any(ks.tainted for ks in sc.keys.values()):
+            return None
+        _TLS.inv = [int(x) for x in sseq.inv]
+        _TLS.ret = [int(x) for x in sseq.ret]
+        try:
+            if any(ks.impossible for ks in sc.keys.values()) or \
+                    _find_cycle(sseq, sc) is not None:
+                continue  # no linearization from this input state
+            ks = sc.keys.get(0)
+            if ks is None:  # an empty segment
+                states.add(ins)
+                if wit is not None:
+                    wit.setdefault(ins, (ins, []))
+                continue
+            spans = _spans(ks)
+            if not spans:
+                # no writes: the state cannot move
+                order = _gk_key_order(ks)
+                if order is None or \
+                        not _verify_witness(sseq, m, order):
+                    return None
+                states.add(ins)
+                if wit is not None:
+                    wit.setdefault(ins, (ins, [int(r) for r in order]))
+                continue
+            # blocks that can come last: no outgoing span edge
+            e_sorted = sorted(e for s, e, _c in spans)
+            lasts = []
+            for s, e, cl in spans:
+                e_max = e_sorted[-1] if e_sorted[-1] != e \
+                    else (e_sorted[-2] if len(e_sorted) > 1 else -1)
+                if s >= e_max:
+                    lasts.append(cl)
+            if not lasts:
+                return None  # acyclic spans always have a sink
+            if len(lasts) > FOLD_WITNESS_STATES:
+                # a truncated state set would be a wrong frontier (and
+                # would poison the shared segment cache)
+                return None
+            for cl in lasts:
+                st = (int(cl.val),)
+                others = [(s, e, c) for s, e, c in spans if c is not cl]
+                topo = _topo_clusters(sorted(others,
+                                             key=lambda t: t[0]))
+                if topo is None:
+                    return None
+                _inv = _TLS.inv
+                order = sorted(ks.init_reads, key=lambda i: _inv[i])
+                for c in [*topo, cl]:
+                    order.append(c.write)
+                    order.extend(sorted(c.ok_reads,
+                                        key=lambda i: _inv[i]))
+                order = _insert_by_rt(order, ks.nil_reads)
+                if order is None or \
+                        not _verify_witness(sseq, m, order):
+                    return None
+                states.add(st)
+                if wit is not None:
+                    wit.setdefault(st, (ins, [int(r) for r in order]))
+        finally:
+            _TLS.inv = _TLS.ret = None
+    _M_FOLDS.inc()
+    if witness:
+        return states, wit
+    return states

@@ -87,6 +87,7 @@ def check_opseq_linear(seq: OpSeq, model, *,
                        checkpoint_every: int = 0,
                        resume_from: str | None = None,
                        decompose: bool = False,
+                       decompose_cache=None,
                        lint: bool | None = None,
                        audit: bool | None = None,
                        hb: bool | None = None,
@@ -113,14 +114,48 @@ def check_opseq_linear(seq: OpSeq, model, *,
 
     ``lint``, ``hb`` and ``dpor`` (None: on) and ``audit`` (None: off)
     as in ``seq.check_opseq``; with dpor the result carries ``dpor``
-    stats.  ``decompose`` takes None or False."""
+    stats.
+
+    ``decompose=True`` checks through the decomposition layer
+    (``decompose/engine.py``) with this sweep as the engine of cells and
+    segments and of the ``direct`` fallback; the verdict is the same.
+    ``decompose_cache`` is its VerdictCache or jsonl path.  It takes no
+    checkpoint: the sub-searches are independent, and the verdict cache
+    is the reuse across runs."""
     from ..analyze.audit import maybe_audit
     from ..analyze.dpor import _M_DEDUP, _M_MASK, resolve_dpor
     from ..analyze.hb import attach, maybe_hb
     from ..analyze.lint import maybe_lint
 
-    _refuse(decompose, "decompose", "A8")
     maybe_lint(seq, model, lint)
+    if decompose:
+        if checkpoint_path or resume_from:
+            # the funnel has no level set to snapshot; silently dropping
+            # the request would cost a crashed run its resume point
+            raise ValueError(
+                "decompose=True does not support checkpoint_path/"
+                "resume_from (sub-searches are independent; use the "
+                "verdict cache for cross-run reuse instead)")
+        from ..decompose.engine import check_opseq_decomposed
+
+        def _direct(s):
+            return check_opseq_linear(s, model, max_configs=max_configs,
+                                      deadline=deadline, cancel=cancel,
+                                      witness_cap=witness_cap,
+                                      lint=False, hb=hb, dpor=dpor)
+
+        def _sub(s, m, *, max_configs=max_configs, deadline=deadline):
+            return check_opseq_linear(s, m, max_configs=max_configs,
+                                      deadline=deadline, cancel=cancel,
+                                      witness_cap=witness_cap,
+                                      lint=False, hb=hb, dpor=dpor)
+
+        return check_opseq_decomposed(seq, model, cache=decompose_cache,
+                                      direct=_direct, sub_check=_sub,
+                                      sub_max_configs=max_configs,
+                                      deadline=deadline, lint=False,
+                                      witness=witness_cap > 0,
+                                      audit=audit, hb=hb, dpor=dpor)
     hbres = maybe_hb(seq, model, hb, dpor) if resume_from is None else None
     dpor_stats: dict | None = None
 

@@ -50,8 +50,12 @@ prefix, which also yields a certificate, and reports every invalid
 verdict in ``linear.html`` (``linear_report.py``), led by its shrunk
 core (``analyze/shrink.py``).
 
-Not in this module yet: decomposition (and its ``decompose=`` options)
-and the mesh-sharded batch.
+``decompose=True`` on :func:`search_batch` and :class:`Linearizable`
+puts the decomposition layer (``decompose/``) in front: the
+canonical-hash verdict cache and, for the checker, the key, value-block
+and quiescence splits.
+
+Not in this module yet: the mesh-sharded batch.
 """
 
 from __future__ import annotations
@@ -964,6 +968,7 @@ def _greedy_result(seq: OpSeq) -> dict:
 def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
                  dims: SearchDims | None = None, device="cuda",
                  sharding=None, decompose: bool = False,
+                 decompose_cache=None,
                  bucket: bool | None = None, lint: bool | None = None,
                  audit: bool | None = None, hb: bool | None = None,
                  dpor: bool | None = None, telemetry: bool | None = None,
@@ -988,13 +993,18 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     ``audit=True`` replays every key's certificate.  ``telemetry``
     (None: on) puts the ladder's ``search_telemetry`` on its first
     result (one per bucket when bucketed); a key searched alone carries
-    its own.  ``decompose`` and ``sharding`` accept only off.
-    ``_prepass`` carries per-key must-order maps a caller already
-    computed."""
+    its own.  ``sharding`` accepts only off.  ``_prepass`` carries
+    per-key must-order maps a caller already computed.
+
+    ``decompose=True`` puts the canonical-hash verdict cache in front of
+    the batch (:func:`_search_batch_decomposed`): cached shapes return
+    at once, a shape repeated within the batch is searched once, and
+    only the distinct rest rides the device.  ``decompose_cache`` is a
+    VerdictCache, a jsonl path, or None (in memory: dedup only); the
+    first result carries ``decompose_batch`` stats."""
     from ..analyze.hb import resolve_hb
     from ..analyze.lint import Diagnostic, HistoryLintError, lint_opseq
 
-    _refuse(decompose, "decompose", "A8")
     _refuse(sharding is not None, "sharding", "A11")
     dev = _resolve_device(device)
     if not seqs:
@@ -1014,6 +1024,11 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
                                       f=d.f))
         if any(d.severity == "error" for d in bad):
             raise HistoryLintError(bad)
+    if decompose:
+        return _audit_batch(seqs, model, _search_batch_decomposed(
+            seqs, model, budget=budget, dims=dims, device=dev,
+            cache=decompose_cache, bucket=bucket, hb=hb, dpor=dpor,
+            telemetry=telemetry), audit)
     if bucket is None and dims is None and len(seqs) > 1:
         bucket = True
     if bucket and dims is None:
@@ -1055,6 +1070,108 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     esps = _pad_batch(seqs, ess, masks, model, dims, dev, dpor_on)
     return _audit_batch(seqs, model, _search_batch_ladder(
         seqs, esps, model, dims, budget, dev, telemetry), audit)
+
+
+def _search_batch_decomposed(seqs: list[OpSeq], model, *, budget: int,
+                             dims, device, cache, bucket=None,
+                             hb: bool | None = None,
+                             dpor: bool | None = None,
+                             telemetry: bool | None = None) -> list[dict]:
+    """The cache and dedup front of :func:`search_batch`
+    (``decompose=True``).  Exact: equal canonical keys are the same
+    search problem (the same rows and precedence ranks, values
+    bijective), so one verdict serves both.  An undecided result is
+    never cached and never copied to another key; its shape is searched
+    again alone, once."""
+    from ..decompose.cache import VerdictCache
+    from ..decompose.canonical import canonical_key
+
+    if isinstance(cache, str):
+        cache = VerdictCache(cache)
+    elif cache is None:
+        cache = VerdictCache()  # in memory: dedup within the batch only
+    cache.reset_stats()
+    keys = [canonical_key(s, model) for s in seqs]
+    results: dict[int, dict] = {}
+    rep: dict[str, int] = {}  # canonical key -> representative index
+    todo: list[int] = []
+    drop = "canonical verdict-cache hit (the cache stores verdicts, " \
+           "not witnesses)"
+    for i, k in enumerate(keys):
+        e = cache.get(k)
+        if e is not None and "v" in e:
+            results[i] = {"valid": e["v"], "configs": 0,
+                          "engine": "decompose-cache"}
+            results[i]["witness_dropped" if e["v"] is True
+                       else "frontier_dropped"] = drop
+        elif k not in rep:
+            rep[k] = i
+            todo.append(i)
+    if todo:
+        sub = search_batch([seqs[i] for i in todo], model, budget=budget,
+                           dims=dims, device=device, bucket=bucket,
+                           lint=False, hb=hb, dpor=dpor,
+                           telemetry=telemetry)
+        for i, r in zip(todo, sub):
+            results[i] = r
+            if r.get("valid") in (True, False):
+                cache.put_verdict(keys[i], r["valid"])
+
+    def _copy_cert(dst: dict, src: dict) -> dict:
+        """Certificates carry over between canonically equal keys: the
+        histories are row-aligned and value-bijective, so one's witness
+        and frontier rows are the other's (and the audit replays the
+        copy against its own history)."""
+        for field in ("linearization", "final_ops", "witness_dropped",
+                      "frontier_dropped", "hb_cycle"):
+            if field in src:
+                v = src[field]
+                dst[field] = list(v) if isinstance(v, list) else v
+        return dst
+
+    n_dup = 0
+    solo: dict[str, dict] = {}
+    for i, k in enumerate(keys):
+        if i in results:
+            continue
+        r = results[rep[k]]
+        if r.get("valid") in (True, False):
+            n_dup += 1
+            results[i] = _copy_cert({"valid": r["valid"], "configs": 0,
+                                     "engine": "decompose-dedup"}, r)
+            continue
+        # the representative was undecided in the batch: search the
+        # shape alone, once (a decided retry serves every copy)
+        r2 = solo.get(k)
+        if r2 is None:
+            r2 = solo[k] = search_opseq(seqs[i], model, budget=budget,
+                                        device=device, lint=False,
+                                        telemetry=telemetry)
+            if r2.get("valid") in (True, False):
+                cache.put_verdict(k, r2["valid"])
+                # the retry serves the representative too: one shape
+                # must not report two verdicts in one result list (its
+                # batch configs stay billed)
+                ri = results[rep[k]]
+                ri["valid"] = r2["valid"]
+                ri["engine"] = (ri.get("engine") or
+                                "device-batch") + "+decompose-retry"
+                _copy_cert(ri, r2)
+            results[i] = r2
+        else:
+            n_dup += 1
+            results[i] = _copy_cert(
+                {"valid": r2.get("valid"), "configs": 0,
+                 "engine": "decompose-dedup"}, r2)
+    out = [results[i] for i in range(len(seqs))]
+    stats = {"n_keys": len(seqs), "cache_hits": cache.hits,
+             "cache_misses": cache.misses, "deduped": n_dup,
+             "searched": len(todo),
+             "hit_rate": round(cache.hits / max(1, len(seqs)), 4)}
+    # on the first result only, as bucket_batch
+    if out:
+        out[0].setdefault("decompose_batch", stats)
+    return out
 
 
 def _dispose_batch(seqs: list[OpSeq], model, hb: bool, dpor,
@@ -1161,7 +1278,15 @@ class Linearizable:
     on) reach every route; the host confirmation after a device win
     runs with both at their defaults.  ``telemetry`` (None: on) reaches
     the device search.  ``audit=True`` replays the returned
-    certificate."""
+    certificate.
+
+    ``decompose=True`` checks through the decomposition layer
+    (``decompose/engine.py``) in front of the selected route, which
+    becomes its ``direct`` fallback; cells and segments run the host
+    ``linear`` sweep (the WGL oracle under ``algorithm="host"``).  The
+    verdict is the same.  ``verdict_cache`` is its VerdictCache, a jsonl
+    path (opened once per checker), True for the store's default path,
+    or None (no cache)."""
 
     name = "linearizable"
 
@@ -1177,11 +1302,11 @@ class Linearizable:
     def __init__(self, model=None, *, budget: int = 20_000_000,
                  host_threshold: int = 48, witness_threshold: int = 3000,
                  algorithm: str = "auto", decompose: bool = False,
+                 verdict_cache=None,
                  lint: bool | None = None, explain: bool | None = None,
                  audit: bool | None = None, shrink: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
                  telemetry: bool | None = None, device="cuda"):
-        _refuse(decompose, "decompose", "A8")
         _refuse(explain, "explain", "A12")
         try:
             self.algorithm = self.ALGORITHMS[algorithm]
@@ -1199,6 +1324,9 @@ class Linearizable:
         self.dpor = dpor
         self.telemetry = telemetry
         self.device = device
+        self.decompose = decompose
+        self.verdict_cache = verdict_cache
+        self._cache_obj = None
 
     def check(self, test, history, opts=None):
         from ..analyze.lint import check_history, check_opseq_lint
@@ -1216,11 +1344,48 @@ class Linearizable:
                 lint_warnings = check_history(history, model)
         seq = history if isinstance(history, OpSeq) else \
             encode_ops(history, model.f_codes)
-        out = self._check_direct(test, seq, model, opts)
+        out = self._checked(test, seq, model, opts)
         if lint_warnings:
             out.setdefault("lint_warnings",
                            [d.to_dict() for d in lint_warnings])
         return maybe_audit(seq, model, out, self.audit)
+
+    def _checked(self, test, seq: OpSeq, model, opts) -> dict:
+        if not self.decompose:
+            return self._check_direct(test, seq, model, opts)
+        from ..decompose.cache import VerdictCache, default_cache_path
+        from ..decompose.engine import check_opseq_decomposed
+
+        cache = self.verdict_cache
+        if cache is True:
+            cache = default_cache_path()
+        if isinstance(cache, str):
+            # one cache per checker, not per check: each one re-reads
+            # the whole append-only file
+            if self._cache_obj is None or self._cache_obj.path != cache:
+                self._cache_obj = VerdictCache(cache)
+            cache = self._cache_obj
+        sub_check = None
+        if self.algorithm == "host":
+            # the selected host engine runs the sub-searches too; the
+            # other routes keep the default host ``linear`` sweep (cells
+            # and segments are small, where a device call only loses)
+            from . import seq as seqmod
+
+            def sub_check(s, m, *, max_configs, deadline):
+                return seqmod.check_opseq(s, m, max_configs=max_configs,
+                                          deadline=deadline, lint=False,
+                                          hb=self.hb, dpor=self.dpor)
+        out = check_opseq_decomposed(
+            seq, model, cache=cache, sub_max_configs=self.budget,
+            sub_check=sub_check, lint=False, witness=True, hb=self.hb,
+            dpor=self.dpor, device=self.device, telemetry=self.telemetry,
+            direct=lambda s: self._check_direct(test, s, model, opts))
+        if out["valid"] is False and "report_file" not in out:
+            # the direct route writes its own report; a verdict decided
+            # by decomposition alone gets one here
+            self._render_failure(test, seq, out, opts, model)
+        return out
 
     def _check_direct(self, test, seq: OpSeq, model, opts) -> dict:
         from . import seq as seqmod

@@ -39,6 +39,8 @@ def check_opseq(seq: OpSeq, model, *,
                 max_configs: int = 5_000_000,
                 deadline: float | None = None,
                 cancel=None,
+                decompose: bool = False,
+                decompose_cache=None,
                 lint: bool | None = None,
                 audit: bool | None = None,
                 hb: bool | None = None,
@@ -61,7 +63,12 @@ def check_opseq(seq: OpSeq, model, *,
     ``dpor`` (None: on) adds the duplicate-op edges to that mask, sleep
     sets over the commuting siblings, and the dead-value quotient of
     register states; the result then carries ``dpor`` stats.
-    ``audit=True`` replays the certificate (``analyze/audit.py``)."""
+    ``audit=True`` replays the certificate (``analyze/audit.py``).
+
+    ``decompose=True`` checks through the decomposition layer
+    (``decompose/engine.py``) with this search as the engine of cells
+    and segments and of the ``direct`` fallback; the verdict is the
+    same.  ``decompose_cache`` is its VerdictCache or jsonl path."""
     from ..analyze.audit import maybe_audit
     from ..analyze.dpor import (_M_DEDUP, _M_MASK, _M_SLEEP, SleepSets,
                                 resolve_dpor, sleep_visit)
@@ -69,6 +76,26 @@ def check_opseq(seq: OpSeq, model, *,
     from ..analyze.lint import maybe_lint
 
     maybe_lint(seq, model, lint)
+    if decompose:
+        from ..decompose.engine import check_opseq_decomposed
+
+        def _direct(s):
+            return check_opseq(s, model, max_configs=max_configs,
+                               deadline=deadline, cancel=cancel,
+                               lint=False, hb=hb, dpor=dpor)
+
+        def _sub(s, m, *, max_configs=max_configs, deadline=deadline):
+            return check_opseq(s, m, max_configs=max_configs,
+                               deadline=deadline, cancel=cancel,
+                               lint=False, hb=hb, dpor=dpor)
+
+        # the entry was linted above; the search keeps parent chains
+        # anyway, so the decomposed route stitches witnesses for free
+        return check_opseq_decomposed(seq, model, cache=decompose_cache,
+                                      direct=_direct, sub_check=_sub,
+                                      sub_max_configs=max_configs,
+                                      deadline=deadline, lint=False,
+                                      witness=True, audit=audit, hb=hb)
     dpor_stats: dict | None = None
     hbres = maybe_hb(seq, model, hb, dpor)
 

@@ -1,8 +1,24 @@
-"""Canonical forms of (sub-)histories: the event ranks, and the
-dead-value quotient the engines' canonical-state dedup reads."""
+"""Canonical forms of (sub-)histories: the verdict cache's key space,
+and the dead-value quotient the engines' canonical-state dedup reads.
+
+Two histories that differ only in what no engine can observe hash
+alike, so one cached verdict covers both.  The engines read only
+``(f, v1, v2, inv, ret, ok)`` per row and compare ``inv``/``ret`` by
+order, so the canonical form drops the process column, erases event
+indices down to dense ranks (crashed returns stay infinite), and, for
+the single-register family, renames values by first appearance (a value
+bijection fixing NIL commutes with read/write/cas legality).  The
+model's identity (name, width, init) is part of the key; so is a
+segment's set of input states.
+
+The payload is the JAX package's byte for byte (``repr`` of the same
+list of Python ints, strings and tuples), so a key computed by either
+package is valid in the other, and so are their cache files.
+"""
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -11,8 +27,52 @@ from ..history import INF_RET, NIL
 from ..models import R_CAS, R_READ, R_WRITE
 
 #: models whose semantics see values only through equality with each
-#: other and with the initial value
+#: other and with the initial value: the value-renaming family
 RENAME_FAMILY = ("register", "cas-register")
+
+#: canonical id of "the initial value" under renaming (NIL stays NIL)
+_INIT_ID = -2
+
+
+class _Renamer:
+    """First-appearance value interning; the identity when disabled."""
+
+    def __init__(self, model, enabled: bool):
+        self.enabled = enabled
+        self._map: dict[int, int] = {}
+        self._next = 0
+        if enabled:
+            # NIL (an unknown value, always legal to read) stays apart
+            # from the initial value: an init of NIL constrains no read
+            self._map[NIL] = NIL
+            init = int(model.init[0])
+            if init != NIL:
+                self._map[init] = _INIT_ID
+
+    def rename(self, v: int) -> int:
+        if not self.enabled:
+            return v
+        r = self._map.get(v)
+        if r is None:
+            r = self._next  # fresh ids count up from 0
+            self._next += 1
+            self._map[v] = r
+        return r
+
+    def decode_states(self, states) -> list[tuple]:
+        """Canonical state tuples (a cache hit's) back to real values."""
+        if not self.enabled:
+            return [tuple(s) for s in states]
+        inv = {r: v for v, r in self._map.items()}
+        return [tuple(inv[int(x)] for x in s) for s in states]
+
+    def encode_states(self, states) -> list[list[int]]:
+        """State tuples in canonical form, for the cache.  Every lane of
+        a reachable state is the init value, NIL or a written value, all
+        interned by the row scan already."""
+        if not self.enabled:
+            return [list(s) for s in sorted(states)]
+        return sorted([self._map[int(x)] for x in s] for s in states)
 
 #: a cutoff meaning "never dead": a crashed row compares the value, and
 #: its comparison may linearize at any later point
@@ -30,6 +90,41 @@ def event_ranks(inv, ret) -> tuple[list[int], list[int]]:
     rank = {e: i for i, e in enumerate(events)}
     return ([rank[i] for i in inv],
             [rank[r] if r != INF_RET else INF_RET for r in ret])
+
+
+def canonical_payload(seq, model, instates=None) -> tuple[bytes, _Renamer]:
+    """The canonical bytes of (history, model, input states), with the
+    renamer, so a segment's caller encodes its output states (and
+    decodes cached ones) under the same value map.  ``instates`` are
+    interned before the rows: the map is a function of the key, not of
+    which copy computed it."""
+    ren = _Renamer(model, model.name in RENAME_FAMILY)
+    parts: list = [model.name, model.state_width]
+    if ren.enabled:
+        # the init value is renamed away, but "unset" (NIL) stays a
+        # different model from "starts at some value"
+        parts.append("I" if int(model.init[0]) != NIL else "I=NIL")
+    else:
+        parts.append(tuple(model.init))
+    if instates is not None:
+        parts.append(tuple(
+            tuple(ren.rename(int(x)) for x in s) for s in sorted(instates)))
+    inv_r, ret_r = event_ranks(seq.inv, seq.ret)
+    f = np.asarray(seq.f)
+    v1 = np.asarray(seq.v1)
+    v2 = np.asarray(seq.v2)
+    ok = np.asarray(seq.ok)
+    for i in range(len(seq)):
+        parts.append((int(f[i]), ren.rename(int(v1[i])),
+                      ren.rename(int(v2[i])), inv_r[i], ret_r[i],
+                      bool(ok[i])))
+    return repr(parts).encode(), ren
+
+
+def canonical_key(seq, model, instates=None) -> str:
+    """sha256 hex of the canonical form: the verdict cache's key."""
+    payload, _ = canonical_payload(seq, model, instates)
+    return hashlib.sha256(payload).hexdigest()
 
 
 @dataclass

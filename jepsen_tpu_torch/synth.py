@@ -145,6 +145,68 @@ def corrupt_read(rng: random.Random, h: list[Op], *,
     return h
 
 
+def sim_register_history(rng: random.Random, n_procs: int = 4,
+                         n_ops: int = 40, *, crash_p: float = 0.0,
+                         cas: bool = True,
+                         max_crashes: int = 8) -> list[Op]:
+    """Processes against a register that starts unset, values 0-4; a
+    crashed op takes effect on a coin flip."""
+    state = None
+    h: list[Op] = []
+    pending: dict = {}  # process -> (f, value)
+    n_crashed = 0
+    done = 0
+    while done < n_ops or pending:
+        p = rng.randrange(n_procs)
+        if p in pending:
+            f, v = pending.pop(p)
+            if crash_p and rng.random() < crash_p and \
+                    n_crashed < max_crashes:
+                n_crashed += 1
+                if rng.random() < 0.5:
+                    if f == "write":
+                        state = v
+                    elif f == "cas" and state == v[0]:
+                        state = v[1]
+                h.append(info_op(p, f, v if f != "read" else None))
+                continue
+            if f == "read":
+                h.append(ok_op(p, f, state))
+            elif f == "write":
+                state = v
+                h.append(ok_op(p, f, v))
+            elif state == v[0]:
+                state = v[1]
+                h.append(ok_op(p, f, v))
+            else:
+                h.append(fail_op(p, f, v))
+        elif done < n_ops:
+            f = rng.choice(["read", "write"] + (["cas"] if cas else []))
+            if f == "read":
+                v = None
+            elif f == "write":
+                v = rng.randrange(5)
+            else:
+                v = (rng.randrange(5), rng.randrange(5))
+            h.append(invoke_op(p, f, v))
+            pending[p] = (f, v)
+            done += 1
+    return h
+
+
+def flip_read(rng: random.Random, h: list[Op]) -> list[Op]:
+    """Add 7 to one ok read's value; usually makes the history
+    invalid."""
+    h = list(h)
+    idx = [i for i, op in enumerate(h)
+           if op.type == "ok" and op.f == "read" and op.value is not None]
+    if not idx:
+        return h
+    i = rng.choice(idx)
+    h[i] = replace(h[i], value=(h[i].value or 0) + 7)
+    return h
+
+
 def sim_mutex_history(rng: random.Random, n_ops: int = 40,
                       n_procs: int = 4, *,
                       crash_p: float = 0.0,

@@ -328,3 +328,82 @@ def test_search_carries_the_reference_block_on_the_card(cuda, monkeypatch):
     stepped = search_opseq(seq, model, device="cuda", **off)
     assert stepped["engine"] == "device-bfs"
     assert pinned["search_telemetry"] == stepped["search_telemetry"]
+
+
+def _decompose_keys(n=4, copies=3):
+    """``n`` overlapping cas-register shapes, ``copies`` of each, shape 0
+    corrupted."""
+    model = cas_register()
+    seqs = []
+    for k in range(n * copies):
+        rng = random.Random(f"shape-{k % n}")
+        h = register_history(rng, n_ops=64, n_procs=6, overlap=4,
+                             crash_p=0.02, max_crashes=2, n_values=4)
+        if k % n == 0:
+            h = corrupt_read(rng, h, at=0.85)
+        seqs.append(encode_ops(h, model.f_codes))
+    return seqs, model
+
+
+@pytest.mark.cuda
+def test_decomposed_batch_on_the_card(cuda, tmp_path):
+    """``search_batch(decompose=True)`` on the card against the CPU (DPOR
+    off, so both run the unreduced search): the same verdicts, configs
+    and ``decompose_batch`` stats, the grid form launched, and a second
+    run on the same cache file all hits with no launch."""
+    from jepsen_tpu_torch.decompose import VerdictCache
+
+    seqs, model = _decompose_keys()
+    path = str(tmp_path / "v.jsonl")
+    before = lk.BATCH_LAUNCHES
+    card = lin.search_batch(seqs, model, device="cuda", dpor=False,
+                            decompose=True,
+                            decompose_cache=VerdictCache(path))
+    assert lk.BATCH_LAUNCHES > before
+    cpu = lin.search_batch(seqs, model, device="cpu", dpor=False,
+                           decompose=True)
+    assert [r["valid"] for r in card] == [r["valid"] for r in cpu]
+    assert [r["configs"] for r in card] == [r["configs"] for r in cpu]
+    assert card[0]["decompose_batch"] == cpu[0]["decompose_batch"]
+    assert card[0]["decompose_batch"]["deduped"] == 8
+    before = lk.BATCH_LAUNCHES + lk.LAUNCHES
+    warm = lin.search_batch(seqs, model, device="cuda", decompose=True,
+                            decompose_cache=path)
+    assert lk.BATCH_LAUNCHES + lk.LAUNCHES == before
+    assert warm[0]["decompose_batch"]["cache_hits"] == len(seqs)
+    assert [r["valid"] for r in warm] == [r["valid"] for r in card]
+
+
+@pytest.mark.cuda
+def test_device_scheduler_on_the_card(cuda):
+    """``check_opseq_decomposed(scheduler="device")`` on the card against
+    the CPU: the same verdict, cells and methods, the cells' engines
+    tagged "(cuda)" where the grid form ran."""
+    from jepsen_tpu_torch.decompose import check_opseq_decomposed
+    from jepsen_tpu_torch.models import multi_register
+
+    model = multi_register(8)
+    history = []
+    for k in range(8):
+        rng = random.Random(f"bench-batch-{k}")
+        h = register_history(rng, n_ops=128, n_procs=8, overlap=4,
+                             crash_p=0.01, max_crashes=2, n_values=4,
+                             cas=False)
+        if k % 4 == 0:
+            h = corrupt_read(rng, h, at=0.85)
+        history += [type(op)(8 * k + op.process, op.type, op.f,
+                             (k, op.value)) for op in h]
+    seq = encode_ops(history, model.f_codes)
+    before = lk.BATCH_LAUNCHES
+    card = check_opseq_decomposed(seq, model, scheduler="device",
+                                  device="cuda")
+    assert lk.BATCH_LAUNCHES > before
+    cpu = check_opseq_decomposed(seq, model, scheduler="device",
+                                 device="cpu")
+    assert card["valid"] == cpu["valid"] is False
+    for k in ("cells", "segments", "methods"):
+        assert card["decompose"][k] == cpu["decompose"][k]
+    assert {e.replace("(cuda)", "") for e in
+            card["decompose"]["cell_engines"]} == \
+        set(cpu["decompose"]["cell_engines"])
+    assert "device-batch(cuda)" in card["decompose"]["cell_engines"]

@@ -48,7 +48,9 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "analyze.shrink", "analyze.lint", "analyze.hb", "analyze.constraints",
     "analyze.dpor", "analyze.audit", "decompose.canonical",
     "decompose.partition", "independent", "checker.core", "checker.bucket",
-    "obs", "obs.metrics", "obs.trace", "obs.telemetry")}
+    "obs", "obs.metrics", "obs.trace", "obs.telemetry", "analyze.plan",
+    "decompose", "decompose.cache", "decompose.engine",
+    "decompose.schedule")}
 
 
 def _sources():

@@ -111,8 +111,14 @@ def test_linear_budget_and_refusals():
     out = tlinear.check_opseq_linear(st, mt, max_configs=10)
     assert out["valid"] == "unknown"
     assert out["info"] == "exceeded max_configs=10"
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlinear.check_opseq_linear(st, mt, decompose=True)
+    # decompose=True runs since the decomposition layer was ported, and
+    # refuses a checkpoint beside it
+    assert tlinear.check_opseq_linear(st, mt, decompose=True)["valid"] is \
+        tlinear.check_opseq_linear(st, mt)["valid"]
+    with pytest.raises(ValueError, match="checkpoint"):
+        tlinear.check_opseq_linear(st, mt, decompose=True,
+                                   checkpoint_path="never-written",
+                                   checkpoint_every=1)
     # a checkpoint path without a period writes nothing; a missing
     # resume file raises (tests/test_torch_checkpoint.py resumes real ones)
     assert tlinear.check_opseq_linear(

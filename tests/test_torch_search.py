@@ -132,9 +132,9 @@ def test_host_oracle_matches_reference(kind, seed, corrupt):
 
 
 def test_routes_of_later_slices_refuse(tmp_path):
-    """The routes of queue item A5, the passes of item A7 and the
-    checkpoints of A3 answer; the options of later items still refuse
-    anything but off."""
+    """The routes of queue item A5, the passes of item A7, the
+    checkpoints of A3 and the decomposition of A8 answer; the options
+    of later items still refuse anything but off."""
     test = {"store_base": str(tmp_path)}
     _, _, st, mt = _pair("register", 1, corrupt=True)
     big = tlin.linearizable(mt, device="cpu", host_threshold=10)
@@ -143,19 +143,22 @@ def test_routes_of_later_slices_refuse(tmp_path):
     out = tlin.linearizable(mt, algorithm="competition",
                             device="cpu").check(test, st)
     assert out["valid"] is False and out["engine"].startswith("competition(")
-    for flag in ("decompose", "explain"):
-        with pytest.raises(NotImplementedError):
-            tlin.linearizable(mt, device="cpu", **{flag: True})
+    with pytest.raises(NotImplementedError):
+        tlin.linearizable(mt, device="cpu", explain=True)
+    # decomposition (queue item A8) answers on every entry point
+    # (tests/test_torch_decompose.py)
+    out = tlin.linearizable(mt, device="cpu", decompose=True).check(test, st)
+    assert out["valid"] is False and out["engine"].startswith("decompose")
     # the checkpoints of queue item A3 answer (tests/test_torch_checkpoint.py)
     ckpt = str(tmp_path / "ckpt")
     out = tcheck_linear(st, mt, checkpoint_path=ckpt, checkpoint_every=1,
                         hb=False)
     assert tcheck_linear(st, mt, resume_from=ckpt)["valid"] == out["valid"]
+    assert tcheck_linear(st, mt, decompose=True)["valid"] is False
+    assert tlin.search_batch([st], mt, device="cpu",
+                             decompose=True)[0]["valid"] is False
     with pytest.raises(NotImplementedError):
-        tcheck_linear(st, mt, decompose=True)
-    for kw in ({"decompose": True}, {"sharding": object()}):
-        with pytest.raises(NotImplementedError):
-            tlin.search_batch([st], mt, device="cpu", **kw)
+        tlin.search_batch([st], mt, device="cpu", sharding=object())
     small = tlin.linearizable(mt, device="cpu", host_threshold=10**6)
     out = small.check(test, st)
     assert out["engine"] == "host-oracle" and out["valid"] is False

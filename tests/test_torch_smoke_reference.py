@@ -59,3 +59,73 @@ def test_batch256_reference(monkeypatch):
                if k not in chip_smoke.BATCH256_INVALID)
     assert tuple(r["configs"] for r in out) == chip_smoke.BATCH256_CONFIGS
     assert tuple(r["max_depth"] for r in out) == chip_smoke.BATCH256_DEPTH
+
+
+def test_batch256_decomposed_reference(monkeypatch, tmp_path):
+    """``BATCH256_DECOMP_*``: the JAX package's ``search_batch`` with
+    ``decompose=True`` (DPOR off) on the batch256 keys, a fresh cache
+    file and then the same file again; every key's verdict, configs and
+    depth as ``BATCH256_*``."""
+    from jepsen_tpu.decompose.cache import VerdictCache
+
+    reference_defaults(monkeypatch)
+    keys, _model = chip_smoke.batch_keys()
+    keys = [_jax(s) for s in keys]
+    path = str(tmp_path / "verdicts.jsonl")
+    out = lin.search_batch(keys, jm.cas_register(), dpor=False,
+                           decompose=True,
+                           decompose_cache=VerdictCache(path))
+    assert out[0]["decompose_batch"] == chip_smoke.BATCH256_DECOMP_COLD
+    assert {k for k, r in enumerate(out) if r["valid"] is False} == \
+        chip_smoke.BATCH256_INVALID
+    assert tuple(r["configs"] for r in out) == chip_smoke.BATCH256_CONFIGS
+    assert tuple(r["max_depth"] for r in out) == chip_smoke.BATCH256_DEPTH
+    again = lin.search_batch(keys, jm.cas_register(), dpor=False,
+                             decompose=True,
+                             decompose_cache=VerdictCache(path))
+    assert again[0]["decompose_batch"] == chip_smoke.BATCH256_DECOMP_WARM
+    assert [r["valid"] for r in again] == [r["valid"] for r in out]
+
+
+def _jax_history(history):
+    from jepsen_tpu.history import Op
+
+    return [Op(op.process, op.type, op.f, op.value) for op in history]
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.MULTIREG256))
+def test_multireg256_reference(name, monkeypatch, tmp_path):
+    """``MULTIREG256``: the JAX package's decomposed ``Linearizable`` on
+    the multireg256 history (in-process cells, host engines, a fresh
+    cache file)."""
+    reference_defaults(monkeypatch)
+    history, model = chip_smoke.multireg_history(
+        corrupt=name == "multireg256")
+    assert len(history) == 2 * 256 * 128
+    want_valid, want = chip_smoke.MULTIREG256[name]
+    chk = lin.Linearizable(jm.multi_register(256), decompose=True,
+                           verdict_cache=str(tmp_path / "v.jsonl"))
+    out = chk.check({"name": name, "store_base": str(tmp_path)},
+                    _jax_history(history))
+    assert out["valid"] is want_valid
+    assert out["decompose"] == want
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.MULTIREG256_DEVICE))
+def test_multireg256_device_reference(name, monkeypatch):
+    """``MULTIREG256_DEVICE``: the JAX package's
+    ``check_opseq_decomposed(scheduler="device")`` on the multireg256
+    history, DPOR off, as the card's kernel runs its cells."""
+    from jepsen_tpu.decompose.engine import check_opseq_decomposed
+    from jepsen_tpu.history import encode_ops
+
+    reference_defaults(monkeypatch)
+    monkeypatch.setenv("JEPSEN_TPU_DPOR", "0")
+    history, _model = chip_smoke.multireg_history(
+        corrupt=name == "multireg256")
+    model = jm.multi_register(256)
+    seq = encode_ops(_jax_history(history), model.f_codes)
+    out = check_opseq_decomposed(seq, model, scheduler="device")
+    want_valid, want = chip_smoke.MULTIREG256_DEVICE[name]
+    assert out["valid"] is want_valid
+    assert out["decompose"] == want
