@@ -32,7 +32,15 @@ file (every key a hit, no launch), and a 32,768-op multi-register
 history built from the same keys through the decomposed
 ``linearizable`` (in-process cells) and the device scheduler (its cells
 as one batch on the grid form), each held to the JAX package's verdict
-and ``decompose`` dict.  Every phase prints one line per case, timed
+and ``decompose`` dict.  The streaming checker runs on the card at
+full width (24 clients, 20 ops in flight, bursts of 32; :data:`STREAM`):
+op by op through ``StreamChecker(device="cuda")`` with every closed
+segment folded on the device, valid, and with a corrupted read (the
+verdict flips at the violating segment's cut); its first two device
+folds and the one that empties again on the card's torch step; with
+async folds; twice on one verdict cache file (the second run all hits,
+no launch); four streams through one ``StreamService``; and the stream
+bench tier.  Every phase prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
@@ -1916,6 +1924,358 @@ def phase_traced(store_base):
     return shares
 
 
+# ---------------------------------------------------------------------------
+# the streaming checker on the card
+# ---------------------------------------------------------------------------
+
+#: the full-width stream: 24 clients with 20 ops in flight, bursts of 32
+#: ops, 5 values, cas; depth cut to 320 ops.  Every segment's window
+#: fits the kernel's 64-lane masks (bursts of 256 give windows up to
+#: 102, which no kernel rung takes, and cost 18 to 84 s per fold on the
+#: card's torch step; PERF.md §6)
+STREAM = dict(n_ops=320, n_procs=24, overlap=20, quiesce_every=32,
+              n_values=5, cas=True)
+STREAM_SEED = "bench-stream-0"
+
+#: every closed segment to the device (at 24 clients the default gate
+#: leaves most to the host sweep, seconds to minutes each), with a
+#: budget that decides every variant (at the default 2,000,000 configs
+#: the widest variants stay undecided and their folds go to the host)
+STREAM_KW = dict(host_fold_max=0, device_budget=50_000_000)
+
+
+def stream_history(*, corrupt: bool = False, seed: str = STREAM_SEED):
+    """(events, model, violating event or None): the full-width
+    cas-register stream, a read corrupted 10% in with ``corrupt``, then
+    one trailing sequential write by process 0 (a write always
+    linearizes; its invoke closes the last burst)."""
+    from jepsen_tpu_torch.history import invoke_op, ok_op
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.synth import corrupt_read, register_history
+
+    rng = random.Random(seed)
+    h = register_history(rng, **STREAM)
+    bad = None
+    if corrupt:
+        h2 = corrupt_read(rng, h, at=0.1)
+        bad = next(i for i, (a, b) in enumerate(zip(h, h2)) if a is not b)
+        h = h2
+    return h + [invoke_op(0, "write", 0), ok_op(0, "write", 0)], \
+        cas_register(), bad
+
+
+class _FoldTrace:
+    """Wraps ``stream.device.device_fold_states`` for one run: per
+    device fold, its segment and in-states, the states out, the
+    variants, the configs, and its wall on the card.  Also wraps
+    ``decompose.engine.segment_states``: the wall of each host sweep."""
+
+    def __init__(self):
+        self.folds: list = []
+        self.host: list = []
+
+    def __enter__(self):
+        import torch
+
+        from jepsen_tpu_torch.decompose import engine
+        from jepsen_tpu_torch.models import R_CAS, R_WRITE
+        from jepsen_tpu_torch.stream import device as sd
+
+        self._saved = fold = sd.device_fold_states
+        self._saved_host = host = engine.segment_states
+
+        def host_traced(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return host(*a, **kw)
+            finally:
+                self.host.append(time.perf_counter() - t0)
+
+        def traced(sseq, model, in_states, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fold(sseq, model, in_states, **kw)
+            torch.cuda.synchronize()
+            # the variants: every in-state with every written value
+            outs = {v2 if f == R_CAS else v1 for f, v1, v2 in zip(
+                sseq.f.tolist(), sseq.v1.tolist(), sseq.v2.tolist())
+                if f in (R_CAS, R_WRITE)}
+            self.folds.append({
+                "sseq": sseq, "in": set(in_states),
+                "out": None if out is None else out[0],
+                "configs": None if out is None else out[1],
+                "variants": len({s[0] for s in in_states}) * len(outs),
+                "s": time.perf_counter() - t0})
+            return out
+
+        sd.device_fold_states = traced
+        engine.segment_states = host_traced
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.decompose import engine
+        from jepsen_tpu_torch.stream import device as sd
+
+        sd.device_fold_states = self._saved
+        engine.segment_states = self._saved_host
+
+
+def _stream_run(label, h, model, *, forced=True, **kw):
+    """One counted stream on the card, op by op, with :data:`STREAM_KW`
+    unless not ``forced``: (result, timeline, grid launches, single-key
+    launches, fold trace, grid trace)."""
+    import torch
+
+    from jepsen_tpu_torch.stream import StreamChecker
+
+    with _FoldTrace() as folds, _GridTrace() as grid_trace:
+        _zero_counts()
+        sc = StreamChecker(model, device="cuda",
+                           **(STREAM_KW if forced else {}), **kw)
+        t0 = time.perf_counter()
+        tl = {"first_verdict": None, "first_invalid": None}
+        for i, op in enumerate(h):
+            sc.ingest(op)
+            if tl["first_invalid"] is None:
+                st = sc.verdict()["status"]
+                if tl["first_verdict"] is None and st != "open":
+                    tl["first_verdict"] = (i, time.perf_counter() - t0)
+                if st == "invalid":
+                    tl["first_invalid"] = (i, time.perf_counter() - t0)
+        tl["ingest_s"] = time.perf_counter() - t0
+        res = sc.finalize()
+        torch.cuda.synchronize()
+        tl["finalize_s"] = time.perf_counter() - t0 - tl["ingest_s"]
+        single, grid = _read_counts()
+    check(grid == sum(1 for s in grid_trace.slices if s[3] == "cuda"),
+          f"{label}: {grid} grid launches, {grid_trace.slices} slices")
+    return res, tl, grid, single, folds, grid_trace
+
+
+def _fold_summary(folds, grid_trace) -> str:
+    dev = [f for f in folds.folds if f["out"] is not None]
+    n = max(1, len(dev))
+    keys = [s[2] for s in grid_trace.slices if s[3] == "cuda"]
+    return (f"device folds={len(dev)} (declined {len(folds.folds) - len(dev)})"
+            f" variants/fold={sum(f['variants'] for f in dev) / n:.1f} "
+            f"configs/fold={sum(f['configs'] for f in dev) / n:.1f} "
+            f"fold_s mean={sum(f['s'] for f in dev) / n:.4f} max="
+            f"{max([f['s'] for f in dev] or [0]):.4f}; grid keys/launch="
+            f"{sum(keys) / max(1, len(keys)):.2f}; {grid_trace.summary()}")
+
+
+def _segment_end(h, model, event):
+    """The event at which the closed segment holding ``event`` is cut:
+    the invoke of the first row of the next quiescence segment."""
+    from jepsen_tpu_torch.decompose.partition import quiescence_segments
+    from jepsen_tpu_torch.history import encode_ops
+
+    seq = encode_ops(h, model.f_codes)
+    starts = [int(seq.inv[s[0]]) for s in quiescence_segments(seq)]
+    return min((s for s in starts if s > event), default=len(h) - 1)
+
+
+def phase_stream(store_base):
+    """The streaming checker on the card at full width (:data:`STREAM`,
+    :data:`STREAM_KW`):
+    ``stream[valid]`` (every closed segment folded on the device, the
+    grid form launched, valid; on a cache file, the cold run of
+    ``stream[cache]``), ``stream[default]`` (the same stream at the
+    default gate and budget: its routes and walls), ``stream[corrupt]`` (invalid inside the
+    violating segment, before the stream's end), ``stream[plain]`` (the
+    first two device folds and the one that empties, again on the
+    card's torch step: the same state sets), ``stream[async]``,
+    ``stream[cache]`` (``stream[valid]`` again from a fresh cache on its
+    file: every segment a hit, no launch), ``stream[service]`` (four streams,
+    two pairs with the same content, through one service on one cache)
+    and the stream bench tier (host folds, ``parity``)."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.decompose import VerdictCache
+    from jepsen_tpu_torch.stream import device as sd
+    from jepsen_tpu_torch.stream.bench import run_stream_tier
+    from jepsen_tpu_torch.stream.service import StreamService, serve_lines
+
+    launches = {}
+    h, model, _ = stream_history()
+    path = os.path.join(store_base, "stream_cache", "verdicts.jsonl")
+    res, tl, grid, single, folds, gtrace = _stream_run(
+        "stream[valid]", h, model, cache=VerdictCache(path))
+    st = res["stream"]
+    launches["stream[valid]"] = {"grid": grid, "single": single}
+    fv = tl["first_verdict"]
+    emit(f"stream[valid]: events={len(h)} valid={res['valid']} "
+         f"engine={res['engine']} first_verdict_event={fv[0]} at "
+         f"{fv[1]:.4f} s; ingest_s={tl['ingest_s']:.3f} "
+         f"({len(h) / tl['ingest_s']:.1f} events/s) finalize_s="
+         f"{tl['finalize_s']:.4f}; segments={st['segments']} routes="
+         f"{st['routes']} fallback={st['fallback']} configs={res['configs']}"
+         f"; launches grid={grid} single={single}; "
+         f"{_fold_summary(folds, gtrace)}; cache hits/misses/inserts="
+         f"{st['cache_hits']}/{st['cache_misses']}/{st['cache_inserts']}")
+    check(res["valid"] is True, f"stream[valid]: valid={res['valid']}")
+    check(st["routes"]["host"] == 0 and st["routes"]["device"] > 0
+          and not st["fallback"], f"stream[valid]: routes {st['routes']}, "
+          f"fallback {st['fallback']}")
+    check(grid > 0, "stream[valid]: the grid form never launched")
+    valid_folds = [f for f in folds.folds if f["out"] is not None]
+
+    # what a user who sets nothing gets on this stream: the default gate
+    # (most segments to the host sweep) and budget (the widest variants
+    # undecided, their folds to the host); no time is asked of it
+    resd, tld, grid_d, single_d, folds_d, gtrace_d = _stream_run(
+        "stream[default]", h, model, forced=False)
+    std = resd["stream"]
+    launches["stream[default]"] = {"grid": grid_d, "single": single_d}
+    undecided = [f for f in folds_d.folds if f["out"] is None]
+    emit(f"stream[default]: valid={resd['valid']} engine={resd['engine']} "
+         f"ingest_s={tld['ingest_s']:.3f} finalize_s="
+         f"{tld['finalize_s']:.4f}; segments={std['segments']} routes="
+         f"{std['routes']} fallback={std['fallback']} configs="
+         f"{resd['configs']}; device folds tried={len(folds_d.folds)} "
+         f"undecided={len(undecided)} (s {[round(f['s'], 4) for f in undecided]}"
+         f"); host sweeps={len(folds_d.host)} s total="
+         f"{sum(folds_d.host):.4f} max={max(folds_d.host or [0]):.4f}; "
+         f"launches grid={grid_d} single={single_d}")
+    check(resd["valid"] is True, f"stream[default]: valid={resd['valid']}")
+
+    hc, _m, bad = stream_history(corrupt=True)
+    resc, tlc, grid_c, single_c, folds_c, gtrace_c = _stream_run(
+        "stream[corrupt]", hc, model)
+    stc = resc["stream"]
+    launches["stream[corrupt]"] = {"grid": grid_c, "single": single_c}
+    inv = stc["invalid_event"]
+    end = _segment_end(hc, model, bad)
+    at = tlc["first_invalid"]
+    emit(f"stream[corrupt]: events={len(hc)} valid={resc['valid']} "
+         f"violating_event={bad} invalid_event={inv} (segment cut at "
+         f"{end}) event_delta={None if inv is None else inv - bad} "
+         f"wall_to_invalid_s={at[1] if at else None} headroom_events="
+         f"{None if inv is None else len(hc) - 1 - inv}; routes="
+         f"{stc['routes']} fallback={stc['fallback']}; launches grid="
+         f"{grid_c} single={single_c}; {_fold_summary(folds_c, gtrace_c)}")
+    check(resc["valid"] is False, f"stream[corrupt]: valid={resc['valid']}")
+    check(inv is not None and bad <= inv <= end and inv < len(hc) - 1,
+          f"stream[corrupt]: invalid_event {inv}, violating event {bad}, "
+          f"its segment cut at {end}")
+    # a fold the prepass decides (0 configs) launches nothing
+    searched = [f for f in folds_c.folds if f["configs"]]
+    check(stc["routes"]["host"] == 0 and not stc["fallback"]
+          and (grid_c > 0 or not searched), f"stream[corrupt]: routes "
+          f"{stc['routes']}, {grid_c} grid launches for {len(searched)} "
+          f"searched folds")
+
+    # the control: the same folds on the card's torch step
+    empty = [f for f in folds_c.folds if f["out"] == set()]
+    check(empty, "stream[corrupt]: no device fold emptied")
+    saved = lin._use_kernel
+    lin._use_kernel = lambda *a, **k: False
+    try:
+        for name, f in ([(f"valid#{i}", f) for i, f in
+                         enumerate(valid_folds[:2])]
+                        + [("corrupt#empty", empty[0])]):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sd.device_fold_states(f["sseq"], model, f["in"],
+                                        device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            emit(f"stream[plain] {name}: rows={len(f['sseq'])} "
+                 f"in={sorted(f['in'])} kernel_states={sorted(f['out'])} "
+                 f"plain_states={None if out is None else sorted(out[0])} "
+                 f"kernel_s={f['s']:.4f} plain_s={wall:.4f}")
+            check(out is not None and out[0] == f["out"],
+                  f"stream[plain] {name}: torch step {out}, kernel "
+                  f"{f['out']}")
+    finally:
+        lin._use_kernel = saved
+
+    # async folds: the same final result
+    resa, tla, grid_a, single_a, _f, _g = _stream_run(
+        "stream[async]", h, model, async_folds=True)
+    launches["stream[async]"] = {"grid": grid_a, "single": single_a}
+
+    def final(r):
+        # stream[valid] ran on a cache file: its cache counters differ
+        s = dict(r["stream"])
+        for k in ("first_verdict_event", "invalid_event", "cache_hits",
+                  "cache_misses", "cache_inserts"):
+            s.pop(k, None)
+        return {**r, "stream": s}
+
+    emit(f"stream[async]: valid={resa['valid']} ingest_s="
+         f"{tla['ingest_s']:.3f} finalize_s={tla['finalize_s']:.4f} "
+         f"routes={resa['stream']['routes']}; launches grid={grid_a} "
+         f"single={single_a}")
+    check(final(resa) == final(res), "stream[async]: the final result "
+          "differs from the inline one")
+
+    # the verdict cache: stream[valid] was the cold run on this file; a
+    # fresh object on it serves every segment
+    r2, t2, g2, s2, _f, _g = _stream_run("stream[cache] warm", h, model,
+                                         cache=VerdictCache(path))
+    st2 = r2["stream"]
+    launches["stream[cache]"] = {"grid": g2, "single": s2}
+    emit(f"stream[cache]: cold (stream[valid]) ingest_s={tl['ingest_s']:.3f}"
+         f" grid={grid}; warm ingest_s={t2['ingest_s']:.3f} grid={g2} "
+         f"single={s2} "
+         f"hits/misses={st2['cache_hits']}/{st2['cache_misses']} "
+         f"segments={st2['segments']} configs={r2['configs']}")
+    check(r2["valid"] is True and st2["cache_misses"] == 0
+          and st2["cache_hits"] == st2["segments"] and g2 == 0 and s2 == 0,
+          f"stream[cache]: warm run {st2}, {g2} grid and {s2} single-key "
+          f"launches")
+
+    # the service: four streams, two pairs with the same content
+    streams = {f"s{i}": stream_history(seed=f"{STREAM_SEED}-{i % 2}")[0]
+               for i in range(4)}
+    lines = [json.dumps({"run": r, "model": "cas-register"})
+             for r in streams]
+    for i in range(max(len(x) for x in streams.values())):
+        for r, x in streams.items():
+            if i < len(x):
+                lines.append(json.dumps({"run": r, "op": x[i].to_dict()}))
+    cache = VerdictCache()
+    svc = StreamService(cache=cache, device="cuda", **STREAM_KW)
+    replies = []
+    _zero_counts()
+    t0 = time.perf_counter()
+    serve_lines(svc, lines, replies.append)
+    wall = time.perf_counter() - t0
+    single_v, grid_v = _read_counts()
+    launches["stream[service]"] = {"grid": grid_v, "single": single_v}
+    finals = {d["run"]: d["final"] for d in replies if "final" in d}
+    errors = [d for d in replies if "error" in d]
+    n_events = sum(len(x) for x in streams.values())
+    emit(f"stream[service]: streams=4 events={n_events} wall_s={wall:.3f} "
+         f"({n_events / wall:.1f} events/s); cache hits/misses/inserts="
+         f"{cache.hits}/{cache.misses}/{cache.inserts}; finals "
+         + " ".join(f"{r}={f['valid']}/{f['stream']['routes']}"
+                    for r, f in sorted(finals.items()))
+         + f"; launches grid={grid_v} single={single_v}")
+    check(not errors, f"stream[service]: error replies {errors[:2]}")
+    check(sorted(finals) == sorted(streams)
+          and all(f["valid"] is True for f in finals.values()),
+          f"stream[service]: finals {finals}")
+
+    # the bench tier: 6 clients, host folds
+    _zero_counts()
+    t0 = time.perf_counter()
+    tier = run_stream_tier(quick=False, device="cuda", out_path=str(
+        REPO / "build" / "stream_tier.json"))
+    wall = time.perf_counter() - t0
+    single_t, grid_t = _read_counts()
+    launches["stream tier"] = {"grid": grid_t, "single": single_t}
+    emit(f"stream tier: wall_s={wall:.3f} parity={tier['parity']} "
+         f"ttfv={tier['ttfv']} "
+         f"violation={tier['violation_latency']} multiplexed="
+         f"{tier['multiplexed']}; launches grid={grid_t} "
+         f"single={single_t}")
+    check(tier["parity"] is True, "stream tier: parity false")
+    return launches
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -1988,6 +2348,7 @@ def main() -> int:
             launches.update(phase_batch256_decomposed(store_base))
             launches.update(phase_multireg256(store_base))
             launches["checkpoint"] = phase_checkpoint(store_base)
+            launches.update(phase_stream(store_base))
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
         shapes.append(phase_grid_timing(device))

@@ -711,6 +711,20 @@ def _summary(a: dict) -> dict:
     return out
 
 
+def maybe_audit_events(history, result: dict,
+                       audit_flag: bool | None = None) -> dict:
+    """The event-level twin of :func:`maybe_audit` (the streamed
+    multiset fold's postamble): with ``audit_flag`` True, audit, attach
+    the summary and raise :class:`AuditError` on any W-code."""
+    if not audit_flag:
+        return result
+    a = audit_events(history, result)
+    result["audit"] = _summary(a)
+    if not a["ok"]:
+        raise AuditError(a)
+    return result
+
+
 def maybe_audit(seq, model, result: dict,
                 audit_flag: bool | None = None) -> dict:
     """The engines' audit postamble: with ``audit_flag`` True, audit the

@@ -23,6 +23,7 @@ predecessor map; anything out of scope comes back ``applies=False``.
 from __future__ import annotations
 
 import bisect
+from collections import Counter
 
 import numpy as np
 
@@ -39,6 +40,9 @@ _M_EDGES = REGISTRY.counter(
     "jtpu_constraint_edges_total",
     "Forced constraint edges inferred beyond real time, by kind",
     ("kind",))
+# declared in obs/metrics.py, so a scrape shows them before any fold
+_M_FOLD_FLIPS = REGISTRY.get("jtpu_constraint_fold_flips_total")
+_M_FOLD_EVENTS = REGISTRY.get("jtpu_constraint_fold_events_total")
 
 
 def family_of(model) -> str | None:
@@ -355,3 +359,216 @@ def _analyze_lock(seq: OpSeq, model, out: HBAnalysis) -> HBAnalysis:
     # deciding valid stays with the engines
     _prune_bound(seq, [], stats)
     return out
+
+
+# ---------------------------------------------------------------------------
+# event-level multiset analysis (the checkers' and the fold's substrate)
+# ---------------------------------------------------------------------------
+
+
+def analyze_queue_events(history) -> dict:
+    """The multiset analysis of an event-level queue history: the
+    verdict ``checker.basic.total_queue`` computes, carried as row-level
+    evidence (event indices) the audit re-justifies (W007).  Returns
+    ``{"valid", "evidence", "edges", "lost", "unexpected"}``.  Drains
+    expand as the checker expands them; a crashed drain gives
+    ``{"valid": "unknown"}``."""
+    from ..history import is_invoke, is_ok
+
+    attempts: Counter = Counter()
+    enq_ok: Counter = Counter()
+    enq_ok_row: dict = {}
+    deq: Counter = Counter()
+    first_deq_row: dict = {}
+    edges = 0
+    for i, op in enumerate(history):
+        if not isinstance(op.process, int):
+            continue
+        if op.f == "enqueue":
+            if is_invoke(op):
+                attempts[op.value] += 1
+            elif is_ok(op):
+                enq_ok[op.value] += 1
+                enq_ok_row.setdefault(op.value, i)
+        elif op.f == "dequeue" and is_ok(op):
+            deq[op.value] += 1
+            first_deq_row.setdefault(op.value, i)
+            if op.value in enq_ok_row:
+                edges += 1  # enqueue -> dequeue read-from
+        elif op.f == "drain":
+            if is_ok(op) and isinstance(op.value, (list, tuple)):
+                for element in op.value:
+                    deq[element] += 1
+                    first_deq_row.setdefault(element, i)
+                    if element in enq_ok_row:
+                        edges += 1
+            elif not is_invoke(op) and op.type != "fail":
+                return {"valid": "unknown", "evidence": None,
+                        "edges": edges,
+                        "info": "crashed drain: removed elements "
+                                "unidentifiable"}
+    lost = enq_ok - deq
+    unexpected = Counter({v: c for v, c in deq.items()
+                          if v not in attempts})
+    evidence = None
+    if unexpected:
+        rows = sorted(first_deq_row[v] for v in unexpected)
+        evidence = {"family": "queue", "kind": "unexpected-dequeue",
+                    "rows": rows, "values": sorted(map(str, unexpected))}
+    elif lost:
+        rows = sorted(enq_ok_row[v] for v in lost if v in enq_ok_row)
+        evidence = {"family": "queue", "kind": "lost-acked-enqueue",
+                    "rows": rows, "values": sorted(map(str, lost))}
+    return {"valid": not lost and not unexpected, "evidence": evidence,
+            "edges": edges, "lost": dict(lost),
+            "unexpected": dict(unexpected)}
+
+
+def analyze_set_events(history) -> dict:
+    """The set analysis: add -> member-read edges and the set checker's
+    verdict (lost and unexpected against the final read) with row-level
+    evidence."""
+    from ..history import is_invoke, is_ok
+
+    attempts: set = set()
+    add_ok_row: dict = {}
+    final_read = None
+    final_row = None
+    for i, op in enumerate(history):
+        if not isinstance(op.process, int):
+            continue
+        if op.f == "add":
+            if is_invoke(op):
+                attempts.add(op.value)
+            elif is_ok(op):
+                add_ok_row.setdefault(op.value, i)
+        elif op.f == "read" and is_ok(op):
+            final_read, final_row = set(op.value or ()), i
+    if final_read is None:
+        return {"valid": "unknown", "evidence": None, "edges": 0}
+    edges = sum(1 for v in final_read if v in add_ok_row)
+    lost = set(add_ok_row) - final_read
+    unexpected = final_read - attempts
+    evidence = None
+    if unexpected:
+        evidence = {"family": "set", "kind": "unexpected-member",
+                    "rows": [final_row],
+                    "values": sorted(map(str, unexpected))}
+    elif lost:
+        evidence = {"family": "set", "kind": "lost-acked-add",
+                    "rows": sorted(add_ok_row[v] for v in lost),
+                    "values": sorted(map(str, lost))}
+    return {"valid": not lost and not unexpected, "evidence": evidence,
+            "edges": edges, "lost": sorted(map(str, lost)),
+            "unexpected": sorted(map(str, unexpected))}
+
+
+class MultisetFold:
+    """The incremental form of the multiset analysis, one event at a
+    time: what the streamed total-queue route runs.
+
+    ``step(op, i)`` folds event ``i`` and returns flip evidence (shaped
+    as :func:`analyze_queue_events`'s ``evidence``) the first time the
+    running state proves the history invalid, else None.  Two rules,
+    each confirmed at finalize by the post-hoc checker:
+
+      * **unexpected**: an :ok dequeue (or drained element) of a value
+        no enqueue ever attempted, flagged at that event;
+      * **lost**: at an :ok drain's own completion with no client op
+        pending, acked enqueues missing from every delivery so far.
+        Never at other completions: an enqueue acked after the drain
+        is not lost the instant its :ok lands.
+
+    ``family="set"``: adds and reads, the read standing for the drain.
+    """
+
+    def __init__(self, family: str = "total-queue"):
+        self.family = "set" if family == "set" else "total-queue"
+        self.attempts: Counter = Counter()
+        self.enq_ok: Counter = Counter()
+        self.enq_ok_row: dict = {}
+        self.deq: Counter = Counter()
+        self.pending: dict = {}     # process -> f
+        self.drained = False        # an :ok drain/read has landed
+        self.lossy = False          # a crashed drain: lost undecidable
+        self.last_read: set | None = None
+        self.last_read_row: int | None = None
+
+    def step(self, op, i: int) -> dict | None:
+        from ..history import INVOKE
+
+        _M_FOLD_EVENTS.inc()
+        if not isinstance(op.process, int):
+            return None
+        if op.type == INVOKE:
+            self.pending[op.process] = op.f
+            if op.f in ("enqueue", "add"):
+                self.attempts[op.value] += 1
+            return None
+        self.pending.pop(op.process, None)
+        if self.family == "set":
+            flip = self._step_set(op, i)
+        else:
+            flip = self._step_queue(op, i)
+        if flip is not None:
+            _M_FOLD_FLIPS.inc(kind=flip["kind"])
+        return flip
+
+    def _step_queue(self, op, i: int) -> dict | None:
+        from ..history import is_ok
+
+        if op.f == "enqueue" and is_ok(op):
+            self.enq_ok[op.value] += 1
+            self.enq_ok_row.setdefault(op.value, i)
+        elif op.f == "dequeue" and is_ok(op):
+            self.deq[op.value] += 1
+            if op.value not in self.attempts:
+                return {"family": "queue", "kind": "unexpected-dequeue",
+                        "rows": [i], "values": [str(op.value)]}
+        elif op.f == "drain":
+            if is_ok(op) and isinstance(op.value, (list, tuple)):
+                self.drained = True
+                for element in op.value:
+                    self.deq[element] += 1
+                    if element not in self.attempts:
+                        return {"family": "queue",
+                                "kind": "unexpected-dequeue",
+                                "rows": [i],
+                                "values": [str(element)]}
+                if not self.lossy and not self.pending:
+                    lost = self.enq_ok - self.deq
+                    if lost:
+                        rows = sorted(self.enq_ok_row[v] for v in lost
+                                      if v in self.enq_ok_row)
+                        return {"family": "queue",
+                                "kind": "lost-acked-enqueue",
+                                "rows": rows,
+                                "values": sorted(map(str, lost))}
+            elif op.type == "info":
+                self.lossy = True  # removed elements unidentifiable
+        return None
+
+    def _step_set(self, op, i: int) -> dict | None:
+        from ..history import is_ok
+
+        if op.f == "add" and is_ok(op):
+            self.enq_ok[op.value] += 1
+            self.enq_ok_row.setdefault(op.value, i)
+        elif op.f == "read" and is_ok(op):
+            self.drained = True
+            self.last_read = set(op.value or ())
+            self.last_read_row = i
+            unexpected = self.last_read - set(self.attempts)
+            if unexpected:
+                return {"family": "set", "kind": "unexpected-member",
+                        "rows": [i],
+                        "values": sorted(map(str, unexpected))}
+            # as with drains: lost is judged only at the read itself
+            if not self.pending:
+                lost = set(self.enq_ok_row) - self.last_read
+                if lost:
+                    return {"family": "set", "kind": "lost-acked-add",
+                            "rows": sorted(self.enq_ok_row[v]
+                                           for v in lost),
+                            "values": sorted(map(str, lost))}
+        return None

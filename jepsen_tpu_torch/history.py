@@ -55,6 +55,12 @@ class Op:
             d["error"] = self.error
         return d
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "Op":
+        return cls(process=d.get("process"), type=d.get("type"),
+                   f=d.get("f"), value=d.get("value"), time=d.get("time"),
+                   index=d.get("index"), error=d.get("error"))
+
 
 def invoke_op(process, f, value=None, **kw) -> Op:
     return Op(process=process, type=INVOKE, f=f, value=value, **kw)
@@ -70,6 +76,18 @@ def fail_op(process, f, value=None, **kw) -> Op:
 
 def info_op(process, f, value=None, **kw) -> Op:
     return Op(process=process, type=INFO, f=f, value=value, **kw)
+
+
+def is_invoke(op: Op) -> bool:
+    return op.type == INVOKE
+
+
+def is_ok(op: Op) -> bool:
+    return op.type == OK
+
+
+def is_fail(op: Op) -> bool:
+    return op.type == FAIL
 
 
 def is_client_op(op: Op) -> bool:
@@ -203,3 +221,19 @@ def encode_ops(history: Sequence[Op], f_codes: dict, *,
                  v1=col(4, np.int32), v2=col(5, np.int32),
                  inv=col(0, np.int64), ret=col(1, np.int64),
                  ok=col(6, bool), ops=[r[7] for r in rows], encoder=enc)
+
+
+def max_concurrency(seq: OpSeq) -> int:
+    """The most ops open at once (invoked, not returned).  A crashed op
+    never returns, so it counts against every later instant."""
+    events = []
+    for i in range(len(seq)):
+        events.append((int(seq.inv[i]), 1))
+        if int(seq.ret[i]) != INF_RET:
+            events.append((int(seq.ret[i]), -1))
+    events.sort()
+    cur = peak = 0
+    for _, d in events:
+        cur += d
+        peak = max(peak, cur)
+    return peak

@@ -417,6 +417,16 @@ def _declare(reg: Registry) -> None:
 
 _declare(REGISTRY)
 
+# the streamed multiset fold's counters (``analyze.constraints.
+# MultisetFold``), in the process registry from the start so a scrape
+# shows them before the first fold; outside _declare, which stays the
+# JAX package's set (it registers these in its constraints module)
+REGISTRY.counter("jtpu_constraint_fold_flips_total",
+                 "Streamed multiset-fold verdict flips, by evidence kind",
+                 ("kind",))
+REGISTRY.counter("jtpu_constraint_fold_events_total",
+                 "Events ingested by streamed multiset folds")
+
 
 def render() -> str:
     return REGISTRY.render()

@@ -407,3 +407,50 @@ def test_device_scheduler_on_the_card(cuda):
             card["decompose"]["cell_engines"]} == \
         set(cpu["decompose"]["cell_engines"])
     assert "device-batch(cuda)" in card["decompose"]["cell_engines"]
+
+
+@pytest.mark.cuda
+def test_stream_device_fold_on_the_card(cuda):
+    """The stream's device fold at the JAX package test's size, on the
+    card and on the CPU: the same state set per segment, the grid form
+    launched; and a stream with every fold forced to the device gives
+    the CPU run's verdict and routes."""
+    from jepsen_tpu_torch.decompose.partition import (quiescence_segments,
+                                                      subseq)
+    from jepsen_tpu_torch.models import register
+    from jepsen_tpu_torch.stream import StreamChecker
+    from jepsen_tpu_torch.stream.device import device_fold_states
+
+    model = register(0)
+    h = register_history(random.Random(5), n_ops=48, n_procs=6, overlap=5,
+                         quiesce_every=8, unique_writes=True, cas=False)
+    seq = encode_ops(h, model.f_codes)
+    states = {tuple(model.init)}
+    before = lk.BATCH_LAUNCHES
+    folded = 0
+    for rows in quiescence_segments(seq)[:-1]:
+        ss = subseq(seq, rows)
+        card = device_fold_states(ss, model, states, device="cuda")
+        cpu = device_fold_states(ss, model, states, device="cpu")
+        assert (card is None) == (cpu is None)
+        if card is not None:
+            assert card[0] == cpu[0]
+            states = card[0]
+            folded += 1
+        else:
+            from jepsen_tpu_torch.decompose.engine import segment_states
+
+            states = segment_states(ss, model, states)
+    assert folded >= 2 and lk.BATCH_LAUNCHES > before
+
+    h = register_history(random.Random(6), n_ops=40, n_procs=5, overlap=4,
+                         quiesce_every=8, n_values=6, cas=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sc = StreamChecker(model, device=dev, host_fold_max=0)
+        for op in h:
+            sc.ingest(op)
+        out[dev] = sc.finalize()
+    assert out["cuda"]["valid"] == out["cpu"]["valid"]
+    assert out["cuda"]["stream"]["routes"] == out["cpu"]["stream"]["routes"]
+    assert out["cuda"]["stream"]["routes"]["device"] >= 1

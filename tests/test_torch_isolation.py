@@ -50,7 +50,8 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "decompose.partition", "independent", "checker.core", "checker.bucket",
     "obs", "obs.metrics", "obs.trace", "obs.telemetry", "analyze.plan",
     "decompose", "decompose.cache", "decompose.engine",
-    "decompose.schedule")}
+    "decompose.schedule", "checker.basic", "stream", "stream.checker",
+    "stream.device", "stream.service", "stream.bench", "stream.__main__")}
 
 
 def _sources():
