@@ -40,7 +40,12 @@ verdict flips at the violating segment's cut); its first two device
 folds and the one that empties again on the card's torch step; with
 async folds; twice on one verdict cache file (the second run all hits,
 no launch); four streams through one ``StreamService``; and the stream
-bench tier.  Every phase prints one line per case, timed
+bench tier.  The multi-device routes run over logical shards of the
+card (:data:`SHARDS`): the sharded-frontier search on 1k (one shard and
+four) and mutex2k, the key-sharded batch on batch256 (bucketed and
+fused, its shards on B1's grid form), and the same batch over a
+one-rank NCCL process group on the keys axis.  Every phase prints one
+line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
@@ -146,6 +151,15 @@ BATCH256_DEPTH = (
     68, 94, 97, 90, 82, 92, 100, 99, 79, 97, 92, 99, 77, 96, 103, 87, 82,
     97, 90, 90, 89, 98, 97, 88, 84, 96, 95, 95, 74, 97, 93, 96, 71, 84, 96,
     93, 87, 91, 86, 95, 87, 92, 106, 103, 75, 94, 94, 93)
+
+#: the keys whose configs differ when the batch runs at one fixed
+#: frontier of 64 rows, as the sharded batch does, from ``BATCH256_*``,
+#: whose ladder starts at 32: these three outgrow 32 rows, and the
+#: ladder bills the configs of the rung they outgrew (the JAX package's
+#: ``search_batch(keys, cas_register(), dpor=False,
+#: dims=batch_dims(keys, frontier=64))`` on the CPU; verdicts and depths
+#: as ``BATCH256_*``)
+BATCH256_AT64_CONFIGS = {60: 765, 248: 909, 252: 546}
 
 #: ``decompose_batch`` of the JAX package's ``search_batch(keys,
 #: cas_register(), decompose=True, dpor=False)`` on the batch256 keys on
@@ -963,9 +977,10 @@ def _route_counts(results) -> dict:
     return dict(sorted(out.items()))
 
 
-def _check_batch_results(label, results, rechecked=()):
+def _check_batch_results(label, results, rechecked=(), configs=None):
     """Every key's verdict is the JAX package's; its configs and depth
-    too, but for keys checked again on their own (``rechecked``)."""
+    too, but for keys checked again on their own (``rechecked``).
+    ``configs`` replaces some keys' configs (a key -> configs map)."""
     check(len(results) == BATCH_KEYS, f"{label}: {len(results)} results")
     for k, r in enumerate(results):
         want = k not in BATCH256_INVALID
@@ -974,7 +989,7 @@ def _check_batch_results(label, results, rechecked=()):
         if k in rechecked:
             continue
         got = (r["configs"], r["max_depth"])
-        ref = (BATCH256_CONFIGS[k], BATCH256_DEPTH[k])
+        ref = ((configs or {}).get(k, BATCH256_CONFIGS[k]), BATCH256_DEPTH[k])
         check(r["configs"] <= ref[0], f"{label}: key {k} visited "
               f"{r['configs']} configs, more than the JAX package's {ref[0]}")
         check(got == ref, f"{label}: key {k} gave (configs, depth) {got}, "
@@ -2276,6 +2291,181 @@ def phase_stream(store_base):
     return launches
 
 
+#: logical shards on the one card for the multi-device phases (the
+#: reference's tests put 8 virtual devices on one CPU)
+SHARDS = 4
+
+
+def _prune_modes(dims, n_shards: int) -> tuple:
+    """(closure site, det site) prune of the sharded step at ``dims``,
+    as ``build_sharded_search_step_fn`` picks them on the card."""
+    import torch
+
+    from jepsen_tpu_torch.checker import sharded, step
+
+    c_det, c_cr = sharded.route_capacities(dims, n_shards)
+    card = torch.device("cuda", 0)
+    F = dims.frontier
+    return tuple("allpairs" if step._use_allpairs(m, card) else "sort"
+                 for m in (F + n_shards * c_cr, n_shards * c_det))
+
+
+def _sharded_run(label, seq, model, n_shards, **kw):
+    """One counted ``search_opseq_sharded`` over ``n_shards`` logical
+    shards on ``cuda:0``: (result, wall seconds, closure and det prune
+    modes at its final width, escalations)."""
+    import math
+
+    import torch
+
+    from jepsen_tpu_torch.checker import encode
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.distributed import ShardMesh
+
+    mesh = ShardMesh(["cuda:0"] * n_shards)
+    f0 = kw.get("frontier_per_device", 1024)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lin.search_opseq_sharded(seq, model, mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    single, grid = _read_counts()
+    check(single == grid == 0, f"{label}: the sharded step launched B1 "
+          f"({single} single, {grid} grid): it has its own level body")
+    check(res["engine"] == f"device-sharded-x{n_shards}",
+          f"{label}: engine {res['engine']}")
+    F = res["frontier_per_device"]
+    dims = encode.choose_dims(encode.encode_search(seq), model,
+                              device=mesh.devices[0], frontier=F)
+    esc = round(math.log(F / f0, 4))
+    return res, wall, _prune_modes(dims, n_shards), esc
+
+
+def _sharded_line(label, res, wall, modes, esc, extra="") -> None:
+    tb = res["search_telemetry"]
+    emit(f"{label}: valid={res['valid']} configs={res['configs']}{extra} "
+         f"max_depth={res['max_depth']} engine={res['engine']} "
+         f"frontier_per_device={res['frontier_per_device']} prune(closure,"
+         f"det)={modes} levels={tb['levels']} slices={tb['slices']} "
+         f"escalations={esc} wall_s={wall:.3f} "
+         f"({_us_per_level(wall, res)} us/level) "
+         f"telemetry: {_tele_totals(res)}")
+
+
+def phase_sharded():
+    """The multi-device routes on one card, over logical shards of
+    ``cuda:0``: the sharded-frontier search (B7) on 1k at 1024 rows per
+    shard, one shard and :data:`SHARDS`, with the defaults (held to
+    :data:`REFERENCE_REDUCED`, and to the masked control's configs where
+    every merge site prunes all-pairs), and on mutex2k with the prepass
+    and DPOR off; then the key-sharded batch (B8) on batch256, bucketed
+    and fused, every key held to ``BATCH256_*``, its shards running B1's
+    grid form with telemetry (at its fixed frontier of 64, three keys
+    bill fewer configs than the ladder's, :data:`BATCH256_AT64_CONFIGS`);
+    then the same batch over a one-rank NCCL
+    group on the keys axis (``distributed.init_process_group``), held to
+    the standalone result.  Returns the batch paths' launches."""
+    import socket
+
+    from jepsen_tpu_torch import distributed as dist
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.distributed import ShardMesh
+
+    seq, model = tier_history("1k")
+    want = REFERENCE_REDUCED["1k"]
+    for n_shards in (1, SHARDS):
+        label = f"sharded[1k] D={n_shards}"
+        res, wall, modes, esc = _sharded_run(label, seq, model, n_shards,
+                                             frontier_per_device=1024)
+        _sharded_line(label, res, wall, modes, esc,
+                      extra=f" (masked control {want[1]})")
+        check((res["valid"], res["max_depth"]) == (want[0], want[2]),
+              f"{label}: valid={res['valid']} max_depth={res['max_depth']}"
+              f", want {want[0]}, {want[2]}")
+        if modes == ("allpairs", "allpairs"):
+            check(res["configs"] == want[1], f"{label}: {res['configs']} "
+                  f"configs with every merge site all-pairs, the masked "
+                  f"control {want[1]}")
+        _check_telemetry(label, res)
+
+    seq, model = tier_history("mutex2k")
+    label = f"sharded[mutex2k] D={SHARDS}"
+    res, wall, modes, esc = _sharded_run(label, seq, model, SHARDS,
+                                         hb=False, dpor=False)
+    _sharded_line(label, res, wall, modes, esc)
+    check(res["valid"] is False and res["max_depth"] == 1971
+          and res["configs"] <= REFERENCE["mutex2k"][1],
+          f"{label}: valid={res['valid']} configs={res['configs']} "
+          f"max_depth={res['max_depth']}, want False, <= "
+          f"{REFERENCE['mutex2k'][1]}, 1971")
+    _check_telemetry(label, res)
+
+    keys, model = batch_keys()
+    mesh = ShardMesh(["cuda:0"] * SHARDS)
+    launches, standalone = {}, None
+    for way, kw in (("bucketed", {}), ("fused", {"bucket": False})):
+        label = f"sharded_batch[batch256[{way}]] D={SHARDS}"
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = lin.search_batch(keys, model, sharding=mesh, **kw)
+        wall = time.perf_counter() - t0
+        single, grid = _read_counts()
+        launches[label] = {"grid": grid, "single": single}
+        _check_batch_results(label, res, configs=BATCH256_AT64_CONFIGS)
+        check(grid > 0, f"{label}: B1's grid form never launched")
+        sb = res[0].get("shard_batch") or {}
+        check(way == "fused" or sb.get("n_devices") == SHARDS,
+              f"{label}: shard_batch {sb}")
+        stats = {k: sb[k] for k in ("n_buckets", "pad_keys", "overflow_redo",
+                                    "padding_efficiency",
+                                    "fused_padding_efficiency",
+                                    "kernel_cache") if k in sb}
+        buckets = [(b["dims"], b["lanes"], b["pad_lanes"])
+                   for b in sb.get("buckets", [])]
+        emit(f"{label}: keys={BATCH_KEYS} routes={_route_counts(res)} "
+             f"wall_s={wall:.3f} grid_launches={grid} (B1-T grid form, "
+             f"telemetry on) single_launches={single} shard_batch={stats} "
+             f"buckets (dims, lanes, pad lanes)={buckets}")
+        if way == "bucketed":
+            standalone = res
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    label = f"distributed[nccl] D={SHARDS}"
+    t0 = time.perf_counter()
+    check(dist.init_process_group(coordinator=f"127.0.0.1:{port}",
+                                  num_processes=1, process_id=0,
+                                  device="cuda:0", timeout=120.0),
+          f"{label}: the process group did not come up")
+    try:
+        init_s = time.perf_counter() - t0
+        kmesh = dist.multihost_mesh(devices=["cuda:0"] * SHARDS)
+        check(kmesh.shape == {"keys": 1, "shard": SHARDS},
+              f"{label}: mesh {kmesh.shape}")
+        sh = dist.keys_sharding(kmesh)
+        check(sh.spans_processes, f"{label}: the keys do not span the group")
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = lin.search_batch(keys, model, sharding=sh)
+        wall = time.perf_counter() - t0
+        single, grid = _read_counts()
+        launches[label] = {"grid": grid, "single": single}
+        backend = __import__("torch").distributed.get_backend()
+    finally:
+        dist.shutdown_process_group()
+    _check_batch_results(label, res, configs=BATCH256_AT64_CONFIGS)
+    got = [(r["valid"], r["configs"], r["max_depth"]) for r in res]
+    check(got == [(r["valid"], r["configs"], r["max_depth"])
+                  for r in standalone],
+          f"{label}: the group's result differs from the standalone one")
+    emit(f"{label}: backend={backend} keys={BATCH_KEYS} init_s={init_s:.3f}"
+         f" wall_s={wall:.3f} grid_launches={grid} single_launches={single}"
+         f" equal to the standalone result: True")
+    return launches
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -2315,6 +2505,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2349,6 +2540,7 @@ def main() -> int:
             launches.update(phase_multireg256(store_base))
             launches["checkpoint"] = phase_checkpoint(store_base)
             launches.update(phase_stream(store_base))
+            launches.update(phase_sharded())
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
         shapes.append(phase_grid_timing(device))
@@ -2369,7 +2561,8 @@ def main() -> int:
          f"ms/launch, telemetry form {grid['ms_tele']:.4f} "
          f"({GRID_FIRST_RUNG_BEFORE_TELE_MS} before); occupancy checked "
          f"on {len(OCCUPANCY_CHECKED)} results; device share by path "
-         f"{ {k: round(v, 4) for k, v in shares.items()} }")
+         f"{ {k: round(v, 4) for k, v in shares.items()} }; script wall "
+         f"{time.perf_counter() - t_start:.1f} s of the 1200 s limit")
     total = sum(n for by_tier in launches.values() for n in by_tier.values())
     if total == 0 or sum(FORM_LAUNCHES.values()) != total:
         print(f"chip_smoke: FAILED: B1 launched {total} times on the main "

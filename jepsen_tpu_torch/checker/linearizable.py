@@ -55,7 +55,10 @@ puts the decomposition layer (``decompose/``) in front: the
 canonical-hash verdict cache and, for the checker, the key, value-block
 and quiescence splits.
 
-Not in this module yet: the mesh-sharded batch.
+``sharding=`` on :func:`search_batch` spreads the batch of keys over a
+mesh of devices (``distributed.py``), and :func:`search_opseq_sharded`
+shards one history's frontier over one (``sharded.py``, re-exported
+here).
 """
 
 from __future__ import annotations
@@ -172,16 +175,18 @@ def kernel_cache_stats() -> dict:
 
 
 def _cached(key, build, model, dims: SearchDims, use_k: bool,
-            **coords):
+            engine: str | None = None, **coords):
     """The cached slice function under ``key``; a miss builds it inside
-    a ``device.compile`` span carrying the cache key's coordinates."""
+    a ``device.compile`` span carrying the cache key's coordinates
+    (``engine``: the span's engine, by default "cuda" or "torch" as
+    ``use_k`` says)."""
     fn = _STEP_CACHE.get(key)
     hit = fn is not None
     KERNEL_CACHE_STATS["hits" if hit else "misses"] += 1
     _M_KCACHE.inc(event="hit" if hit else "miss")
     if fn is None:
         with _tele.compile_span(
-                engine="cuda" if use_k else "torch",
+                engine=engine or ("cuda" if use_k else "torch"),
                 frontier=dims.frontier, n_det_pad=dims.n_det_pad,
                 n_crash_pad=dims.n_crash_pad, window=dims.window, k=dims.k,
                 model=model.name, model_init=int(model.init[0]),
@@ -993,8 +998,20 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     ``audit=True`` replays every key's certificate.  ``telemetry``
     (None: on) puts the ladder's ``search_telemetry`` on its first
     result (one per bucket when bucketed); a key searched alone carries
-    its own.  ``sharding`` accepts only off.  ``_prepass`` carries
-    per-key must-order maps a caller already computed.
+    its own.  ``_prepass`` carries per-key must-order maps a caller
+    already computed.
+
+    ``sharding`` (a :class:`~..distributed.ShardMesh` or
+    :class:`~..distributed.KeysSharding`) spreads the batch over a mesh,
+    whose devices replace ``device``: each shard runs the batch slice
+    function on its block of the keys at a fixed frontier of 64
+    (``sharded.py``), bucketed by default (each bucket covering the mesh
+    at its own dims, ``bucket.search_batch_sharded_bucketed``, whose
+    ``shard_batch`` stats ride the first result) or fused with
+    ``bucket=False``.  Over a keys axis that spans processes, each
+    process checks its contiguous block of the keys and every process
+    returns the whole list (gathered with ``all_gather_object``); the
+    first result of each process's block carries that block's stats.
 
     ``decompose=True`` puts the canonical-hash verdict cache in front of
     the batch (:func:`_search_batch_decomposed`): cached shapes return
@@ -1005,8 +1022,13 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
     from ..analyze.hb import resolve_hb
     from ..analyze.lint import Diagnostic, HistoryLintError, lint_opseq
 
-    _refuse(sharding is not None, "sharding", "A11")
-    dev = _resolve_device(device)
+    from ..distributed import as_sharding
+
+    sh = as_sharding(sharding)
+    if sh is not None:
+        dev = [_resolve_device(d) for d in sh.mesh.devices][0]
+    else:
+        dev = _resolve_device(device)
     if not seqs:
         return []
     telemetry = _tele.resolve(telemetry)
@@ -1024,13 +1046,24 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
                                       f=d.f))
         if any(d.severity == "error" for d in bad):
             raise HistoryLintError(bad)
+    if sh is not None and sh.spans_processes:
+        return _search_batch_across_processes(
+            seqs, model, sh, budget=budget, dims=dims, decompose=decompose,
+            decompose_cache=decompose_cache, bucket=bucket, audit=audit,
+            hb=hb, dpor=dpor, telemetry=telemetry)
     if decompose:
         return _audit_batch(seqs, model, _search_batch_decomposed(
-            seqs, model, budget=budget, dims=dims, device=dev,
+            seqs, model, budget=budget, dims=dims, device=dev, sharding=sh,
             cache=decompose_cache, bucket=bucket, hb=hb, dpor=dpor,
             telemetry=telemetry), audit)
     if bucket is None and dims is None and len(seqs) > 1:
         bucket = True
+    if bucket and dims is None and sh is not None:
+        from .bucket import search_batch_sharded_bucketed
+
+        return _audit_batch(seqs, model, search_batch_sharded_bucketed(
+            seqs, model, sh, budget=budget, hb=hb, dpor=dpor,
+            telemetry=telemetry), audit)
     if bucket and dims is None:
         from .bucket import search_batch_bucketed
 
@@ -1045,7 +1078,8 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
         if rest:
             sub = search_batch([seqs[i] for i in rest], model,
                                budget=budget, dims=dims, device=dev,
-                               bucket=False, lint=False, audit=False,
+                               sharding=sh, bucket=False, lint=False,
+                               audit=False,
                                hb=False, dpor=dpor, telemetry=telemetry,
                                _prepass=masks)
             results.update(zip(rest, sub))
@@ -1066,14 +1100,48 @@ def search_batch(seqs: list[OpSeq], model, *, budget: int = 2_000_000,
                                  telemetry=telemetry, _hbres=hbs[i])
             out.append(r)
         return _audit_batch(seqs, model, out, audit)
+    if sh is not None:
+        # no ladder over a mesh: the keys keep covering it at one shape,
+        # so the shape starts at the wider frontier
+        from .sharded import search_batch_sharded_fixed
+
+        dims = dims or batch_dims(ess, model, frontier=64)
+        esps = _pad_batch(seqs, ess, masks, model, dims, dev, dpor_on)
+        acc = _tele.SearchTelemetry("device-batch-sharded") \
+            if telemetry else None
+        out, _info = search_batch_sharded_fixed(
+            seqs, esps, model, dims, sh, budget, tele_acc=acc,
+            telemetry=telemetry)
+        if acc is not None and out:
+            _tele.finalize_result(out[0], acc, device=dev)
+        return _audit_batch(seqs, model, out, audit)
     dims = dims or batch_dims(ess, model)
     esps = _pad_batch(seqs, ess, masks, model, dims, dev, dpor_on)
     return _audit_batch(seqs, model, _search_batch_ladder(
         seqs, esps, model, dims, budget, dev, telemetry), audit)
 
 
+def _search_batch_across_processes(seqs: list[OpSeq], model, sh, *,
+                                   audit: bool, **kw) -> list[dict]:
+    """:func:`search_batch` over a keys axis that spans processes: this
+    process checks its contiguous block of the keys over its own shard
+    devices, and the blocks are gathered (``all_gather_object``), so
+    every process returns the whole list."""
+    import torch.distributed as tdist
+
+    n_proc, rank = sh.n_processes, sh.mesh.process_index
+    bounds = [len(seqs) * i // n_proc for i in range(n_proc + 1)]
+    block = seqs[bounds[rank]:bounds[rank + 1]]
+    mine = search_batch(block, model, sharding=sh.local(), lint=False,
+                        audit=audit, **kw) if block else []
+    parts: list = [None] * n_proc
+    tdist.all_gather_object(parts, mine)
+    return [r for part in parts for r in part]
+
+
 def _search_batch_decomposed(seqs: list[OpSeq], model, *, budget: int,
-                             dims, device, cache, bucket=None,
+                             dims, device, cache, sharding=None,
+                             bucket=None,
                              hb: bool | None = None,
                              dpor: bool | None = None,
                              telemetry: bool | None = None) -> list[dict]:
@@ -1109,8 +1177,8 @@ def _search_batch_decomposed(seqs: list[OpSeq], model, *, budget: int,
             todo.append(i)
     if todo:
         sub = search_batch([seqs[i] for i in todo], model, budget=budget,
-                           dims=dims, device=device, bucket=bucket,
-                           lint=False, hb=hb, dpor=dpor,
+                           dims=dims, device=device, sharding=sharding,
+                           bucket=bucket, lint=False, hb=hb, dpor=dpor,
                            telemetry=telemetry)
         for i, r in zip(todo, sub):
             results[i] = r
@@ -1470,3 +1538,9 @@ class Linearizable:
 
 def linearizable(model=None, **kw) -> Linearizable:
     return Linearizable(model, **kw)
+
+
+# the multi-device routes (sharded.py), under this module's names as in
+# the JAX package
+from .sharded import (build_sharded_search_step_fn,  # noqa: E402,F401
+                      get_sharded_batch_kernel, search_opseq_sharded)

@@ -153,74 +153,82 @@ def _pw_parts(cfgs: torch.Tensor, dims: SearchDims):
             _popcount32(cr).sum(dim=1))
 
 
-def _sort_dominance(pwh, popc, valid, cfgs, M: int, dims: SearchDims,
-                    R: int = _DOM_WINDOW):
-    """Sort rows by (pw-hash, [crash popcount | full hash], index) and
-    drop every row dominated by an earlier one: same (p, window, state)
-    words and a crash mask that is a subset of this row's.  Tested
-    against a backward window of R rows and against the run's first
-    row.  Hashes only order; domination is decided on full words.
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, j]]`` for a ``[B, N, ...]`` tensor and ``[B, J]``
+    indices."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
-    Returns (kept, sorted cfgs, perm): perm maps sorted rows to input
-    rows."""
+
+def _prune_blocks(cfgs, valid, dims: SearchDims, use_allpairs: bool,
+                  R: int = _DOM_WINDOW):
+    """Dominance prune of B independent blocks of M rows (``cfgs [B, M,
+    WORDS]``, ``valid [B, M]``) -> (kept, cfgs_out, origin), ``[B, M]``
+    each: origin[b, i] is the input row behind output row i.
+
+    All-pairs: row i is dropped when a valid row j has the same (p,
+    window, state) words and j's crash mask is a strict subset of i's,
+    or is identical with j < i; input order kept.  Sort: rows sorted by
+    (pw-hash, [crash popcount | full hash], index), and every row
+    dominated by an earlier one (same (p, window, state) words, a crash
+    mask that is a subset of this row's) dropped, tested against a
+    backward window of R rows and against the run's first row.  Hashes
+    only order; domination is decided on full words, and a miss keeps a
+    redundant row, never drops a reachable one."""
+    B, M, WORDS = cfgs.shape
     dev = cfgs.device
+    iota = torch.arange(M, device=dev)
+
+    def split(x):
+        return (w.reshape(B, M, -1)
+                for w in _split_words(x.reshape(B * M, WORDS), dims))
+
+    if use_allpairs:
+        pw, cr = split(cfgs)
+        eq_pw = torch.ones((B, M, M), dtype=torch.bool, device=dev)
+        for w in range(pw.shape[2]):
+            col = pw[:, :, w]
+            eq_pw &= col[:, :, None] == col[:, None, :]
+        sub = torch.ones_like(eq_pw)   # sub[b, i, j]: cr_j subset of cr_i
+        eq_cr = torch.ones_like(eq_pw)
+        for w in range(cr.shape[2]):
+            col = cr[:, :, w]
+            sub &= (col[:, None, :] & ~col[:, :, None]) == 0
+            eq_cr &= col[:, :, None] == col[:, None, :]
+        dom = valid[:, None, :] & ((eq_pw & sub & ~eq_cr)
+                                   | (eq_pw & eq_cr
+                                      & (iota[None, :] < iota[:, None])))
+        return valid & ~dom.any(dim=2), cfgs, iota.expand(B, M)
+    pwh, popc = (x.reshape(B, M)
+                 for x in _pw_parts(cfgs.reshape(B * M, WORDS), dims))
     h2 = _hash_words(_u32(cfgs), 0x7FEB352D)
     k1 = torch.where(valid, pwh, _MASK32)
     k2 = torch.where(valid, (popc << 25) | (h2 >> 7), _MASK32)
     # one int64 key ordering (k1, k2); the stable sort breaks ties by
     # input index, as a sort on (k1, k2, iota) does
     key = (k1 - 2**31) * 2**32 + k2
-    perm = torch.sort(key, stable=True).indices
-    svalid = valid[perm]
-    scfgs = cfgs[perm]
-    spw, scr = _split_words(scfgs, dims)
-    drop = torch.zeros(M, dtype=torch.bool, device=dev)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    svalid = valid.gather(1, perm)
+    scfgs = _rows(cfgs, perm)
+    spw, scr = split(scfgs)
+    drop = torch.zeros((B, M), dtype=torch.bool, device=dev)
     for o in range(1, min(R, M - 1) + 1):
-        eq = (spw[o:] == spw[:-o]).all(dim=1)
-        sub = ((scr[:-o] & ~scr[o:]) == 0).all(dim=1)
-        drop[o:] |= svalid[:-o] & eq & sub
-    iota = torch.arange(M, device=dev)
-    boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          (spw[1:] != spw[:-1]).any(dim=1)])
-    starts = torch.cummax(torch.where(boundary, iota, 0), dim=0).values
-    fdom = (((scr[starts] & ~scr) == 0).all(dim=1) & (iota != starts)
-            & svalid[starts])
+        eq = (spw[:, o:] == spw[:, :-o]).all(dim=2)
+        sub = ((scr[:, :-o] & ~scr[:, o:]) == 0).all(dim=2)
+        drop[:, o:] |= svalid[:, :-o] & eq & sub
+    boundary = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                          (spw[:, 1:] != spw[:, :-1]).any(dim=2)], dim=1)
+    starts = torch.cummax(torch.where(boundary, iota, 0), dim=1).values
+    fdom = (((_rows(scr, starts) & ~scr) == 0).all(dim=2)
+            & (iota != starts) & svalid.gather(1, starts))
     return svalid & ~(drop | fdom), scfgs, perm
 
 
-def _allpairs_dominance(cfgs, valid, dims: SearchDims):
-    """Exact dominance prune as one [M, M] comparison: row i is dropped
-    when a valid row j has the same (p, window, state) words and j's
-    crash mask is a strict subset of i's, or is identical with j < i.
-    Keeps input order."""
-    M = cfgs.shape[0]
-    pw, cr = _split_words(cfgs, dims)
-    eq_pw = torch.ones((M, M), dtype=torch.bool, device=cfgs.device)
-    for w in range(pw.shape[1]):
-        col = pw[:, w]
-        eq_pw &= col[:, None] == col[None, :]
-    sub = torch.ones_like(eq_pw)   # sub[i, j]: cr_j subset of cr_i
-    eq_cr = torch.ones_like(eq_pw)
-    for w in range(cr.shape[1]):
-        col = cr[:, w]
-        sub &= (col[None, :] & ~col[:, None]) == 0
-        eq_cr &= col[:, None] == col[None, :]
-    iota = torch.arange(M, device=cfgs.device)
-    dom = valid[None, :] & ((eq_pw & sub & ~eq_cr)
-                            | (eq_pw & eq_cr
-                               & (iota[None, :] < iota[:, None])))
-    return valid & ~dom.any(dim=1)
-
-
-def _prune_rows(cfgs, valid, M: int, dims: SearchDims,
-                use_allpairs: bool):
-    """Dominance prune over M rows -> (kept, cfgs_out, origin): origin[i]
-    is the input row behind output row i."""
-    if use_allpairs:
-        return (_allpairs_dominance(cfgs, valid, dims), cfgs,
-                torch.arange(M, device=cfgs.device))
-    pwh, popc = _pw_parts(cfgs, dims)
-    return _sort_dominance(pwh, popc, valid, cfgs, M, dims)
+def _prune_rows(cfgs, valid, dims: SearchDims, use_allpairs: bool):
+    """Dominance prune over one block of rows -> (kept, cfgs_out,
+    origin): :func:`_prune_blocks` of a single block."""
+    kept, scfgs, origin = _prune_blocks(cfgs[None], valid[None], dims,
+                                        use_allpairs)
+    return kept[0], scfgs[0], origin[0]
 
 
 def _slice_tables(tables: dict, p: torch.Tensor, alive: torch.Tensor,
@@ -243,7 +251,7 @@ _DET_TABLES = ("det_f", "det_v1", "det_v2", "det_inv", "det_ret")
 
 def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
                         masked_crash: bool = False, dedup: bool = False,
-                        telemetry: bool = False):
+                        telemetry: bool = False, row_counts: bool = False):
     """The per-level building blocks: ``expand_mask`` (enabled
     candidates, model step and goal test for every row, K lanes each;
     no successor words) and ``succ`` (a survivor's packed successor
@@ -251,7 +259,7 @@ def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
     ``masked``/``masked_crash``/``dedup`` add the reductions' checks;
     ``telemetry`` makes ``expand_mask`` also return the lanes the mask
     killed and the successor states the dedup folded (0-d tensors, or 0
-    where the reduction is off)."""
+    where the reduction is off; per row with ``row_counts``)."""
     W, K, NC = dims.window, dims.k, dims.n_crash_pad
     WW, CW, SW = dims.win_words, dims.crash_words, dims.state_width
     W2P = min(_round_up(2 * W + NC, 32), dims.n_det_pad)
@@ -352,10 +360,14 @@ def _make_kernel_pieces(model, dims: SearchDims, *, masked: bool = False,
         if not telemetry:
             return valid, cand, new_state, goal
         killed = (torch.where(alive, pre - det_en.sum(dim=1)
-                              - c_en.sum(dim=1), 0).sum()
-                  if masked else 0)
-        folds = (valid & is_dead).sum() if dedup else 0
-        return valid, cand, new_state, goal, killed, folds
+                              - c_en.sum(dim=1), 0)
+                  if masked else torch.zeros_like(p))
+        folds = ((valid & is_dead).sum(dim=1) if dedup
+                 else torch.zeros_like(p))
+        if row_counts:
+            return valid, cand, new_state, goal, killed, folds
+        return (valid, cand, new_state, goal,
+                killed.sum() if masked else 0, folds.sum() if dedup else 0)
 
     def succ(cfgs, lane, ns):
         dev = cfgs.device
@@ -448,8 +460,8 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
             return pieces["expand_mask"](fr, alive, tables, n_det,
                                          n_crash, dead_lo, dead_tok)
 
-        def prune_compact(cfgs, valid, M, ap):
-            kept, scfgs, origin = _prune_rows(cfgs, valid, M, dims, ap)
+        def prune_compact(cfgs, valid, ap):
+            kept, scfgs, origin = _prune_rows(cfgs, valid, dims, ap)
             src, n_kept = _compact_indices(kept, F)
             return scfgs[src], n_kept, kept, origin
 
@@ -481,7 +493,7 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
                 ovf = ovf | (n_valid > F)
                 frontier, n_kept, kept, origin = prune_compact(
                     torch.cat([frontier, ccfgs]),
-                    torch.cat([alive, cvalid]), 2 * F, ap_cl)
+                    torch.cat([alive, cvalid]), ap_cl)
                 ovf = ovf | (n_kept > F)
                 count = n_kept.clamp(max=F).to(i32)
                 # progress iff a successor-block row survived the merge
@@ -505,7 +517,7 @@ def build_search_step_fn(model, dims: SearchDims, device, *,
                 cand2, ns2, S, K)
             ovf = ovf | (n_valid > S)
             new_frontier, n_kept, _kept, _origin = prune_compact(
-                dcfgs, dvalid, S, ap_det)
+                dcfgs, dvalid, ap_det)
             ovf = ovf | (n_kept > F)
             new_count = n_kept.clamp(max=F).to(i32)
 

@@ -243,6 +243,40 @@ class SearchTelemetry:
         return out
 
 
+def emit_shard_levels(tele: np.ndarray, n_used: int, n_shards: int,
+                      t0: float, t1: float) -> None:
+    """Per-shard ``device.level`` spans of one sharded batch slice:
+    ``tele`` is its ``[B, TELE_ROWS, TELE_COLS]`` lane-stacked block, in
+    ``n_shards`` contiguous blocks of lanes.  Lanes at or past ``n_used``
+    are the inert pad keys and are left out.  Each shard's lane sum
+    becomes its own spans (``shard=i``), the slice's window shared out by
+    occupancy as :meth:`SearchTelemetry.add_slice` does.  Only while
+    tracing; the totals are the caller's accumulator's."""
+    if not _trace.enabled():
+        return
+    t = np.asarray(tele)
+    if t.ndim != 3 or n_shards <= 0 or t.shape[0] % n_shards:
+        return
+    per = t.shape[0] // n_shards
+    rec = _trace.recorder(_trace.current_run())
+    span = max(0.0, t1 - t0)
+    for s in range(n_shards):
+        lo = s * per
+        used = min(max(0, n_used - lo), per)
+        if used <= 0:
+            continue  # only pad keys ran here
+        rows = unpack_levels(t[lo:lo + used].sum(axis=0))
+        if not rows:
+            continue
+        occ_sum = sum(r["occupancy"] for r in rows) or 1
+        cur = t0
+        for i, r in enumerate(rows):
+            end = min(t1, cur + span * (r["occupancy"] / occ_sum))
+            rec.record("device.level", "device", cur, end,
+                       {"level": i, "shard": s, "lanes": used, **r})
+            cur = end
+
+
 def _predicted_ratio(result: dict | None, hbres=None):
     """The prepass's predicted prune_ratio for this search, if any: the
     live prepass stats (``hbres``) first, else the result's ``hb``

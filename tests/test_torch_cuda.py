@@ -454,3 +454,51 @@ def test_stream_device_fold_on_the_card(cuda):
     assert out["cuda"]["valid"] == out["cpu"]["valid"]
     assert out["cuda"]["stream"]["routes"] == out["cpu"]["stream"]["routes"]
     assert out["cuda"]["stream"]["routes"]["device"] >= 1
+
+
+@pytest.mark.cuda
+def test_sharded_routes_on_the_card(cuda, monkeypatch):
+    """The sharded-frontier search over 4 logical shards of the card
+    equals the same search over 4 CPU shards with the card's prune
+    (all-pairs), whole result and telemetry, and gives the single-device
+    search's verdict and depth; the key-sharded batch on the card gives
+    the unsharded batch's verdicts, and its shards run the grid form."""
+    from jepsen_tpu_torch.distributed import ShardMesh
+
+    monkeypatch.setattr(lin, "_adapt_lvl_cap",
+                        lambda cap, dt, target_s=None: cap)
+    model = cas_register()
+    rng = random.Random(42)
+    h = register_history(rng, n_ops=220, n_procs=16, overlap=6,
+                         crash_p=0.01, max_crashes=4)
+    seq = encode_ops(corrupt_read(rng, h, at=0.95), model.f_codes)
+    got = lin.search_opseq_sharded(seq, model, ShardMesh(["cuda:0"] * 4),
+                                   frontier_per_device=64)
+    monkeypatch.setattr(step, "_DOMINANCE_MODE", "allpairs")
+    want = lin.search_opseq_sharded(seq, model, ShardMesh(["cpu"] * 4),
+                                    frontier_per_device=64)
+    monkeypatch.setattr(step, "_DOMINANCE_MODE", "auto")
+    for f in ("valid", "configs", "max_depth", "engine",
+              "frontier_per_device", "search_telemetry"):
+        assert got[f] == want[f], f
+    single = search_opseq(seq, model, device="cuda")
+    assert (single["valid"], single["max_depth"]) == \
+        (got["valid"], got["max_depth"])
+
+    seqs = []
+    for k in range(12):
+        r = random.Random(900 + k)
+        hk = register_history(r, n_ops=60, n_procs=5, overlap=4)
+        if k % 3 == 0:
+            hk = corrupt_read(r, hk, at=0.8)
+        seqs.append(encode_ops(hk, model.f_codes))
+    before = lk.BATCH_LAUNCHES
+    sharded = lin.search_batch(seqs, model, sharding=ShardMesh(["cuda:0"] * 4),
+                               hb=False, dpor=False)
+    assert lk.BATCH_LAUNCHES > before
+    plain = lin.search_batch(seqs, model, device="cuda", hb=False,
+                             dpor=False)
+    assert [r["valid"] for r in sharded] == [r["valid"] for r in plain]
+    assert [r["max_depth"] for r in sharded] == \
+        [r["max_depth"] for r in plain]
+

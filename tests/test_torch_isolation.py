@@ -51,7 +51,8 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "obs", "obs.metrics", "obs.trace", "obs.telemetry", "analyze.plan",
     "decompose", "decompose.cache", "decompose.engine",
     "decompose.schedule", "checker.basic", "stream", "stream.checker",
-    "stream.device", "stream.service", "stream.bench", "stream.__main__")}
+    "stream.device", "stream.service", "stream.bench", "stream.__main__",
+    "distributed", "checker.sharded")}
 
 
 def _sources():

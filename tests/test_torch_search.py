@@ -133,8 +133,9 @@ def test_host_oracle_matches_reference(kind, seed, corrupt):
 
 def test_routes_of_later_slices_refuse(tmp_path):
     """The routes of queue item A5, the passes of item A7, the
-    checkpoints of A3 and the decomposition of A8 answer; the options
-    of later items still refuse anything but off."""
+    checkpoints of A3, the decomposition of A8 and the sharding of A11
+    answer; the options of later items still refuse anything but
+    off."""
     test = {"store_base": str(tmp_path)}
     _, _, st, mt = _pair("register", 1, corrupt=True)
     big = tlin.linearizable(mt, device="cpu", host_threshold=10)
@@ -157,7 +158,14 @@ def test_routes_of_later_slices_refuse(tmp_path):
     assert tcheck_linear(st, mt, decompose=True)["valid"] is False
     assert tlin.search_batch([st], mt, device="cpu",
                              decompose=True)[0]["valid"] is False
-    with pytest.raises(NotImplementedError):
+    # the mesh-sharded batch of queue item A11 answers
+    # (tests/test_torch_sharded_batch.py); a sharding that is not a mesh
+    # raises
+    from jepsen_tpu_torch.distributed import ShardMesh
+
+    assert tlin.search_batch([st], mt, sharding=ShardMesh(["cpu"] * 2)
+                             )[0]["valid"] is False
+    with pytest.raises(TypeError):
         tlin.search_batch([st], mt, device="cpu", sharding=object())
     small = tlin.linearizable(mt, device="cpu", host_threshold=10**6)
     out = small.check(test, st)

@@ -1,7 +1,8 @@
 """The reference numbers ``chip_smoke.py`` holds the card to, recomputed
 by the JAX package on the CPU from the same histories: the bench tiers'
 device search with the JAX package's defaults (``REFERENCE_REDUCED``,
-``PREPASS_REASON``) and the queue histories' verdicts (``QUEUES``)."""
+``PREPASS_REASON``), the queue histories' verdicts (``QUEUES``), and
+the batch256 keys' answers (``BATCH256_*``)."""
 
 import pytest
 
@@ -58,6 +59,26 @@ def test_batch256_reference(monkeypatch):
     assert all(r["valid"] is True for k, r in enumerate(out)
                if k not in chip_smoke.BATCH256_INVALID)
     assert tuple(r["configs"] for r in out) == chip_smoke.BATCH256_CONFIGS
+    assert tuple(r["max_depth"] for r in out) == chip_smoke.BATCH256_DEPTH
+
+
+def test_batch256_at64_reference(monkeypatch):
+    """``BATCH256_AT64_CONFIGS``: the JAX package's ``search_batch`` with
+    DPOR off on the batch256 keys at one fixed frontier of 64 rows, the
+    sharded batch's shape; the other keys' configs, and every key's
+    verdict and depth, as ``BATCH256_*``."""
+    reference_defaults(monkeypatch)
+    keys, _model = chip_smoke.batch_keys()
+    keys = [_jax(s) for s in keys]
+    model = jm.cas_register()
+    dims = lin.batch_dims([lin.encode_search(s) for s in keys], model,
+                          frontier=64)
+    out = lin.search_batch(keys, model, dpor=False, dims=dims)
+    assert {k: r["configs"] for k, r in enumerate(out)
+            if r["configs"] != chip_smoke.BATCH256_CONFIGS[k]} == \
+        chip_smoke.BATCH256_AT64_CONFIGS
+    assert {k for k, r in enumerate(out) if r["valid"] is False} == \
+        chip_smoke.BATCH256_INVALID
     assert tuple(r["max_depth"] for r in out) == chip_smoke.BATCH256_DEPTH
 
 
