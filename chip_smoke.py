@@ -44,8 +44,15 @@ bench tier.  The multi-device routes run over logical shards of the
 card (:data:`SHARDS`): the sharded-frontier search on 1k (one shard and
 four) and mutex2k, the key-sharded batch on batch256 (bucketed and
 fused, its shards on B1's grid form), and the same batch over a
-one-rank NCCL process group on the keys axis.  Every phase prints one
-line per case, timed
+one-rank NCCL process group on the keys axis.  The fleet tier runs on
+the card too (:func:`phase_fleet`): the warm boot from a cold kernel
+cache launches B1 at every steady-state shape and verifies, two
+in-process workers behind the router check a client swarm (every
+segment folded on B1-T's grid form, no kernel-cache miss, every final
+equal to one service's), a worker stopped mid-run has its runs salvaged
+and rerouted, and ``python -m jepsen_tpu_torch.fleet`` boots two worker
+processes from a warmup manifest and drains on SIGTERM.  Every phase
+prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
 phase exits nonzero.  Exits nonzero without a result when no CUDA device
@@ -2466,6 +2473,341 @@ def phase_sharded():
     return launches
 
 
+#: the fleet tier at the JAX package's own size (``fleet/bench.py``):
+#: 2 workers, 400-op register runs of 6 processes (overlap 4, quiescent
+#: every 8 ops, 5 values), rungs of 1, 2, 4 and 8 clients, 3 runs each
+FLEET_RUNGS = (1, 2, 4, 8)
+FLEET_RUNS_PER_CLIENT = 3
+FLEET_OPS = 400
+#: seeds of the traffic sample whose compile spans give the warm set
+#: (the swarm's seeds start at 1001)
+FLEET_SHAPE_SEEDS = (2001, 2002)
+#: the sharded-batch shape the warm boot adds: 16 keys over 4 logical
+#: shards of the card (the sharded batch's own frontier of 64)
+FLEET_SHARDED_SHAPE = dict(n_det_pad=64, frontier=64, batch=16, shards=4)
+#: the ``--device`` of ``python -m jepsen_tpu_torch.fleet``'s workers
+FLEET_WORKER_DEVICE = "cuda"
+
+
+def _fleet_final_check(label, got, want) -> None:
+    from jepsen_tpu_torch.fleet.bench import _strip_cache
+
+    check(_strip_cache(got) == want, f"{label}: the routed final "
+          f"{_strip_cache(got)} differs from the single service's {want}")
+
+
+def _quiescent_cut(h) -> int:
+    """The first index past the middle of ``h`` where no op is open."""
+    for i in range(len(h) // 2, len(h)):
+        if sum(1 if op.type == "invoke" else -1 for op in h[:i]) == 0:
+            return i
+    raise SmokeFailure("no quiescent cut in the fleet history")
+
+
+def phase_fleet(store_base):
+    """The fleet tier (``jepsen_tpu_torch/fleet/``) on the card.
+
+    ``fleet[warmup]``: a cold kernel cache (as a new worker has), then
+    ``warm_boot`` on ``cuda:0`` over three sets: ``_default_warm_shapes``
+    (the committed 1k trace and the JAX package's small-segment shapes),
+    the shapes a traced sample of the fleet traffic builds
+    (``record_traffic_shapes``, seeds outside the swarm's) and one
+    sharded-batch shape over 4 logical shards; every set verifies and B1
+    launches; a second boot compiles nothing.  ``fleet[routed]``: two
+    in-process workers folding every closed segment on the card
+    (``host_fold_max=0``), each on its own segment of one
+    ``FleetCacheStore`` root, the router with its probes, the swarm at
+    the JAX package's size; no kernel-cache miss while it runs, and every
+    routed final equal to one in-process ``StreamService``'s on the same
+    history.  ``fleet[dead]``: a worker stopped mid-run; its runs'
+    salvaged finals and their suffixes on the survivor equal the single
+    service's.  ``fleet[process]``: ``python -m jepsen_tpu_torch.fleet
+    --workers 2`` warming from a manifest of the traffic shapes, two runs
+    through its router, the aggregated scrape, and a SIGTERM drain.
+    Returns the counted paths' launches."""
+    import dataclasses
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linearizable as lin
+    from jepsen_tpu_torch.fleet import bench as fb
+    from jepsen_tpu_torch.fleet.warmup import WarmShape, warm_boot
+    from jepsen_tpu_torch.reconnect import Backoff
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # -- fleet[warmup] ---------------------------------------------------
+    lin._STEP_CACHE.clear()
+    t0 = time.perf_counter()
+    traffic = fb.record_traffic_shapes(
+        [fb._mk_history(s, FLEET_OPS) for s in FLEET_SHAPE_SEEDS],
+        device="cuda", host_fold_max=0)
+    record_s = time.perf_counter() - t0
+    check(traffic and not lin._STEP_CACHE, f"fleet[warmup]: the traffic "
+          f"sample built {len(traffic)} shapes, cache {len(lin._STEP_CACHE)}")
+    sets = {"default": fb._default_warm_shapes(), "traffic": traffic,
+            "sharded": [WarmShape(**FLEET_SHARDED_SHAPE)]}
+    _zero_counts()
+    for name, shapes in sets.items():
+        s0, g0 = lk.LAUNCHES, lk.BATCH_LAUNCHES
+        by0 = dict(lk.LAUNCHES_BY_FORM)
+        rep = warm_boot(shapes, device="cuda:0")
+        single, grid = lk.LAUNCHES - s0, lk.BATCH_LAUNCHES - g0
+        by = {f"{f},{'on' if t else 'off'}": n - by0[f, t]
+              for (f, t), n in lk.LAUNCHES_BY_FORM.items() if n - by0[f, t]}
+        emit(f"fleet[warmup] {name}: {rep} B1 launches single={single} "
+             f"grid={grid} by form {by}"
+             + (f"; traffic sample traced in {record_s:.3f} s: "
+                f"{[dataclasses.astuple(s) for s in shapes]}"
+                if name == "traffic" else ""))
+        check(rep["verified"] is True and rep["compiled"] > 0
+              and rep["shapes"] == len(shapes),
+              f"fleet[warmup] {name}: report {rep}")
+        check(single + grid > 0, f"fleet[warmup] {name}: B1 never launched")
+        if name == "sharded":
+            check(grid == FLEET_SHARDED_SHAPE["shards"], f"fleet[warmup] "
+                  f"sharded: {grid} grid launches, want one per shard")
+    every = [s for shapes in sets.values() for s in shapes]
+    rep2 = warm_boot(every, device="cuda:0")
+    single, grid = _read_counts()
+    launches["fleet[warmup]"] = {"grid": grid, "single": single}
+    emit(f"fleet[warmup] second boot: {rep2}; both boots launched B1 "
+         f"single={single} grid={grid}")
+    check(rep2["compiled"] == 0 and rep2["verified"] is True,
+          f"fleet[warmup]: the second boot {rep2}")
+
+    # -- fleet[routed] ---------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=store_base) as root:
+        fleet = fb.Fleet(root, device="cuda", host_fold_max=0)
+        try:
+            keys0, misses0 = set(lin._STEP_CACHE), \
+                lin.KERNEL_CACHE_STATS["misses"]
+            _zero_counts()
+            t0 = time.perf_counter()
+            ramp, finals, hists = fb.run_swarm(
+                fleet.port, FLEET_RUNGS, FLEET_RUNS_PER_CLIENT, FLEET_OPS)
+            swarm_s = time.perf_counter() - t0
+            single, grid = _read_counts()
+            misses = lin.KERNEL_CACHE_STATS["misses"] - misses0
+            launches["fleet[routed]"] = {"grid": grid, "single": single}
+            stats = fleet.router.aggregate_stats()
+            segs = {c.worker_id: os.path.getsize(c.path)
+                    for c in fleet.caches}
+        finally:
+            fleet.close()
+    for r in ramp:
+        emit(f"fleet[routed] clients={r['clients']}: runs={r['runs']} "
+             f"finals={r['finals']} events={r['events_total']} "
+             f"wall_s={r['wall_s']} events_per_sec={r['events_per_sec']} "
+             f"overloaded={r['overloaded']} errors={r['errors']}")
+        check(r["finals"] == r["runs"] and not r["errors"]
+              and not r["overloaded"], f"fleet[routed]: rung {r}")
+    knee = fb.throughput_knee(ramp)
+    check(misses == 0, f"fleet[routed]: {misses} kernel-cache misses in "
+          f"the swarm: {sorted(map(str, set(lin._STEP_CACHE) - keys0))}")
+    check(grid > 0, "fleet[routed]: B1's grid form never launched")
+    routes = collections.Counter()
+    for f in finals.values():
+        routes.update(f["stream"]["routes"])
+    t0 = time.perf_counter()
+    par = fb.parity_check(finals, hists, device="cuda", host_fold_max=0,
+                          sample=None)
+    parity_s = time.perf_counter() - t0
+    emit(f"fleet[routed]: {len(finals)} runs of {FLEET_OPS} ops, swarm "
+         f"{swarm_s:.3f} s, knee {knee}; routes over the runs "
+         f"{dict(routes)}; steady-state kernel-cache misses {misses}; B1 "
+         f"launches grid={grid} single={single} (telemetry forms); "
+         f"workers in the scrape {stats.get('n_workers')}, segment bytes "
+         f"{segs}; every final against the single service: "
+         f"{par['parity']} ({par['checked']} runs, {parity_s:.3f} s)")
+    check(par["parity"] and par["checked"] == len(finals) == sum(
+        r["runs"] for r in ramp), f"fleet[routed]: parity "
+        f"{par.get('diffs', [])[:1]}")
+    check(routes["device"] > 0 and routes["host"] == 0,
+          f"fleet[routed]: routes {dict(routes)}")
+
+    # -- fleet[dead] -----------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=store_base) as root:
+        fleet = fb.Fleet(root, device="cuda", host_fold_max=0,
+                         probe_interval=0.05, backoff_factory=lambda: Backoff(
+                             base=0.01, cap=0.05, max_attempts=3,
+                             jitter=0.0))
+        try:
+            victim = fleet.router.route("dead-0").wid
+            rids = [r for r in (f"dead-{i}" for i in range(64))
+                    if fleet.router.route(r).wid == victim][:2]
+            other = next(r for r in (f"live-{i}" for i in range(64))
+                         if fleet.router.route(r).wid != victim)
+            runs = {r: fb._mk_history(4001 + i, FLEET_OPS)
+                    for i, r in enumerate(rids + [other])}
+            lines = {r: fb._op_lines(r, h) for r, h in runs.items()}
+            cuts = {r: _quiescent_cut(runs[r]) for r in rids}
+            vsrv = fleet.servers[[s.wid for s in fleet.specs].index(victim)]
+            _zero_counts()
+            with socket.create_connection(("127.0.0.1", fleet.port),
+                                          timeout=300) as s:
+                w, rf = s.makefile("w"), s.makefile("r")
+                for r in rids:
+                    for li in lines[r][:cuts[r] + 1]:
+                        w.write(li + "\n")
+                for li in lines[other]:
+                    w.write(li + "\n")
+                w.flush()
+                # every prefix op ingested by the victim, then stop it
+                deadline = time.monotonic() + 120
+                while time.monotonic() < deadline and sum(
+                        svc._ops.get(r, 0) for svc in list(vsrv.services)
+                        for r in rids) < sum(cuts.values()):
+                    time.sleep(0.02)
+                fleet.kill(victim)
+                while fleet.router.is_live(victim) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                check(not fleet.router.is_live(victim),
+                      "fleet[dead]: the probes never declared the victim "
+                      "dead")
+                for r in rids:
+                    for li in lines[r][cuts[r] + 1:]:
+                        w.write(li + "\n")
+                w.flush()
+                s.shutdown(socket.SHUT_WR)
+                replies = [json.loads(x) for x in rf if x.strip()]
+            single, grid = _read_counts()
+            launches["fleet[dead]"] = {"grid": grid, "single": single}
+        finally:
+            fleet.close()
+    salvaged = rerouted = 0
+    for r in rids:
+        fin = [d["final"] for d in replies
+               if d.get("run") == r and "final" in d]
+        head, end = lines[r][0], lines[r][-1:]
+        pre = fb._single_service_final(
+            None, device="cuda", host_fold_max=0,
+            lines=lines[r][:cuts[r] + 1] + end)
+        suf = fb._single_service_final(
+            None, device="cuda", host_fold_max=0,
+            lines=[head] + lines[r][cuts[r] + 1:])
+        sal = [f for f in fin if f.get("finalized_by") == "salvage"]
+        rest = [f for f in fin if f.get("finalized_by") != "salvage"]
+        check(len(sal) == 1 and {k: sal[0][k] for k in ("valid", "engine")}
+              == {k: pre[k] for k in ("valid", "engine")},
+              f"fleet[dead] {r}: salvaged {sal}, want {pre}")
+        check(rest and len(rest) <= 2, f"fleet[dead] {r}: finals {fin}")
+        _fleet_final_check(f"fleet[dead] {r} suffix", rest[-1], suf)
+        if len(rest) == 2:  # the victim's own final got through first
+            _fleet_final_check(f"fleet[dead] {r} prefix", rest[0], pre)
+        salvaged += 1
+        rerouted += 1
+    fin = [d["final"] for d in replies if d.get("run") == other
+           and "final" in d]
+    check(len(fin) == 1, f"fleet[dead] {other}: finals {fin}")
+    _fleet_final_check(f"fleet[dead] {other}", fin[0],
+                       fb._single_service_final(runs[other], device="cuda",
+                                                host_fold_max=0))
+    emit(f"fleet[dead]: victim {victim} stopped with {len(rids)} open runs "
+         f"(cut at ops {sorted(cuts.values())}); salvaged {salvaged}, "
+         f"suffixes rerouted {rerouted}, the survivor's own run final; every "
+         f"final equal to the single service's; B1 launches grid={grid} "
+         f"single={single}")
+
+    # -- fleet[process] --------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=store_base) as root:
+        manifest = os.path.join(root, "shapes.json")
+        with open(manifest, "w") as f:
+            json.dump({"shapes": [dataclasses.asdict(s) for s in traffic]},
+                      f)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.fleet", "--workers",
+             "2", "--device", FLEET_WORKER_DEVICE, "--warmup", manifest,
+             "--listen", "127.0.0.1:0", "--cache-root",
+             os.path.join(root, "cache")],
+            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True,
+            cwd=str(REPO), start_new_session=True)
+        log_lines, ready = [], threading.Event()
+
+        def read():
+            for ln in proc.stderr:
+                log_lines.append(ln.rstrip())
+                if ln.startswith("fleet router listening on"):
+                    ready.set()
+            ready.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        try:
+            check(ready.wait(300) and proc.poll() is None,
+                  "fleet[process]: the router never listened: "
+                  + " | ".join(log_lines[-20:]))
+            boot_s = time.perf_counter() - t0
+            head = next(ln for ln in log_lines
+                        if ln.startswith("fleet router listening on"))
+            port = int(head.split()[4].rsplit(":", 1)[1])
+            admitted = [ln.split("fleet: ", 1)[1] for ln in log_lines
+                        if "admitted at" in ln]
+            check(len(admitted) == 2 and all("'verified': True" in ln
+                                             for ln in admitted),
+                  f"fleet[process]: admissions {admitted}")
+            hs = {f"proc-{i}": fb._mk_history(5001 + i, FLEET_OPS)
+                  for i in range(2)}
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=300) as s:
+                w, rf = s.makefile("w"), s.makefile("r")
+                for rid, h in hs.items():
+                    for li in fb._op_lines(rid, h):
+                        w.write(li + "\n")
+                w.flush()
+                s.shutdown(socket.SHUT_WR)
+                out = [json.loads(x) for x in rf if x.strip()]
+            for rid, h in hs.items():
+                fin = [d["final"] for d in out
+                       if d.get("run") == rid and "final" in d]
+                check(len(fin) == 1, f"fleet[process] {rid}: {fin}")
+                _fleet_final_check(f"fleet[process] {rid}", fin[0],
+                                   fb._single_service_final(h,
+                                                            device="cuda"))
+            text = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=30).read() \
+                .decode()
+            scraped = sorted({ln.split('worker="', 1)[1].split('"', 1)[0]
+                              for ln in text.splitlines()
+                              if 'worker="' in ln})
+            check({"w1", "w2", "router"} <= set(scraped),
+                  f"fleet[process]: /metrics carries {scraped}")
+            # a run still open when SIGTERM lands gets its final
+            h = fb._mk_history(5003, FLEET_OPS)
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=300) as s:
+                w, rf = s.makefile("w"), s.makefile("r")
+                for li in fb._op_lines("proc-open", h)[:-1]:
+                    w.write(li + "\n")
+                w.flush()
+                # a live reply: the worker holds the run open
+                drained = [json.loads(rf.readline())]
+                check("live" in drained[0], f"fleet[process]: {drained}")
+                t1 = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                drained += [json.loads(x) for x in rf if x.strip()]
+            rc = proc.wait(timeout=120)
+            drain_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+    fin = [d["final"] for d in drained if "final" in d]
+    check(rc == 0 and [f.get("finalized_by") for f in fin] == ["drain"],
+          f"fleet[process]: exit {rc}, finals after SIGTERM {fin}")
+    emit(f"fleet[process]: 2 workers booted and admitted in {boot_s:.3f} s "
+         f"({admitted}); 2 routed runs equal to the single service's; "
+         f"/metrics workers {scraped}; SIGTERM drained the open run "
+         f"(valid={fin[0]['valid']}) and exited {rc} in {drain_s:.3f} s")
+    emit(f"fleet: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -2541,6 +2883,7 @@ def main() -> int:
             launches["checkpoint"] = phase_checkpoint(store_base)
             launches.update(phase_stream(store_base))
             launches.update(phase_sharded())
+            launches.update(phase_fleet(store_base))
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
         shapes.append(phase_grid_timing(device))

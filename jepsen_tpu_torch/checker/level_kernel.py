@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 
 import torch
@@ -61,6 +62,9 @@ BATCH_LAUNCHES = 0
 #: launches so far by (form, telemetry): form "single" or "grid"
 LAUNCHES_BY_FORM = {("single", False): 0, ("single", True): 0,
                     ("grid", False): 0, ("grid", True): 0}
+#: guards the three counts: the fleet's workers launch from several
+#: threads of one process
+_COUNT_LOCK = threading.Lock()
 
 _CUDA = torch.device("cuda")
 
@@ -292,8 +296,9 @@ def level_loop(model, dims: SearchDims, *args, telemetry: bool = False):
                               args[:_N_TABLES], dims.n_det_pad + 1, *counts,
                               frontier, scal_in, int(args[19]),
                               int(args[20]), bool(args[21]), telemetry)
-    LAUNCHES += 1
-    LAUNCHES_BY_FORM["single", telemetry] += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_FORM["single", telemetry] += 1
     carry = (out, scal[0], scal[1], scal[2], scal[3], scal[4] != 0)
     return carry + (tele,) if telemetry else carry
 
@@ -332,8 +337,9 @@ def level_loop_batch(model, dims: SearchDims, *args,
         "level_loop_batch", model, dims, (frontier.shape[0],),
         args[:_N_TABLES], sfx_stride(dims), n_det, n_crash, frontier,
         scal_in, int(args[19]), int(args[20]), bool(args[21]), telemetry)
-    BATCH_LAUNCHES += 1
-    LAUNCHES_BY_FORM["grid", telemetry] += 1
+    with _COUNT_LOCK:
+        BATCH_LAUNCHES += 1
+        LAUNCHES_BY_FORM["grid", telemetry] += 1
     carry = (out, scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3],
              scal[:, 4] != 0)
     return carry + (tele,) if telemetry else carry

@@ -98,14 +98,21 @@ _SLICE_MAX = 16384
 
 
 def _resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``.  A CUDA device without a card
-    raises: the port never drops quietly to the CPU; callers that want
-    the CPU ask for ``device="cpu"``."""
+    """``device`` as a ``torch.device``; a CUDA device without an index
+    names the current card (``"cuda"`` and ``"cuda:0"`` resolve alike,
+    so both find the same slice functions: the device is part of every
+    kernel-cache key).  A CUDA device without a card raises: the port
+    never drops quietly to the CPU; callers that want the CPU ask for
+    ``device="cpu"``."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the host")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but "
+                "torch.cuda.is_available() is False; pass device='cpu' "
+                "to run on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -162,6 +169,9 @@ _STEP_CACHE: dict = {}
 
 #: slice-function cache hits and misses (single and batch)
 KERNEL_CACHE_STATS = {"hits": 0, "misses": 0}
+#: guards KERNEL_CACHE_STATS: a fleet's workers look up from several
+#: threads of one process
+_KCACHE_LOCK = threading.Lock()
 
 #: the registry's twin of KERNEL_CACHE_STATS
 _M_KCACHE = obs.REGISTRY.counter(
@@ -182,7 +192,8 @@ def _cached(key, build, model, dims: SearchDims, use_k: bool,
     ``use_k`` says)."""
     fn = _STEP_CACHE.get(key)
     hit = fn is not None
-    KERNEL_CACHE_STATS["hits" if hit else "misses"] += 1
+    with _KCACHE_LOCK:
+        KERNEL_CACHE_STATS["hits" if hit else "misses"] += 1
     _M_KCACHE.inc(event="hit" if hit else "miss")
     if fn is None:
         with _tele.compile_span(

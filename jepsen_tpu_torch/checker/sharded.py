@@ -457,7 +457,7 @@ def search_opseq_sharded(seq, model, mesh: ShardMesh, *,
             model, dims, mesh, axis, masked=masked, masked_crash=masked_crash,
             dedup=dedup, telemetry=tele_on), model, dims, False,
             engine="device-sharded", shards=D, masked=masked,
-            masked_crash=masked_crash, dedup=dedup)
+            masked_crash=masked_crash, dedup=dedup, telemetry=tele_on)
         if resume is not None:
             carry0 = resume
         else:

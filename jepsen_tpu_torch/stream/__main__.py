@@ -7,6 +7,19 @@ protocol over TCP, one connection per run namespace, and drains on
 SIGTERM (every open run answers its final, then the process exits 0).
 ``--device`` says where device-routed segment folds search (``cuda``,
 the default, or ``cpu``).  See ``stream/service.py`` for the protocol.
+
+As a fleet worker (``python -m jepsen_tpu_torch.fleet`` starts them so):
+``--fleet-cache DIR`` puts the verdict cache in the fleet's shared store
+at DIR, this worker appending to its own segment (``--worker-id``
+names it; ``fleet/cachestore.py``), and ``--warmup MANIFEST`` warms the
+steady-state slice functions on ``--device`` before serving
+(``fleet/warmup.py``: on the card it builds B1 and launches it at every
+shape).  The warm boot prints ``stream service warmup: shapes=N
+compiled=N verified=true|false persistent_cache=true|false wall_s=S`` on
+stderr before the ``stream service listening on`` line, so the fleet's
+admission gate reads it before it can route a run here; a shape whose
+coordinates drifted from the cache-key model (K007) or a failed verify
+prints ``verified=false``.
 """
 
 from __future__ import annotations
@@ -81,6 +94,21 @@ def main(argv=None) -> int:
                    help="Where device-routed segment folds search: "
                         "cuda (the default; raises without a card) or "
                         "cpu.")
+    p.add_argument("--fleet-cache", metavar="DIR", default=None,
+                   help="Use the fleet's shared verdict-cache store "
+                        "rooted at DIR (fleet/cachestore.py: one "
+                        "write-ahead segment per worker, merged on "
+                        "spill) instead of the single jsonl --cache.")
+    p.add_argument("--worker-id", default=None,
+                   help="Stable worker id naming this worker's "
+                        "--fleet-cache segment (default: w<pid>).")
+    p.add_argument("--warmup", metavar="MANIFEST", default=None,
+                   help="Warm the steady-state slice functions on "
+                        "--device before serving (fleet/warmup.py): "
+                        "MANIFEST is a shape-manifest JSON or a "
+                        "recorded trace (BENCH_trace_*.json); prints "
+                        "the 'stream service warmup:' line the fleet's "
+                        "admission gate parses.")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
 
@@ -93,11 +121,36 @@ def main(argv=None) -> int:
         model = model_from_descriptor(
             (args.model, (args.init,), args.width))
     cache = None
-    if not args.no_cache:
+    if args.fleet_cache and not args.no_cache:
+        from ..fleet.cachestore import FleetCacheStore
+
+        cache = FleetCacheStore(args.fleet_cache,
+                                worker_id=args.worker_id)
+    elif not args.no_cache:
         path = args.cache
         if path == "store":
             path = default_cache_path()
         cache = VerdictCache(path)
+
+    if args.warmup:
+        # before the listen line: the fleet's admission gate must never
+        # route a run at a worker still building its kernels
+        from ..fleet.warmup import load_shapes, warm_boot
+
+        k007: list = []
+        report = warm_boot(load_shapes(args.warmup, diagnostics=k007),
+                           device=args.device)
+        verified = report["verified"] and not k007
+        print("stream service warmup: shapes=%d compiled=%d "
+              "verified=%s persistent_cache=%s wall_s=%.3f"
+              % (report["shapes"], report["compiled"],
+                 str(verified).lower(),
+                 str(report["persistent_cache"]).lower(),
+                 report["wall_s"]),
+              file=sys.stderr, flush=True)
+        for d in k007:
+            print(f"stream service {d.code}: {d.message}",
+                  file=sys.stderr, flush=True)
 
     if args.listen:
         import signal

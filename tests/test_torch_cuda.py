@@ -502,3 +502,39 @@ def test_sharded_routes_on_the_card(cuda, monkeypatch):
     assert [r["max_depth"] for r in sharded] == \
         [r["max_depth"] for r in plain]
 
+
+
+@pytest.mark.cuda
+def test_fleet_warm_boot_and_routed_fold_on_the_card(cuda, tmp_path,
+                                                     monkeypatch):
+    """The fleet's warm boot on ``cuda:0`` launches B1 in both forms
+    (a single-key shape, the traffic's batch shape) and verifies, and a
+    second boot builds nothing; then a run routed through a two-worker
+    in-process fleet (every segment folded on the card) finals as the
+    single service does, with no kernel-cache miss."""
+    from jepsen_tpu_torch.fleet import bench as fb
+    from jepsen_tpu_torch.fleet.warmup import WarmShape, warm_boot
+
+    monkeypatch.setattr(lin, "_STEP_CACHE", {})
+    traffic = fb.record_traffic_shapes([fb._mk_history(2001, 80)],
+                                       device="cuda", host_fold_max=0)
+    assert traffic and not lin._STEP_CACHE
+    shapes = [WarmShape(n_det_pad=64, frontier=64)] + traffic
+    s0, g0 = lk.LAUNCHES, lk.BATCH_LAUNCHES
+    rep = warm_boot(shapes, device="cuda:0")
+    assert rep["verified"] is True and rep["compiled"] == len(shapes)
+    assert lk.LAUNCHES > s0 and lk.BATCH_LAUNCHES > g0
+    assert warm_boot(shapes, device="cuda:0")["compiled"] == 0
+
+    fleet = fb.Fleet(str(tmp_path), device="cuda", host_fold_max=0)
+    try:
+        misses = lin.KERNEL_CACHE_STATS["misses"]
+        g1 = lk.BATCH_LAUNCHES
+        _ramp, finals, hists = fb.run_swarm(fleet.port, [2], 1, 80)
+        assert lin.KERNEL_CACHE_STATS["misses"] == misses
+        assert lk.BATCH_LAUNCHES > g1
+    finally:
+        fleet.close()
+    par = fb.parity_check(finals, hists, device="cuda", host_fold_max=0,
+                          sample=None)
+    assert par["parity"] is True and par["checked"] == 2

@@ -52,7 +52,9 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "decompose", "decompose.cache", "decompose.engine",
     "decompose.schedule", "checker.basic", "stream", "stream.checker",
     "stream.device", "stream.service", "stream.bench", "stream.__main__",
-    "distributed", "checker.sharded")}
+    "distributed", "checker.sharded", "reconnect", "analyze.devlint",
+    "fleet", "fleet.warmup", "fleet.cachestore", "fleet.admission",
+    "fleet.router", "fleet.bench", "fleet.__main__")}
 
 
 def _sources():
