@@ -51,7 +51,14 @@ in-process workers behind the router check a client swarm (every
 segment folded on B1-T's grid form, no kernel-cache miss, every final
 equal to one service's), a worker stopped mid-run has its runs salvaged
 and rerouted, and ``python -m jepsen_tpu_torch.fleet`` boots two worker
-processes from a warmup manifest and drains on SIGTERM.  Every phase
+processes from a warmup manifest and drains on SIGTERM.  The static plan
+closes its loop on the card (:func:`phase_plan` to
+:func:`phase_report`): ``explain`` launches nothing and predicts the
+route, first dims and bucket the live searches take; the shard bench
+tier runs in full over eight logical shards, its live stats equal to the
+plan and to the JAX package's numbers; a seeded corpus replays through
+every route with B1 on the direct and bucketed ones; and the shard
+tier's trace folds into its device share.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -2808,6 +2815,310 @@ def phase_fleet(store_base):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the static plan and its closed loop on the card
+# ---------------------------------------------------------------------------
+
+#: the JAX package's static plan of the shard tier's full key set (40
+#: keys of 74 ops and 8 of 240 over 8 devices: ``explain_batch(keys,
+#: model, n_devices=8)`` on the CPU, the numbers of its committed
+#: BENCH_shard.json), which the port's live stats on the card must equal
+SHARD_TIER_PLAN = {"n_buckets": 2, "useful_ops": 3619, "padded_ops": 6144,
+                   "padding_efficiency": 0.589, "fused_padded_ops": 13824,
+                   "fused_padding_efficiency": 0.2618}
+
+#: the corpus phase's register histories: seeds, and their shape (110
+#: ops of 6 processes, 5 in flight, a few crashes), sized past the greedy
+#: witness and the prepass; every other one gets a corrupted read
+CORPUS_SEEDS = tuple(range(9000, 9006))
+CORPUS_REGISTER = dict(n_ops=110, n_procs=6, overlap=5, crash_p=0.03,
+                       max_crashes=3, n_values=4)
+
+
+def _timed_phase(name):
+    """Print a phase's wall seconds when it returns."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            emit(f"{name}: phase wall {time.perf_counter() - t0:.1f} s")
+            return out
+        return run
+    return deco
+
+
+@_timed_phase("plan")
+def phase_plan():
+    """The static plan against the live search on the card.  For 1k
+    (the defaults), mutex2k (its prepass decides it, so with the prepass
+    and DPOR off) and a 110-op register history (prepass and DPOR off,
+    whose first frontier is the card's 64 where the host's is 32),
+    ``explain(device="cuda")`` launches nothing,
+    and its ``engine``, ``search_dims`` (the frontier included) and
+    ``bucket`` must be the route the live device search took, the dims it
+    started at, and the bucket the bucketed batch put the history in;
+    mutex2k's plan must carry the prepass's decision.  The plan's
+    predicted hb/dpor prune ratios print beside 1k's observed one.
+    ``Linearizable(explain=True)`` on 1k launches B1 no time and answers
+    "unknown".  Returns the counted live searches' launches."""
+    import contextlib
+    import io
+
+    from jepsen_tpu_torch.analyze.plan import explain
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    from jepsen_tpu_torch.history import encode_ops
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.synth import corrupt_read, register_history
+
+    off = {"hb": False, "dpor": False}
+    rng = random.Random(CORPUS_SEEDS[0])
+    small = corrupt_read(rng, register_history(rng, **CORPUS_REGISTER),
+                         at=0.8)
+    cases = [("1k", *tier_history("1k"), {}),
+             ("mutex2k", *tier_history("mutex2k"), off),
+             ("register110", encode_ops(small, cas_register().f_codes),
+              cas_register(), off)]
+    launches, plans = {}, {}
+    for name, seq, model, kw in cases:
+        _zero_counts()
+        t0 = time.perf_counter()
+        plan = explain(seq, model, device="cuda", **kw)
+        plan_s = time.perf_counter() - t0
+        check(_read_counts() == (0, 0), f"plan[{name}]: explain launched")
+        plans[name] = plan
+        host = explain(seq, model, device="cpu", **kw)["search_dims"]
+        started = []
+        run_kernel = lin._run_kernel
+
+        def spy(esp, es, m, dims, *a, **k):
+            started.append(dims)
+            return run_kernel(esp, es, m, dims, *a, **k)
+
+        lin._run_kernel = spy
+        _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            res = lin.search_opseq(seq, model, device="cuda", **kw)
+            live_s = time.perf_counter() - t0
+            batch = lin.search_batch([seq], model, device="cuda",
+                                     bucket=True, **kw)[0]
+        finally:
+            lin._run_kernel = run_kernel
+        single, grid = _read_counts()
+        launches[f"plan[{name}]"] = {"grid": grid, "single": single}
+        d0 = started[0]
+        live_dims = {k: getattr(d0, k) for k in plan["search_dims"]}
+        bucket = batch["bucket_batch"]["buckets"][0]["dims"]
+        emit(f"plan[{name}] {kw or 'defaults'}: explain {plan_s:.3f} s, "
+             f"engine={plan['engine']} search_dims={plan['search_dims']} "
+             f"(on the host: frontier {host['frontier']}) "
+             f"bucket={plan['bucket']}; the live search {live_s:.3f} s: "
+             f"engine={res['engine']} started at {live_dims}, final "
+             f"frontier {res['frontier']}; the bucketed batch's bucket "
+             f"{bucket} ({batch['engine']}); B1 launches single={single} "
+             f"grid={grid}")
+        check(plan["engine"] == "device-bfs"
+              and res["engine"] == "device-bfs(cuda)",
+              f"plan[{name}]: planned {plan['engine']}, ran {res['engine']}")
+        check(live_dims == plan["search_dims"],
+              f"plan[{name}]: planned {plan['search_dims']}, the search "
+              f"started at {live_dims}")
+        check(bucket == plan["bucket"] and grid > 0,
+              f"plan[{name}]: planned bucket {plan['bucket']}, ran {bucket}")
+        if name == "1k":
+            tele = res["search_telemetry"]
+            emit(f"plan[1k] prune ratios: predicted hb "
+                 f"{plan['hb']['prune_ratio']} dpor "
+                 f"{plan['dpor']['prune_ratio']}; the search's telemetry "
+                 f"predicted {tele.get('predicted_prune_ratio')} observed "
+                 f"{tele['observed_prune_ratio']} (delta "
+                 f"{tele.get('prune_ratio_delta')})")
+            check(plan["hb"]["decided"] is None, f"plan[1k]: {plan['hb']}")
+        elif name == "mutex2k":
+            decided = lin.search_opseq(seq, model, device="cuda")
+            check(plan["constraints"]["decided"] is False
+                  and plan["constraints"]["reason"] == PREPASS_REASON[name]
+                  and decided["engine"] == "constraint-decide",
+                  f"plan[mutex2k]: the plan's prepass "
+                  f"{plan['constraints'].get('reason')}, the search's "
+                  f"{decided['engine']}")
+
+    # the card's narrowest rung is 64 rows, the host's 16
+    check(plans["register110"]["search_dims"]["frontier"] == 64,
+          f"plan[register110]: {plans['register110']['search_dims']}")
+    seq, model = tier_history("1k")
+    before = dict(FORM_LAUNCHES)
+    _zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = lin.linearizable(model, explain=True, device="cuda").check(
+            {"name": "plan"}, seq)
+    counts = _read_counts()
+    emit(f"plan[1k] Linearizable(explain=True): valid={res['valid']} "
+         f"engine={res['engine']} configs={res['configs']}; printed "
+         f"{len(out.getvalue().splitlines())} plan lines; B1 launches "
+         f"single={counts[0]} grid={counts[1]}")
+    check(res["valid"] == "unknown" and counts == (0, 0)
+          and dict(FORM_LAUNCHES) == before
+          and res["explain"] == plans["1k"],
+          f"plan[1k] explain=True: {res['valid']}, launches {counts}")
+    return launches
+
+
+@_timed_phase("shard tier")
+def phase_shard_tier(out_dir):
+    """The shard bench tier in full (48 keys over 8 logical shards of
+    the card, its shards on B1-T's grid form), writing into ``out_dir``:
+    parity, no steady-state build, the warm-boot round trip building
+    nothing, and the live ``shard_batch`` stats equal to the plan and to
+    the JAX package's static numbers (:data:`SHARD_TIER_PLAN`).  Returns
+    (its launches, its trace's path)."""
+    from jepsen_tpu_torch.checker.shard_bench import run_shard_tier
+
+    trace = os.path.join(out_dir, "trace_shard.json")
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = run_shard_tier(out_path=os.path.join(out_dir, "shard.json"),
+                         trace_path=trace)
+    wall = time.perf_counter() - t0
+    single, grid = _read_counts()
+    b, fc = out["bucketed"], out["fused_counterfactual"]
+    live = {"n_buckets": b["n_buckets"],
+            "useful_ops": sum(x["useful_ops"] for x in b["buckets"]),
+            "padded_ops": sum(x["padded_ops"] for x in b["buckets"]),
+            "padding_efficiency": b["padding_efficiency"],
+            "fused_padded_ops": fc["padded_ops"],
+            "fused_padding_efficiency": fc["padding_efficiency"]}
+    emit(f"shard_tier: {out['n_keys']} keys over {out['n_devices']} "
+         f"logical shards of {out['device']}, wall {wall:.3f} s (warm laps "
+         f"{out['warm_lap']}; measured bucketed {b['wall_s']} s, fused "
+         f"{fc['wall_s']} s); {live}; buckets (dims, lanes, pad lanes) "
+         f"{[(x['dims'], x['lanes'], x['pad_lanes']) for x in b['buckets']]}"
+         f"; parity {out['parity']} ({out['parity_oracle_sampled']} keys on "
+         f"the oracle), explain_match {out['explain_match']}, steady-state "
+         f"misses {out['steady_state_compile_misses']}, warm boot "
+         f"{out['warmup']}; B1-T launches grid={grid} single={single}")
+    check(out["parity"] and out["explain_match"]
+          and out["steady_state_compile_misses"] == 0,
+          f"shard_tier: parity {out['parity']}, explain "
+          f"{out.get('explain_diffs')}, misses "
+          f"{out['steady_state_compile_misses']}")
+    check(out["warmup"]["compiled"] == 0 and out["warmup"]["verified"],
+          f"shard_tier: the warm boot {out['warmup']}")
+    check(live == SHARD_TIER_PLAN, f"shard_tier: {live}, the JAX "
+          f"package's plan {SHARD_TIER_PLAN}")
+    check(grid > 0, "shard_tier: B1's grid form never launched")
+    return {"shard_tier": {"grid": grid, "single": single}}, trace
+
+
+def corpus_pool(base) -> list:
+    """Bank the corpus phase's pool under ``base``: the
+    :data:`CORPUS_SEEDS` register histories, a mutex history with
+    crashes, a queue history that loses an acked enqueue and a valid one
+    with a drain, each with its verdict by the host oracle as the banked
+    expectation (so an invalid entry gets its minimal repro).  Returns
+    the pool."""
+    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch.checker import basic
+    from jepsen_tpu_torch.checker.seq import check_opseq
+    from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
+    from jepsen_tpu_torch.live import corpus
+    from jepsen_tpu_torch.models import cas_register, mutex
+
+    cells = []
+    for i, seed in enumerate(CORPUS_SEEDS):
+        rng = random.Random(seed)
+        h = synth.register_history(rng, **CORPUS_REGISTER)
+        if i % 2 == 0:
+            h = synth.corrupt_read(rng, h, at=0.8)
+        cells.append((cas_register(), h, "kv", "partition"))
+    cells.append((mutex(), synth.sim_mutex_history(
+        random.Random(9100), 60, 4, crash_p=0.05), "lock", "pause"))
+    lost = []
+    for j in range(14):
+        lost += [invoke_op(j % 3, "enqueue", j), ok_op(j % 3, "enqueue", j)]
+    drain = [invoke_op(0, "drain", None), ok_op(0, "drain", list(range(14)))]
+    cells += [(None, lost + [drain[0], ok_op(0, "drain", [
+        j for j in range(14) if j != 3])], "queue", "link-bridge"),
+        (None, lost + drain, "queue", "kill-restart")]
+    for model, h, family, nemesis in cells:
+        if model is None:
+            valid = basic.total_queue().check({}, h)["valid"]
+        else:
+            valid = check_opseq(encode_ops(h, model.f_codes),
+                                model)["valid"]
+        corpus.bank_cell({"model": model, "history": h},
+                         {"family": family, "nemesis": nemesis,
+                          "valid": valid}, base=base)
+    return corpus.load_pool(corpus.corpus_dir(base))
+
+
+@_timed_phase("corpus")
+def phase_corpus(base):
+    """A seeded pool (:func:`corpus_pool`) replayed through every route
+    with ``corpus_replay(device="cuda")``: the direct search and the
+    bucketed batch on B1 (single-key and grid forms), the decomposed
+    engine, the stream, the prepass and the host oracle with DPOR on and
+    off; every route agrees, every banked expectation and minimal repro
+    holds, every certificate audits clean.  Returns its launches."""
+    from jepsen_tpu_torch.live import corpus
+
+    t0 = time.perf_counter()
+    pool = corpus_pool(base)
+    bank_s = time.perf_counter() - t0
+    minimal = [e["minimal"]["n_ops"] for e in pool if e.get("minimal")]
+    _zero_counts()
+    out = corpus.corpus_replay(corpus.corpus_dir(base), device="cuda")
+    single, grid = _read_counts()
+    direct = sum(1 for e in out["engines"]
+                 if e["direct"] == "device-bfs(cuda)")
+    bucketed = sum(1 for e in out["engines"]
+                   if e["bucketed"] == "device-batch(cuda)")
+    emit(f"corpus: {len(pool)} entries banked in {bank_s:.3f} s "
+         f"({sum(e['routes'] == 'engines' for e in pool)} engine, "
+         f"{sum(e['routes'] == 'queue' for e in pool)} queue; banked "
+         f"verdicts {[e['valid'] for e in pool]}; minimal repros of "
+         f"{minimal} ops); replayed in {out['seconds']} s: failures "
+         f"{out['failures']}, unknown route verdicts {out['unknowns']}, "
+         f"prepass-decided {out['hb_decided']}; past the greedy witness "
+         f"and the prepass to B1: {direct} of {len(out['engines'])} on the "
+         f"direct route, {bucketed} on the bucketed one; B1 launches "
+         f"single={single} grid={grid}")
+    check(out["ok"] and out["entries"] == len(pool),
+          f"corpus: {out['failures']}")
+    check(minimal, "corpus: no entry got a minimal repro")
+    check(direct > 0 and bucketed > 0 and single > 0 and grid > 0,
+          f"corpus: B1 on the direct route {direct} times, the bucketed "
+          f"{bucketed}; launches single={single} grid={grid}")
+    return {"corpus": {"grid": grid, "single": single}}
+
+
+@_timed_phase("report")
+def phase_report(trace):
+    """The shard tier's trace folded by ``obs/report.py``: its device
+    share and idle, and ``python -m jepsen_tpu_torch.obs report <trace>
+    --json`` printing the same dict."""
+    from jepsen_tpu_torch.obs.report import load_trace, phase_table
+
+    rep = phase_table(load_trace(trace))
+    dev = next((p for p in rep["phases"] if p["cat"] == "device"), None)
+    check(dev is not None and rep["wall_s"] > 0,
+          f"report: no device phase in {rep['phases']}")
+    p = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.obs",
+                        "report", trace, "--json"], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=300)
+    check(p.returncode == 0 and json.loads(p.stdout) == rep,
+          f"report: the command exited {p.returncode}: {p.stderr[-2000:]}")
+    tele = rep.get("telemetry", {})
+    emit(f"report[shard_tier]: wall {rep['wall_s']} s, device busy "
+         f"{dev['busy_s']} s ({dev['pct']}% of the wall), idle "
+         f"{rep['idle_s']} s ({rep['idle_pct']}%); phases "
+         f"{[(x['cat'], x['spans'], x['busy_s']) for x in rep['phases']]}; "
+         f"compiles {tele.get('compiles')}; the command's JSON equal: True")
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -2884,6 +3195,11 @@ def main() -> int:
             launches.update(phase_stream(store_base))
             launches.update(phase_sharded())
             launches.update(phase_fleet(store_base))
+            launches.update(phase_plan())
+            shard_launches, shard_trace = phase_shard_tier(store_base)
+            launches.update(shard_launches)
+            launches.update(phase_corpus(store_base))
+            phase_report(shard_trace)
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
         shapes.append(phase_grid_timing(device))

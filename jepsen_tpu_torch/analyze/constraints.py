@@ -361,6 +361,31 @@ def _analyze_lock(seq: OpSeq, model, out: HBAnalysis) -> HBAnalysis:
     return out
 
 
+def plan_block(seq: OpSeq, model, *, hb: bool | None = None) -> dict:
+    """The static ``constraints`` block of ``analyze.plan.explain``:
+    family, decidability, the inferred edge counts and which streamed
+    fold route the family has.  A description only: no live metric
+    moves.  ``hb`` (None: on) is the prepass flag, reported as
+    ``enabled``."""
+    from .hb import resolve_hb
+
+    fam = family_of(model)
+    if fam is None:
+        return {"applies": False, "family": None, "enabled": resolve_hb(hb),
+                "reason": "register-family model (see the hb block)",
+                "stream_fold": {"eligible": False, "route": None}}
+    a = analyze_constraints(seq, model)
+    st = dict(a.stats)
+    st["enabled"] = resolve_hb(hb)
+    queue = fam in ("queue", "fifo-queue")
+    st["stream_fold"] = {"eligible": queue,
+                         "route": "total-queue" if queue else None}
+    if "pruned_upper_bound" not in st:
+        st.setdefault("pruned_upper_bound", None)
+        st.setdefault("prune_ratio", 1.0)
+    return st
+
+
 # ---------------------------------------------------------------------------
 # event-level multiset analysis (the checkers' and the fold's substrate)
 # ---------------------------------------------------------------------------

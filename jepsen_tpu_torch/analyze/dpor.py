@@ -211,3 +211,85 @@ def sleep_visit(visited: dict, key, sleep: int) -> int | None:
     missing = z1 & ~sleep
     visited[key] = z1 & sleep
     return missing
+
+
+def plan_block(seq: OpSeq, model, raw_bound: int, hb_analysis=None, *,
+               dpor: bool | None = None) -> dict:
+    """The static ``dpor`` block of ``analyze.plan.explain``: the
+    duplicate-op edge count, the device mask's coverage once those edges
+    join the prepass's, the dead-value dedup's predicted hit rate, and a
+    sleep-set size bound from the reads open at once.  A description
+    only: it runs ``analyze_hb``, never ``maybe_hb``, so no live counter
+    moves.  ``hb_analysis`` shares one solve with the plan's ``hb``
+    block; ``dpor`` (None: on) is reported as ``enabled``."""
+    from ..decompose.canonical import dead_value_cutoffs
+    from .hb import _TLS, _window_effective, analyze_hb
+
+    n = len(seq)
+    out: dict = {"enabled": resolve_dpor(dpor), "applies": n > 0}
+    edges = duplicate_op_edges(seq) if n else []
+    out["dup_edges"] = len(edges)
+
+    # the rows with at least one must-order predecessor once the
+    # prepass's edges and the duplicate-op edges merge: the rows the
+    # device planes mask
+    hb = (hb_analysis if hb_analysis is not None
+          else analyze_hb(seq, model)) if n else None
+    must = dict(hb.must_pred) if hb is not None else {}
+    for (_s, d, _k) in edges:
+        must.setdefault(int(d), ())
+    out["masked_rows"] = len(must)
+    out["mask_coverage"] = round(len(must) / n, 4) if n else 0.0
+
+    # the dedup's hit-rate proxy: the share of (value, position) pairs
+    # past each value's death
+    dv = dead_value_cutoffs(seq, model)
+    if dv is None:
+        out["dedup"] = {"applies": False}
+    else:
+        n_det = int(np.asarray(seq.ok, dtype=bool).sum())
+        vals = list(dv.cutoffs.values())
+        dead = [c for c in vals if c < n_det]
+        out["dedup"] = {
+            "applies": True,
+            "values": len(vals),
+            "dead_values": len(dead),
+            "hit_rate_prediction": round(
+                sum(max(0, n_det - c) for c in dead)
+                / max(1, n_det * max(1, len(vals))), 4),
+        }
+
+    # the sleep-set bound: the most reads (state-transparent rows) open
+    # at once
+    if model.name in ("register", "cas-register", "multi-register") and n:
+        reads = np.nonzero(np.asarray(seq.f) == R_READ)[0]
+        events = sorted([(int(seq.inv[i]), 1) for i in reads]
+                        + [(int(seq.ret[i]), -1) for i in reads])
+        cur = peak = 0
+        for _t, d in events:
+            cur += d
+            peak = max(peak, cur)
+        out["sleep_set_bound"] = peak
+    else:
+        out["sleep_set_bound"] = 0
+
+    # the pruned bound with the duplicate-op edges added to the
+    # prepass's
+    if edges and hb is not None and hb.applies and n:
+        _TLS.inv = [int(x) for x in seq.inv]
+        _TLS.ret = [int(x) for x in seq.ret]
+        try:
+            all_edges = edges + [(s, d, "hb") for d, ss in
+                                 hb.must_pred.items() for s in ss]
+            _w_raw, w_eff = _window_effective(seq, all_edges)
+        finally:
+            _TLS.inv = _TLS.ret = None
+        nd = int(np.asarray(seq.ok, dtype=bool).sum())
+        pruned = min((nd + 1) << (max(0, w_eff - 1) + (n - nd)), raw_bound)
+        out["pruned_upper_bound"] = pruned
+        out["prune_ratio"] = (round(pruned / raw_bound, 6)
+                              if raw_bound else None)
+    else:
+        out["pruned_upper_bound"] = raw_bound
+        out["prune_ratio"] = 1.0
+    return out

@@ -727,6 +727,25 @@ def attach(result: dict, hb: HBAnalysis | None) -> dict:
     return result
 
 
+def plan_block(seq: OpSeq, model, raw_bound: int, n_crash: int,
+               window: int, hb_analysis=None, *,
+               hb: bool | None = None) -> dict:
+    """The static ``hb`` block of ``analyze.plan.explain``: decidability,
+    the inferred edge counts, and the pruned config bound beside the raw
+    one.  A description only: it runs :func:`analyze_hb`, never
+    :func:`maybe_hb`, so a plan moves neither the prepass counters nor
+    ``jtpu_hb_prune_ratio``.  ``hb_analysis`` shares one solve between
+    the plan's blocks; ``hb`` (None: on) is the flag the searches would
+    run with, reported as ``enabled``."""
+    res = hb_analysis if hb_analysis is not None else analyze_hb(seq, model)
+    st = dict(res.stats)
+    st["enabled"] = resolve_hb(hb)
+    if "pruned_upper_bound" not in st:
+        st["pruned_upper_bound"] = raw_bound
+        st["prune_ratio"] = 1.0
+    return st
+
+
 def hb_fold_states(sseq: OpSeq, model, instates, *, witness: bool = False):
     """One crash-free segment's fold by the interval pass: the set of
     final states reachable from ``instates`` (the value of each block

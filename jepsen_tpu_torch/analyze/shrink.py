@@ -13,6 +13,10 @@ Removing ops can change a verdict either way, so every removal is
 re-checked: each link of the chain, the final core included, is a
 machine-confirmed invalid history.  ``checker/linear_report.py``
 renders the core at the head of the failure report.
+
+:func:`shrink_invalid_events` runs the same loop (:func:`ddmin_list`)
+over an event history's invoke/completion pairs, for the corpus's
+minimal repros (``live/corpus.py``).
 """
 
 from __future__ import annotations
@@ -109,25 +113,8 @@ def shrink_invalid(seq: OpSeq, model) -> dict:
         out["checks"] = checks
         return out
 
-    chunk = max(1, len(rows) // 2)
-    minimal = False
-    while checks < MAX_CHECKS:
-        i = 0
-        removed = False
-        while i < len(rows) and checks < MAX_CHECKS:
-            cand = rows[:i] + rows[i + chunk:]
-            if cand and still_invalid(cand):
-                rows = cand
-                removed = True
-            else:
-                i += chunk
-        if chunk == 1:
-            if not removed:
-                minimal = True  # a clean single-row pass: 1-minimal
-                break
-        else:
-            chunk = max(1, chunk // 2)
-
+    rows, minimal = _ddmin(rows, still_invalid,
+                           lambda: checks < MAX_CHECKS)
     sub = subseq(seq, rows)
     out.update({
         "rows": [int(r) for r in rows],
@@ -137,6 +124,98 @@ def shrink_invalid(seq: OpSeq, model) -> dict:
         "brute_force": brute_force_check(sub, model),
     })
     return out
+
+
+def ddmin_list(items: list, still_failing, *,
+               max_checks: int = 200) -> dict:
+    """ddmin over any list: :func:`shrink_invalid`'s chunk loop
+    (:func:`_ddmin`), which :func:`shrink_invalid_events` runs over
+    event units.
+
+    ``still_failing(sub_items) -> bool`` re-checks a candidate (one that
+    raises counts as not failing); a removal is kept only while it
+    answers True, so the chain starts and ends at a confirmed failing
+    list.  Returns ``{"items": the minimal list, "n_from", "n_to",
+    "checks": calls, "minimal": 1-minimality proven}``."""
+    checks = 0
+
+    def check(sub: list) -> bool:
+        nonlocal checks
+        checks += 1
+        try:
+            return bool(still_failing(sub))
+        except Exception:  # noqa: BLE001 — a candidate that crashes is
+            return False   # not a confirmed failing one
+
+    out = {"items": list(items), "n_from": len(items),
+           "n_to": len(items), "checks": 0, "minimal": False}
+    kept = list(items)
+    if not kept or not check(kept):
+        out["checks"] = checks
+        return out
+    kept, minimal = _ddmin(kept, check, lambda: checks < max_checks)
+    out.update({"items": kept, "n_to": len(kept), "checks": checks,
+                "minimal": minimal})
+    return out
+
+
+def _ddmin(kept: list, check, budget_left) -> tuple[list, bool]:
+    """Remove chunks of ``kept`` while ``check`` holds, halving the
+    chunk down to single items; (the list left, whether a clean pass at
+    chunk 1 proved it 1-minimal before ``budget_left()`` ran out)."""
+    chunk = max(1, len(kept) // 2)
+    while budget_left():
+        i = 0
+        removed = False
+        while i < len(kept) and budget_left():
+            cand = kept[:i] + kept[i + chunk:]
+            if cand and check(cand):
+                kept = cand
+                removed = True
+            else:
+                i += chunk
+        if chunk == 1:
+            if not removed:
+                return kept, True  # a clean single-item pass
+        else:
+            chunk = max(1, chunk // 2)
+    return kept, False
+
+
+def shrink_invalid_events(ops: list, check, *,
+                          max_checks: int = 200) -> dict:
+    """ddmin an invalid event history down to a minimal failing
+    subhistory: the corpus's shrinker at bank time (``live/corpus.py``).
+
+    Events group into removal units (an invoke and its process's next
+    event; an event with no open invoke is a unit of its own), so every
+    candidate is a well-formed history.  ``check(ops) -> bool`` answers
+    "still invalid" (one that raises counts as not invalid), and a
+    removal is kept only while it says True.  Returns ``{"ops": the
+    minimal event list, "n_from": units, "n_to": units, "checks",
+    "minimal"}``."""
+    units: list[list[int]] = []
+    open_of: dict = {}
+    for i, op in enumerate(ops):
+        if op.type == "invoke":
+            open_of[op.process] = len(units)
+            units.append([i])
+        else:
+            u = open_of.pop(op.process, None)
+            if u is None:
+                units.append([i])
+            else:
+                units[u].append(i)
+
+    def build(kept: list[int]) -> list:
+        return [ops[i] for i in sorted(i for u in kept for i in units[u])]
+
+    out = ddmin_list(list(range(len(units))),
+                     lambda kept: check(build(kept)),
+                     max_checks=max_checks)
+    return {"ops": build(out["items"]), "n_from": out["n_from"],
+            "n_to": out["n_to"], "checks": out["checks"],
+            "minimal": out["minimal"]}
 
 
 def shrink_summary(seq: OpSeq, shrunk: dict) -> dict:

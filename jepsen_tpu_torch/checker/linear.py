@@ -49,16 +49,6 @@ from .encode import INF32, encode_search
 #: witness is dropped with a stated reason and the verdict is unaffected
 DEFAULT_WITNESS_CAP = 2_000_000
 
-_NOT_PORTED = "not ported yet (ROADMAP queue {item})"
-
-
-def _refuse(flag, name: str, item: str) -> None:
-    """The options of later queue items accept only off."""
-    if flag:
-        raise NotImplementedError(
-            f"{name}={flag!r}: {_NOT_PORTED.format(item=item)}")
-
-
 def _advance(p: int, win: int, bit: int, n_det: int):
     """Set ``bit`` (window-relative) in ``win``, then slide the prefix
     over the run of low set bits.  Returns ``(p', win')``."""

@@ -83,7 +83,7 @@ from .encode import (MAX_CRASH, MAX_FRONTIER, MAX_WINDOW, EncodedSearch,
                      _next_pow2, _round_up, _widen_carry, attach_reductions,
                      carry_to_device, choose_dims, encode_search,
                      pad_search, search_args, stack_batch, to_numpy)
-from .linear import DEFAULT_WITNESS_CAP, _refuse, check_opseq_linear
+from .linear import DEFAULT_WITNESS_CAP, check_opseq_linear
 from .step import build_search_step_fn, run_per_key
 
 #: statuses
@@ -1357,7 +1357,9 @@ class Linearizable:
     on) reach every route; the host confirmation after a device win
     runs with both at their defaults.  ``telemetry`` (None: on) reaches
     the device search.  ``audit=True`` replays the returned
-    certificate.
+    certificate.  ``explain=True`` searches nothing: it prints the
+    static plan of the search (``analyze/plan.py``) and returns it under
+    ``explain`` with ``valid`` "unknown".
 
     ``decompose=True`` checks through the decomposition layer
     (``decompose/engine.py``) in front of the selected route, which
@@ -1386,7 +1388,6 @@ class Linearizable:
                  audit: bool | None = None, shrink: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
                  telemetry: bool | None = None, device="cuda"):
-        _refuse(explain, "explain", "A12")
         try:
             self.algorithm = self.ALGORITHMS[algorithm]
         except KeyError:
@@ -1403,6 +1404,7 @@ class Linearizable:
         self.dpor = dpor
         self.telemetry = telemetry
         self.device = device
+        self.explain = explain
         self.decompose = decompose
         self.verdict_cache = verdict_cache
         self._cache_obj = None
@@ -1423,11 +1425,29 @@ class Linearizable:
                 lint_warnings = check_history(history, model)
         seq = history if isinstance(history, OpSeq) else \
             encode_ops(history, model.f_codes)
+        if self.explain:
+            return self._plan_only(seq, model, lint_warnings)
         out = self._checked(test, seq, model, opts)
         if lint_warnings:
             out.setdefault("lint_warnings",
                            [d.to_dict() for d in lint_warnings])
         return maybe_audit(seq, model, out, self.audit)
+
+    def _plan_only(self, seq: OpSeq, model, lint_warnings) -> dict:
+        """``explain=True``: print the static plan of the search this
+        checker would run (``analyze/plan.py``) and return it as an
+        "unknown" verdict; nothing is searched or launched."""
+        from ..analyze.plan import explain, render_plan
+
+        plan = explain(seq, model, host_threshold=self.host_threshold,
+                       device=self.device, hb=self.hb, dpor=self.dpor,
+                       telemetry=self.telemetry)
+        print(render_plan(plan))
+        out = {"valid": "unknown", "engine": "explain(plan-only)",
+               "explain": plan, "configs": 0}
+        if lint_warnings:
+            out["lint_warnings"] = [d.to_dict() for d in lint_warnings]
+        return out
 
     def _checked(self, test, seq: OpSeq, model, opts) -> dict:
         if not self.decompose:

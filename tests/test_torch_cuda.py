@@ -538,3 +538,57 @@ def test_fleet_warm_boot_and_routed_fold_on_the_card(cuda, tmp_path,
     par = fb.parity_check(finals, hists, device="cuda", host_fold_max=0,
                           sample=None)
     assert par["parity"] is True and par["checked"] == 2
+
+
+@pytest.mark.cuda
+def test_shard_tier_on_the_card(cuda, tmp_path):
+    """The quick shard tier over four logical shards of the card: every
+    gate passes, its shards launch B1's grid form, and the live stats
+    bill the quick set's plan (2 buckets, 1249 useful rows in 2176
+    padded, 3200 fused)."""
+    from jepsen_tpu_torch.checker.shard_bench import run_shard_tier
+    from jepsen_tpu_torch.distributed import ShardMesh
+
+    g0 = lk.BATCH_LAUNCHES
+    out = run_shard_tier(quick=True, mesh=ShardMesh(["cuda:0"] * 4),
+                         out_path=str(tmp_path / "shard.json"))
+    assert out["parity"] and out["explain_match"], out.get("explain_diffs")
+    assert out["steady_state_compile_misses"] == 0
+    assert out["warmup"]["compiled"] == 0 and out["warmup"]["verified"]
+    assert lk.BATCH_LAUNCHES > g0
+    b = out["bucketed"]
+    assert b["n_buckets"] == 2
+    assert sum(x["useful_ops"] for x in b["buckets"]) == 1249
+    assert sum(x["padded_ops"] for x in b["buckets"]) == 2176
+    assert out["fused_counterfactual"]["padded_ops"] == 3200
+
+
+@pytest.mark.cuda
+def test_corpus_replay_on_the_card(cuda, tmp_path):
+    """A two-entry pool (a corrupted register history with its minimal
+    repro and a valid one) replayed with ``device="cuda"``: every route
+    agrees, and the direct and bucketed routes ran B1."""
+    from jepsen_tpu_torch.checker.seq import check_opseq
+    from jepsen_tpu_torch.live import corpus
+
+    model = cas_register()
+    for seed, corrupt in ((9000, True), (9001, False)):
+        rng = random.Random(seed)
+        h = register_history(rng, n_ops=110, n_procs=6, overlap=5,
+                             crash_p=0.03, max_crashes=3, n_values=4)
+        if corrupt:
+            h = corrupt_read(rng, h, at=0.8)
+        valid = check_opseq(encode_ops(h, model.f_codes), model)["valid"]
+        corpus.bank_cell({"model": model, "history": h},
+                         {"family": "kv", "nemesis": "partition",
+                          "valid": valid}, base=str(tmp_path))
+    pool = corpus.load_pool(corpus.corpus_dir(str(tmp_path)))
+    assert len(pool) == 2 and any(e.get("minimal") for e in pool)
+    s0, g0 = lk.LAUNCHES, lk.BATCH_LAUNCHES
+    out = corpus.corpus_replay(corpus.corpus_dir(str(tmp_path)),
+                               device="cuda")
+    assert out["ok"], out["failures"]
+    assert lk.LAUNCHES > s0 and lk.BATCH_LAUNCHES > g0
+    assert any(e["direct"] == "device-bfs(cuda)" for e in out["engines"])
+    assert any(e["bucketed"] == "device-batch(cuda)"
+               for e in out["engines"])

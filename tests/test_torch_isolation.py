@@ -54,7 +54,8 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "stream.device", "stream.service", "stream.bench", "stream.__main__",
     "distributed", "checker.sharded", "reconnect", "analyze.devlint",
     "fleet", "fleet.warmup", "fleet.cachestore", "fleet.admission",
-    "fleet.router", "fleet.bench", "fleet.__main__")}
+    "fleet.router", "fleet.bench", "fleet.__main__", "checker.shard_bench",
+    "live", "live.corpus", "obs.report", "obs.__main__")}
 
 
 def _sources():

@@ -133,9 +133,8 @@ def test_host_oracle_matches_reference(kind, seed, corrupt):
 
 def test_routes_of_later_slices_refuse(tmp_path):
     """The routes of queue item A5, the passes of item A7, the
-    checkpoints of A3, the decomposition of A8 and the sharding of A11
-    answer; the options of later items still refuse anything but
-    off."""
+    checkpoints of A3, the decomposition of A8, the sharding of A11 and
+    the plan of A12 answer: no option refuses any more."""
     test = {"store_base": str(tmp_path)}
     _, _, st, mt = _pair("register", 1, corrupt=True)
     big = tlin.linearizable(mt, device="cpu", host_threshold=10)
@@ -144,8 +143,10 @@ def test_routes_of_later_slices_refuse(tmp_path):
     out = tlin.linearizable(mt, algorithm="competition",
                             device="cpu").check(test, st)
     assert out["valid"] is False and out["engine"].startswith("competition(")
-    with pytest.raises(NotImplementedError):
-        tlin.linearizable(mt, device="cpu", explain=True)
+    # the plan of queue item A12 answers (tests/test_torch_plan.py)
+    out = tlin.linearizable(mt, device="cpu", explain=True).check(test, st)
+    assert out["valid"] == "unknown" and out["configs"] == 0
+    assert out["engine"] == "explain(plan-only)"
     # decomposition (queue item A8) answers on every entry point
     # (tests/test_torch_decompose.py)
     out = tlin.linearizable(mt, device="cpu", decompose=True).check(test, st)

@@ -150,3 +150,28 @@ def test_multireg256_device_reference(name, monkeypatch):
     want_valid, want = chip_smoke.MULTIREG256_DEVICE[name]
     assert out["valid"] is want_valid
     assert out["decompose"] == want
+
+
+def test_shard_tier_plan_reference(monkeypatch):
+    """``SHARD_TIER_PLAN``: the JAX package's static plan of the shard
+    tier's full key set over 8 devices, which its committed
+    BENCH_shard.json also records."""
+    import json
+    from pathlib import Path
+
+    from jepsen_tpu.analyze.plan import explain_batch
+    from jepsen_tpu.checker.shard_bench import _mk_keys
+
+    monkeypatch.delenv("JEPSEN_TPU_BATCH_BUCKETS", raising=False)
+    reference_defaults(monkeypatch)
+    seqs, model = _mk_keys(n_small=40, n_big=8, small_ops=74, big_ops=240,
+                           seed0=31000)
+    plan = explain_batch(seqs, model, n_devices=8)
+    assert {k: plan[k] for k in chip_smoke.SHARD_TIER_PLAN} == \
+        chip_smoke.SHARD_TIER_PLAN
+    bench = json.loads((Path(chip_smoke.REPO) / "BENCH_shard.json")
+                       .read_text())
+    assert bench["bucketed"]["padding_efficiency"] == \
+        chip_smoke.SHARD_TIER_PLAN["padding_efficiency"]
+    assert bench["fused_counterfactual"]["padded_ops"] == \
+        chip_smoke.SHARD_TIER_PLAN["fused_padded_ops"]
