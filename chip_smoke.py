@@ -58,7 +58,15 @@ route, first dims and bucket the live searches take; the shard bench
 tier runs in full over eight logical shards, its live stats equal to the
 plan and to the JAX package's numbers; a seeded corpus replays through
 every route with B1 on the direct and bucketed ones; and the shard
-tier's trace folds into its device share.  Every phase
+tier's trace folds into its device share.  The model checker and the
+daemons come last (:func:`phase_mc` to :func:`phase_live`): ``python -m
+jepsen_tpu_torch.analyze --mc --mc-scope all`` sweeps the 17 family x
+mode pairs to the JAX package's blocks (:data:`MC_SWEEP`) and banks its
+certificates, which replay on the card; the same command audits and
+plans 1k after the card checked it, and fails a tampered certificate;
+and the port's kv and replicated daemons run as real processes under
+client traffic and SIGKILLs, their histories checked on the card and on
+the host.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -355,6 +363,13 @@ def _exact_encoded(gen, encode, target: int, *, lo_guess: int):
 
 def tier_history(name: str):
     """(OpSeq, model) of a bench tier, built with the port's synth."""
+    _, seq, model = tier_events(name)
+    return seq, model
+
+
+def tier_events(name: str):
+    """(events, OpSeq, model) of a bench tier: the history whose
+    encoding :func:`tier_history` checks."""
     from jepsen_tpu_torch.history import encode_ops, invoke_op, ok_op
     from jepsen_tpu_torch.models import cas_register, mutex
     from jepsen_tpu_torch.synth import (corrupt_read, register_history,
@@ -385,9 +400,9 @@ def tier_history(name: str):
                                  crash_p=0.002, max_crashes=8, n_values=4)
             return corrupt_read(rng, h, at=0.98)
         lo = int(n_ops * 1.35)
-    _, seq = _exact_encoded(gen, lambda h: encode_ops(h, model.f_codes),
+    h, seq = _exact_encoded(gen, lambda h: encode_ops(h, model.f_codes),
                             n_ops, lo_guess=lo)
-    return seq, model
+    return h, seq, model
 
 
 def big_mutex_history():
@@ -1575,6 +1590,31 @@ class _Spy:
             setattr(owner, name, fn)
 
 
+class _FirstDims:
+    """Spies on ``linearizable._run_kernel`` for one run: ``started``
+    holds the dims of each slice the device search launched, the first
+    being those it started at."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        self.started: list = []
+        self._run_kernel = run_kernel = lin._run_kernel
+
+        def spy(esp, es, m, dims, *a, **k):
+            self.started.append(dims)
+            return run_kernel(esp, es, m, dims, *a, **k)
+
+        lin._run_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        lin._run_kernel = self._run_kernel
+        return False
+
+
 def _default_route(label, seq, model, store_base, *, algorithm="auto",
                    path="auto", counted=True, **flags):
     """One history through ``linearizable(model, device="cuda",
@@ -1745,12 +1785,15 @@ def phase_main_path(store_base):
     interpreter's switch interval cut to :data:`CONTROL_SWITCH_S`, a
     control for the device leg's wait on the GIL; and the device search
     alone after them (warm) with its per-rung trace, which must have run
-    every slice on the kernel."""
+    every slice on the kernel.  Returns the launches by path, the
+    frontiers captured for the lockstep, and each tier's
+    ``algorithm="device"`` result with the dims its search started at
+    (:func:`phase_analyze_cli` reads 1k's)."""
     from jepsen_tpu_torch.checker import linearizable as lin
 
     off = {"hb": False, "dpor": False}
     launches = {"auto": {}, "device": {}, "device,off": {}}
-    captured = {}
+    captured, checked = {}, {}
     for name, _, _ in TIERS:
         seq, model = tier_history(name)
         want = REFERENCE[name]
@@ -1775,8 +1818,10 @@ def phase_main_path(store_base):
             sys.setswitchinterval(interval)
         _check_race(name, out_c, st_c, want)
 
-        out, st_d = _default_route(name, seq, model, store_base,
-                                   algorithm="device", path="device")
+        with _FirstDims() as spy:
+            out, st_d = _default_route(name, seq, model, store_base,
+                                       algorithm="device", path="device")
+        checked[name] = (out, spy.started[:1])
         launches["device"][name] = st_d["launches"]
         _check_reduced(name, out, st_d, "algorithm='device'")
         if PREPASS_REASON[name] is None:
@@ -1822,7 +1867,7 @@ def phase_main_path(store_base):
               f"{name}: slices at F={torch_rungs} ran the torch step")
         check("cuda" in dev["engine"],
               f"{name}: engine label lacks the cuda tag")
-    return launches, captured
+    return launches, captured, checked
 
 
 def phase_masked_control():
@@ -2889,26 +2934,16 @@ def phase_plan():
         check(_read_counts() == (0, 0), f"plan[{name}]: explain launched")
         plans[name] = plan
         host = explain(seq, model, device="cpu", **kw)["search_dims"]
-        started = []
-        run_kernel = lin._run_kernel
-
-        def spy(esp, es, m, dims, *a, **k):
-            started.append(dims)
-            return run_kernel(esp, es, m, dims, *a, **k)
-
-        lin._run_kernel = spy
         _zero_counts()
-        try:
+        with _FirstDims() as spy:
             t0 = time.perf_counter()
             res = lin.search_opseq(seq, model, device="cuda", **kw)
             live_s = time.perf_counter() - t0
             batch = lin.search_batch([seq], model, device="cuda",
                                      bucket=True, **kw)[0]
-        finally:
-            lin._run_kernel = run_kernel
         single, grid = _read_counts()
         launches[f"plan[{name}]"] = {"grid": grid, "single": single}
-        d0 = started[0]
+        d0 = spy.started[0]
         live_dims = {k: getattr(d0, k) for k in plan["search_dims"]}
         bucket = batch["bucket_batch"]["buckets"][0]["dims"]
         emit(f"plan[{name}] {kw or 'defaults'}: explain {plan_s:.3f} s, "
@@ -3119,6 +3154,611 @@ def phase_report(trace):
          f"compiles {tele.get('compiles')}; the command's JSON equal: True")
 
 
+#: the model checker's sweep, ``python -m jepsen_tpu.analyze --mc
+#: --mc-scope all``: each family/mode's ``explored`` block
+#: (:data:`MC_SWEEP_KEYS`) in the JAX package's run (held to it by
+#: ``tests/test_torch_modelcheck.py``)
+MC_SWEEP_KEYS = ("states", "schedules", "events", "sleep_prunes", "dedup",
+                 "prune_ratio", "complete")
+MC_SWEEP = {
+    "replicated/clean": (492, 570, 1824, 27, 763, 0.0146, True),
+    "replicated/volatile": (498, 605, 1836, 33, 734, 0.0177, True),
+    "replicated/split-brain": (154, 399, 794, 128, 229, 0.1388, False),
+    "rqueue/clean": (660, 948, 2369, 97, 762, 0.0393, True),
+    "rqueue/volatile": (660, 969, 2369, 97, 741, 0.0393, True),
+    "lock/clean": (39, 5, 52, 12, 9, 0.1875, True),
+    "lock/volatile": (36, 7, 49, 12, 7, 0.1967, True),
+    "shell-kv/clean": (17, 5, 22, 4, 1, 0.1538, True),
+    "shell-kv/volatile": (16, 7, 22, 3, 0, 0.12, True),
+    "shell-queue/clean": (211, 80, 353, 36, 63, 0.0925, True),
+    "shell-queue/volatile": (154, 84, 268, 13, 31, 0.0463, True),
+    "shell-queue/session-leak": (213, 80, 356, 36, 64, 0.0918, True),
+    "shell-replicated/clean": (226, 51, 364, 494, 88, 0.5758, True),
+    "shell-replicated/proxy-loop": (387, 215, 805, 403, 204, 0.3336, True),
+    "shell-replicated/stale-proxy": (211, 115, 387, 433, 62, 0.528, True),
+    "shell-rqueue/clean": (17, 5, 22, 4, 1, 0.1538, True),
+    "shell-rqueue/volatile": (13, 9, 21, 0, 0, 0.0, True),
+}
+
+
+def _analyze_cli(*args) -> subprocess.Popen:
+    """``python -m jepsen_tpu_torch.analyze ARGS...``, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.analyze", *map(str, args)],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _finish(proc, timeout=600) -> tuple:
+    """(exit code, stdout, stderr) of a started command."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+@_timed_phase("mc")
+def phase_mc(base):
+    """The bounded model checker and the card.  ``python -m
+    jepsen_tpu_torch.analyze --mc --mc-scope all --json --mc-bank`` must
+    exit 0 with 17 runs whose ``explored`` blocks are :data:`MC_SWEEP`,
+    every clean mode violation-free, every seeded mode caught, every
+    certificate replayed and confirmed (the engine invalid, the audit
+    clean; MC203 on its ``loop`` route).  The deeper matrix (depth 7, or
+    the default where deeper) runs in process with the same
+    expectations, and ``--mc --replay`` reproduces one certificate.
+    Last, the banked certificates replay through every route on the
+    card (``corpus_replay(device="cuda")``): the routes agree on every
+    entry, and the only failures against a banked verdict are the JAX
+    package's MC201 bank fault.  Returns that replay's launches."""
+    from jepsen_tpu_torch.analyze import modelcheck as mc
+    from jepsen_tpu_torch.history import Op
+    from jepsen_tpu_torch.live import corpus
+
+    bank = os.path.join(base, "mc")
+    t0 = time.perf_counter()
+    rc, out, err = _finish(_analyze_cli("--mc", "--mc-scope", "all",
+                                        "--json", "--mc-bank", bank))
+    sweep_s = time.perf_counter() - t0
+    check(rc == 0, f"mc: the sweep exited {rc}: {err[-2000:]}")
+    runs = json.loads(out)["runs"]
+    got = {f"{r['family']}/{r['mode']}":
+           tuple(r["explored"][k] for k in MC_SWEEP_KEYS) for r in runs}
+    check(got == MC_SWEEP, f"mc: explored {got}, the JAX package's "
+          f"{MC_SWEEP}")
+    certs = [c for r in runs for c in r["violations"]]
+    for r in runs:
+        check(r["ok"] if r["mode"] == "clean" else not r["ok"],
+              f"mc: {r['family']}/{r['mode']} ok={r['ok']}")
+    for c in certs:
+        conf = c["confirm"]
+        check(c["replayed"] and conf["engine_valid"] is False
+              and conf["audit_ok"] is True
+              and (conf["route"] == "loop") == (c["code"] == "MC203"),
+              f"mc: certificate {c['code']} of {c['family']}/{c['mode']}: "
+              f"replayed {c['replayed']}, confirm {conf}")
+    emit(f"mc[sweep]: {len(runs)} runs in {sweep_s:.3f} s (a process), "
+         f"explored equal to the JAX package's; {len(certs)} certificates "
+         f"({sorted(collections.Counter(c['code'] for c in certs).items())}"
+         f"), {sum(c['banked']['banked'] for c in certs)} banked")
+
+    t0 = time.perf_counter()
+    n_deep = 0
+    for fam in mc.ALL_FAMILIES:
+        for mode in mc.ALL_MODES[fam]:
+            depth = max(7, mc.default_scope(fam, mode).max_events)
+            scope = mc.scope_from_args(fam, mode, max_events=depth)
+            if mode == "clean":
+                r = mc.run_mc(fam, mode, scope=scope, dpor=True)
+                check(r["ok"] and r["explored"]["complete"],
+                      f"mc[deeper]: {fam}/clean {r['explored']}")
+            else:
+                r = mc.run_mc(fam, mode, scope=scope, dpor=True,
+                              shrink=False, confirm=False)
+                check(not r["ok"] and all(v["replayed"]
+                                          for v in r["violations"]),
+                      f"mc[deeper]: {fam}/{mode} not caught")
+            n_deep += r["explored"]["states"]
+    deep_s = time.perf_counter() - t0
+
+    cert = next(c for c in certs if c["code"] != "MC203")
+    cert_path = os.path.join(base, "mc-cert.json")
+    with open(cert_path, "w") as f:
+        json.dump(cert, f)
+    rc, out, err = _finish(_analyze_cli("--mc", "--replay", cert_path))
+    check(rc == 0 and "reproduced" in out,
+          f"mc: --replay exited {rc}: {out[-500:]} {err[-1000:]}")
+
+    pool = corpus.load_pool(corpus.corpus_dir(bank))
+    _zero_counts()
+    rep = corpus.corpus_replay(corpus.corpus_dir(bank), device="cuda")
+    single, grid = _read_counts()
+    direct = sum(1 for e in rep["engines"]
+                 if e["direct"] == "device-bfs(cuda)")
+    bucketed = sum(1 for e in rep["engines"]
+                   if e["bucketed"] == "device-batch(cuda)")
+    emit(f"mc[deeper]: {len(mc.ALL_FAMILIES)} families at depth 7 (or "
+         f"deeper), {n_deep} states, {deep_s:.3f} s; --replay of "
+         f"{cert['code']}: {out.strip()}; the banked pool ({len(pool)} "
+         f"entries) replayed on the card in {rep['seconds']} s: failures "
+         f"{rep['failures']}, prepass-decided {rep['hb_decided']}; to B1: "
+         f"{direct} on the direct route, {bucketed} on the bucketed one; "
+         f"B1 launches single={single} grid={grid}")
+    # the JAX package banks an MC201 certificate (one job delivered
+    # twice) as a total-queue entry expected invalid, while total-queue
+    # admits a duplicate delivery: its own replay reports that entry as
+    # a regression (ROADMAP.md §C), and the port's pool is the same
+    dup = {e["id"][:12] for c in certs if c["code"] == "MC201"
+           for e in corpus.entries_from_test(
+               {"history": [Op.from_dict(d) for d in c["history"]],
+                "model": None},
+               {"family": f"mc-{c['family']}", "nemesis": f"mc-{c['mode']}",
+                "seeded": True, "valid": False})}
+    known = [f for f in rep["failures"] if f.startswith("REGRESSION ")
+             and any(f"[{i}]" in f for i in dup)]
+    emit(f"mc[replay]: {len(known)} of {len(rep['failures'])} failures "
+         f"are the JAX package's MC201 bank fault: {known}")
+    check(len(known) == len(rep["failures"]) and rep["entries"] == len(pool),
+          f"mc: the corpus replay: {rep['failures']}")
+    return {"mc": {"grid": grid, "single": single}}
+
+
+#: the device the analyze command plans for (the CPU rehearsal sets
+#: "cpu")
+ANALYZE_DEVICE = "cuda"
+
+
+def _tampered(result: dict, n_rows: int) -> dict:
+    """The result with one step of its certificate corrupted: a row of
+    the linearization, or of the blocking frontier, past the history."""
+    bad = json.loads(json.dumps(result))
+    key = "linearization" if bad.get("linearization") else "final_ops"
+    check(bad.get(key), f"analyze_cli: the result has no {key}")
+    bad[key][0] = n_rows + 7
+    return bad
+
+
+@_timed_phase("analyze_cli")
+def phase_analyze_cli(base, checked):
+    """``python -m jepsen_tpu_torch.analyze`` on a history the card
+    checked.  ``checked`` is 1k's ``Linearizable(algorithm="device",
+    device="cuda")`` result from :func:`phase_main_path` (``main[device]``,
+    counted there) and the dims its search started at; the bucketed
+    batch (counted here) gives 1k's bucket.  The history is written with
+    ``store.write_history`` and the result as JSON.  ``analyze <history>
+    --model cas-register --explain --audit <result> --json --device
+    cuda`` must exit 0 with a clean audit and a plan whose route, first
+    dims and bucket are the live search's; with one step of the
+    certificate corrupted it must exit 1 with a W-code.  Returns the
+    card's launches."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    h, seq, model = tier_events("1k")
+    test = {"name": "analyze_cli", "store_base": base,
+            "start_time": "run"}
+    res, started = checked
+    check(res["valid"] is REFERENCE["1k"][0]
+          and res["engine"].startswith("device-bfs(") and started,
+          f"analyze_cli: 1k gave {res['valid']} by {res['engine']}, "
+          f"first dims {started}")
+    _zero_counts()
+    batch = lin.search_batch([seq], model, device=ANALYZE_DEVICE,
+                             bucket=True)[0]
+    single, grid = _read_counts()
+    hist_path = store.write_history(test, h)
+    paths = {}
+    for name, r in (("result", res),
+                    ("tampered", _tampered(res, len(seq)))):
+        paths[name] = store.path_mkdirs(test, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(store._jsonable(r), f)
+    t0 = time.perf_counter()
+    procs = {name: _analyze_cli(hist_path, "--model", "cas-register",
+                                "--explain", "--audit", p, "--json",
+                                "--device", ANALYZE_DEVICE)
+             for name, p in paths.items()}
+    done = {name: _finish(p) for name, p in procs.items()}
+    cli_s = time.perf_counter() - t0
+    rc, out, err = done["result"]
+    check(rc == 0, f"analyze_cli: exited {rc}: {err[-2000:]}")
+    rep = json.loads(out)
+    plan = rep["plan"]
+    live_dims = {k: getattr(started[0], k) for k in plan["search_dims"]}
+    bucket = batch["bucket_batch"]["buckets"][0]["dims"]
+    check(rep["audit"]["ok"] and rep["errors"] == 0,
+          f"analyze_cli: audit {rep['audit']}, errors {rep['errors']}")
+    check(plan["engine"] == "device-bfs" and live_dims == plan["search_dims"]
+          and bucket == plan["bucket"],
+          f"analyze_cli: planned {plan['engine']} {plan['search_dims']} "
+          f"{plan['bucket']}, ran {res['engine']} from {live_dims}, bucket "
+          f"{bucket}")
+    rc_bad, out_bad, err_bad = done["tampered"]
+    bad = json.loads(out_bad) if out_bad.strip() else {}
+    codes = bad.get("audit", {}).get("codes", [])
+    emit(f"analyze_cli: 1k as main[device] checked it on the card "
+         f"(valid={res['valid']} engine={res['engine']} "
+         f"configs={res['configs']}); the bucketed batch's B1 launches "
+         f"single={single} grid={grid}; the command (two processes at once) {cli_s:.3f} s: "
+         f"exit {rc}, audit {rep['audit']['checked']} ok, plan "
+         f"{plan['engine']} {plan['search_dims']} bucket {plan['bucket']} "
+         f"= the live search's; tampered: exit {rc_bad}, codes {codes}")
+    check(rc_bad == 1 and codes and all(c.startswith("W") for c in codes),
+          f"analyze_cli: the tampered result exited {rc_bad}, codes "
+          f"{codes}: {err_bad[-1000:]}")
+    return {"analyze_cli": {"grid": grid, "single": single}}
+
+
+#: ``phase_live``: the kv daemon's run (16 clients, 2,000 read/write/cas
+#: ops on one key at 200 ops/s in all, values 1 to 5, no fault during
+#: the traffic; the rate keeps the history's window, the ops invoked
+#: while one is open, inside B1's 64 lanes: at 1,429 ops/s a stall of a
+#: tenth of a second opened a window of 160) and the
+#: replicated cluster's (the JAX package's replicated kill-restart cell,
+#: ``jepsen_tpu/live/campaign.py:59-64``, without its seeded volatile
+#: mode: 3 replicas, lease 400 ms, 4 clients at 20 ops/s in all for 12
+#: s, reads weighted 4, a SIGKILL every 2 s.  The kills alternate: the
+#: current leader, restarted at once, and the whole cluster, the cell's
+#: ``kill_all``, the power failure clean replicas survive from the
+#: shared oplog alone, down for ``down_s`` as in the JAX package's
+#: kill-restart cadence, ``jepsen_tpu/live/matrix.py:112-113``, then
+#: restarted)
+LIVE_KV = dict(clients=16, ops=2000, rate=200.0, values=(1, 2, 3, 4, 5))
+LIVE_REPLICATED = dict(nodes=3, lease_ms=400, clients=4, rate=20.0,
+                       seconds=12.0, read_weight=4, kill_every=2.0,
+                       down_s=0.7, values=(1, 2, 3, 4, 5))
+#: how a read of the unset key (404) renders: the model's initial value,
+#: as the JAX package's live client renders it (``backend.py:499``)
+LIVE_MISSING = -1
+#: the live client's request timeout (the JAX package's V2Client's)
+LIVE_TIMEOUT_S = 2.0
+#: how long one connection attempt waits for the handshake before the
+#: client tries again (the kernel's own SYN retry waits a second)
+LIVE_SYN_S = 0.05
+
+
+def _free_port() -> int:
+    """An ephemeral port the kernel hands out now (bound and closed)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_port(port, proc, deadline_s=20.0) -> None:
+    import socket
+
+    deadline = time.monotonic() + deadline_s
+    while True:
+        check(proc.poll() is None,
+              f"live: the daemon on port {port} exited {proc.returncode}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            check(time.monotonic() < deadline,
+                  f"live: nothing listens on port {port}")
+            time.sleep(0.05)
+
+
+def _spawn_daemon(module, port, *args):
+    """``python -m jepsen_tpu_torch.live.<module> PORT ARGS...``, once it
+    accepts connections."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"jepsen_tpu_torch.live.{module}",
+         str(port), *map(str, args)], cwd=str(REPO),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        _wait_port(port, proc)
+    except SmokeFailure:
+        _kill9(proc)
+        raise
+    return proc
+
+
+def _kill9(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        os.kill(proc.pid, signal.SIGKILL)
+    proc.wait(timeout=10)
+
+
+def _connect(port):
+    """An HTTP connection to ``port``.  Each attempt waits
+    :data:`LIVE_SYN_S` for the handshake and a dropped SYN is retried at
+    once, up to :data:`LIVE_TIMEOUT_S` in all (nothing is sent yet, so
+    the op is not in flight): the daemons' listen backlog is the
+    standard library's 5, and under a burst of new connections the
+    kernel's own SYN retry would hold an op open for a second."""
+    import http.client
+
+    deadline = time.monotonic() + LIVE_TIMEOUT_S
+    while True:
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=LIVE_SYN_S)
+        try:
+            conn.connect()
+        except TimeoutError:
+            conn.close()
+            if time.monotonic() > deadline:
+                raise
+            continue
+        conn.sock.settimeout(LIVE_TIMEOUT_S)
+        return conn
+
+
+def _kv_request(port, f, value, key="x"):
+    """One etcd-v2 request on its own connection, as ``urllib`` makes
+    it: ``(type, value)`` of the op's completion.  2xx is ok (a 404
+    read is ok with :data:`LIVE_MISSING`), 503 and a refused connection
+    fail (nothing was applied), a failed compare (412, or 404 on a
+    missing key) fails, and 504 or any other transport error (a
+    timeout, a reset) is info."""
+    import http.client
+    import urllib.parse
+
+    path = f"/v2/keys/{key}"
+    body, headers = None, {"Connection": "close"}
+    if f != "read":
+        new = value if f == "write" else value[1]
+        if f == "cas":
+            path += "?" + urllib.parse.urlencode({"prevValue": value[0]})
+        body = urllib.parse.urlencode({"value": new}).encode()
+        headers["Content-Type"] = "application/x-www-form-urlencoded"
+    try:
+        conn = _connect(port)
+    except ConnectionRefusedError:
+        return "fail", value
+    except OSError:
+        return "info", value
+    try:
+        conn.request("GET" if f == "read" else "PUT", path, body=body,
+                     headers=headers)
+        r = conn.getresponse()
+        status, out = r.status, json.loads(r.read() or b"{}")
+    except (OSError, http.client.HTTPException, ValueError):
+        return "info", value
+    finally:
+        conn.close()
+    if 200 <= status < 300:
+        return ("ok", int(out["node"]["value"])) if f == "read" \
+            else ("ok", value)
+    if f == "read" and status == 404:
+        return "ok", LIVE_MISSING
+    return ("info" if status == 504 else "fail"), value
+
+
+def _live_clients(ports, n_clients, n_ops, values, *, rate=None,
+                  seconds=None, read_weight=1, seed=0):
+    """Start ``n_clients`` threads of read/write/cas on one key (client i
+    on ``ports[i % len(ports)]``) that run until ``n_ops`` ops have been
+    invoked or ``seconds`` have passed, ``rate`` ops/s in all.  An info
+    op retires its process (the next op takes a fresh one, as a Jepsen
+    worker does).  Returns what :func:`_join_clients` takes."""
+    import threading
+
+    from jepsen_tpu_torch.history import Op
+
+    lock = threading.Lock()
+    events: list = []
+    issued = [0]
+    t_end = None if seconds is None else time.monotonic() + seconds
+    mix = ["read"] * read_weight + ["write", "cas"]
+
+    def record(proc, typ, f, value):
+        with lock:
+            events.append(Op(process=proc, type=typ, f=f, value=value,
+                             time=time.monotonic_ns()))
+
+    def worker(i):
+        rng = random.Random(f"live-{seed}-{i}")
+        proc = i
+        while True:
+            if rate:
+                time.sleep(rng.uniform(0, 2 * n_clients / rate))
+            with lock:
+                if (n_ops is not None and issued[0] >= n_ops) or (
+                        t_end is not None and time.monotonic() >= t_end):
+                    return
+                issued[0] += 1
+            f = rng.choice(mix)
+            value = (None if f == "read" else rng.choice(values)
+                     if f == "write" else [rng.choice(values),
+                                           rng.choice(values)])
+            record(proc, "invoke", f, value)
+            typ, got = _kv_request(ports[i % len(ports)], f, value)
+            record(proc, typ, f, got if typ == "ok" else value)
+            if typ == "info":
+                proc += n_clients
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_clients)]
+    for th in threads:
+        th.start()
+    return threads, events, lock
+
+
+def _join_clients(threads, events, lock) -> list:
+    for th in threads:
+        th.join()
+    with lock:
+        return sorted(events, key=lambda op: op.time)
+
+
+def _live_check(label, history, model, store_base) -> dict:
+    """One live history checked on the card (``algorithm="device"``,
+    counted) and by the host engine on the CPU: the verdicts must agree
+    and be valid.  Both ``configs`` print; they count different things
+    (the card's breadth-first configurations, the host WGL's cache
+    entries), so they are not compared."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    test = {"name": f"live-{label}", "store_base": store_base}
+    _zero_counts()
+    t0 = time.perf_counter()
+    dev = lin.linearizable(model, algorithm="device",
+                           device="cuda").check(test, history)
+    dev_s = time.perf_counter() - t0
+    single, grid = _read_counts()
+    t0 = time.perf_counter()
+    host = lin.linearizable(model, algorithm="host",
+                            device="cpu").check(test, history)
+    host_s = time.perf_counter() - t0
+    types = collections.Counter(op.type for op in history)
+    emit(f"live[{label}]: {len(history)} events ({dict(types)}); the card: "
+         f"valid={dev['valid']} configs={dev['configs']} "
+         f"engine={dev['engine']} {dev_s:.3f} s, B1 launches "
+         f"single={single} grid={grid}; the host engine: "
+         f"valid={host['valid']} configs={host['configs']} "
+         f"engine={host['engine']} {host_s:.3f} s")
+    check(dev["valid"] == host["valid"],
+          f"live[{label}]: the card {dev['valid']}, the host "
+          f"{host['valid']}")
+    check(dev["valid"] is True, f"live[{label}]: {dev['valid']}")
+    return {"grid": grid, "single": single}
+
+
+def _live_kv(base) -> list:
+    """``live[kv]``: one durable kv daemon under :data:`LIVE_KV`'s
+    traffic, then a read, SIGKILL, a restart on the same data and a read
+    back (every acked write survives: the value read before the kill is
+    read after it).  Returns the history."""
+    from jepsen_tpu_torch.history import Op
+
+    port, data = _free_port(), os.path.join(base, "kv")
+    proc = _spawn_daemon("kv_server", port, data)
+    try:
+        t0 = time.perf_counter()
+        h = _join_clients(*_live_clients(
+            [port], LIVE_KV["clients"], LIVE_KV["ops"], LIVE_KV["values"],
+            rate=LIVE_KV["rate"]))
+        wall = time.perf_counter() - t0
+        reads = []
+        # above every process a worker can have reached
+        top = max(op.process for op in h)
+        for _ in range(2):
+            p = top + 1 + len(reads)
+            h.append(Op(p, "invoke", "read", None, time=time.monotonic_ns()))
+            typ, got = _kv_request(port, "read", None)
+            check(typ == "ok", f"live[kv]: the read back was {typ}")
+            h.append(Op(p, "ok", "read", got, time=time.monotonic_ns()))
+            reads.append(got)
+            if len(reads) == 1:
+                _kill9(proc)
+                proc = _spawn_daemon("kv_server", port, data)
+    finally:
+        _kill9(proc)
+    acked = sum(1 for op in h if op.type == "ok" and op.f != "read")
+    emit(f"live[kv]: {LIVE_KV['ops']} ops from {LIVE_KV['clients']} "
+         f"clients in {wall:.3f} s ({LIVE_KV['ops'] / wall:.1f} ops/s), "
+         f"{acked} acked writes; read {reads[0]} before SIGKILL, "
+         f"{reads[1]} after the restart")
+    check(reads[0] == reads[1], f"live[kv]: read {reads[0]} before the "
+          f"kill and {reads[1]} after it")
+    return h
+
+
+def _repl_leader(ports):
+    from jepsen_tpu_torch.live.replicated_server import http_json
+
+    leaders = []
+    for i, port in enumerate(ports):
+        try:
+            _st, out = http_json("127.0.0.1", port, "/_repl/status",
+                                 timeout=0.5)
+            if out.get("role") == "leader":
+                leaders.append(i)
+        except OSError:
+            pass
+    return leaders[0] if len(leaders) == 1 else None
+
+
+def _live_replicated(base) -> tuple:
+    """``live[replicated]``: three clean replicas over one shared oplog
+    under :data:`LIVE_REPLICATED`'s traffic, a SIGKILL every
+    ``kill_every`` seconds, alternately of the leader (restarted at
+    once) and of the whole cluster (restarted after ``down_s``).
+    Returns (history, kills): the leader's index, ``"all"``, or None
+    where there was no single leader to kill."""
+    cfg = LIVE_REPLICATED
+    ports = [_free_port() for _ in range(cfg["nodes"])]
+    oplog = os.path.join(base, "replicated", "shared", "oplog")
+
+    def start(i):
+        return _spawn_daemon(
+            "replicated_server", ports[i],
+            os.path.join(base, "replicated", f"n{i}"), "--id", i,
+            "--peers", ",".join(map(str, ports)), "--oplog", oplog,
+            "--lease-ms", cfg["lease_ms"])
+
+    procs, kills = [], []
+    try:
+        for i in range(cfg["nodes"]):
+            procs.append(start(i))
+        deadline = time.monotonic() + 20
+        while _repl_leader(ports) is None:
+            check(time.monotonic() < deadline, "live[replicated]: no "
+                  "single leader within 20 s")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        running = _live_clients(ports, cfg["clients"], None, cfg["values"],
+                                rate=cfg["rate"], seconds=cfg["seconds"],
+                                read_weight=cfg["read_weight"], seed=1)
+        for k in range(1, round(cfg["seconds"] / cfg["kill_every"])):
+            time.sleep(max(0.0, t0 + k * cfg["kill_every"]
+                           - time.perf_counter()))
+            if k % 2 == 0:
+                for p in procs:
+                    _kill9(p)
+                time.sleep(cfg["down_s"])
+                for i in range(cfg["nodes"]):
+                    procs[i] = start(i)
+                kills.append("all")
+                continue
+            lead = _repl_leader(ports)
+            if lead is None:
+                kills.append(None)
+                continue
+            _kill9(procs[lead])
+            procs[lead] = start(lead)
+            kills.append(lead)
+        h = _join_clients(*running)
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            _kill9(p)
+    emit(f"live[replicated]: {sum(op.type == 'invoke' for op in h)} ops "
+         f"from {cfg['clients']} clients in {wall:.3f} s; SIGKILL at each "
+         f"{cfg['kill_every']} s, alternately of the leader and of the "
+         f"whole cluster (down {cfg['down_s']} s): {kills} (None: no "
+         f"single leader then)")
+    return h, kills
+
+
+@_timed_phase("live")
+def phase_live(base):
+    """The port's daemons as real processes on ephemeral ports, driven
+    by this script's client (:func:`_kv_request`): ``live[kv]``
+    (:func:`_live_kv`) and ``live[replicated]``
+    (:func:`_live_replicated`).  Each history is checked on the card
+    with ``algorithm="device"`` and by the host engine on the CPU
+    (:func:`_live_check`).  Returns the card checks' launches."""
+    from jepsen_tpu_torch.models import cas_register
+
+    model = cas_register(LIVE_MISSING)
+    kv = _live_kv(base)
+    launches = collections.Counter(_live_check("kv", kv, model, base))
+    repl, _kills = _live_replicated(base)
+    launches.update(_live_check("replicated", repl, model, base))
+    check(launches["single"] + launches["grid"] > 0,
+          "live: B1 never launched")
+    return {"live": dict(launches)}
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -3183,7 +3823,7 @@ def main() -> int:
         worst = phase_lockstep(device)
         worst = max(worst, phase_grid_lockstep(device))
         with tempfile.TemporaryDirectory() as store_base:
-            launches, captured = phase_main_path(store_base)
+            launches, captured, checked = phase_main_path(store_base)
             phase_masked_control()
             worst = max(worst, phase_lockstep_captured(captured))
             phase_default_route(store_base)
@@ -3199,6 +3839,9 @@ def main() -> int:
             shard_launches, shard_trace = phase_shard_tier(store_base)
             launches.update(shard_launches)
             launches.update(phase_corpus(store_base))
+            launches.update(phase_mc(store_base))
+            launches.update(phase_analyze_cli(store_base, checked["1k"]))
+            launches.update(phase_live(store_base))
             phase_report(shard_trace)
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)

@@ -15,8 +15,12 @@
     (``audit.audit``).
   * :mod:`.shrink`: the delta-debugging of invalid histories, by rows
     of an OpSeq or by events.
+  * :mod:`.modelcheck` and :mod:`.simnet`: the bounded model checker of
+    the live daemons' state machines and of their request shells under
+    a simulated transport (MC1xx, MC2xx), with schedule certificates.
 
-:func:`analyze` runs the lint and the plan in one call.
+:func:`analyze` runs the lint and the plan in one call; ``python -m
+jepsen_tpu_torch.analyze`` is the command line over all of them.
 """
 
 from __future__ import annotations

@@ -592,3 +592,60 @@ def test_corpus_replay_on_the_card(cuda, tmp_path):
     assert any(e["direct"] == "device-bfs(cuda)" for e in out["engines"])
     assert any(e["bucketed"] == "device-batch(cuda)"
                for e in out["engines"])
+
+
+@pytest.mark.cuda
+def test_analyze_cli_explain_on_the_card(cuda, tmp_path):
+    """``python -m jepsen_tpu_torch.analyze --explain --device cuda`` on a
+    stored history prints the plan ``explain(device="cuda")`` makes in
+    process, and launches nothing."""
+    import json
+    import subprocess
+    import sys
+
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.analyze.plan import explain
+
+    rng = random.Random(9000)
+    h = register_history(rng, n_ops=110, n_procs=6, overlap=5,
+                         crash_p=0.03, max_crashes=3, n_values=4)
+    path = store.write_history({"store_base": str(tmp_path), "name": "cli",
+                                "start_time": "t"}, h)
+    p = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.analyze", path, "--model",
+         "cas-register", "--explain", "--json", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr
+    plan = json.loads(p.stdout)["plan"]
+    before = lk.LAUNCHES, lk.BATCH_LAUNCHES
+    want = explain(store.read_history(path), cas_register(), device="cuda")
+    assert (lk.LAUNCHES, lk.BATCH_LAUNCHES) == before
+    assert plan == json.loads(json.dumps(want, default=str))
+
+
+@pytest.mark.cuda
+def test_live_kv_history_checked_on_the_card(cuda, tmp_path):
+    """A short run against the port's kv daemon (4 clients, 200 ops),
+    checked on the card with ``algorithm="device"`` and by the host
+    engine: both valid."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    port = cs._free_port()
+    proc = cs._spawn_daemon("kv_server", port, tmp_path / "kv")
+    try:
+        h = cs._join_clients(*cs._live_clients(
+            [port], 4, 200, (1, 2, 3, 4, 5), rate=100.0))
+    finally:
+        cs._kill9(proc)
+    model = cas_register(cs.LIVE_MISSING)
+    test = {"name": "live", "store_base": str(tmp_path)}
+    dev = lin.linearizable(model, algorithm="device",
+                           device="cuda").check(test, h)
+    host = lin.linearizable(model, algorithm="host",
+                            device="cpu").check(test, h)
+    assert dev["valid"] is True and host["valid"] is True

@@ -55,7 +55,10 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "distributed", "checker.sharded", "reconnect", "analyze.devlint",
     "fleet", "fleet.warmup", "fleet.cachestore", "fleet.admission",
     "fleet.router", "fleet.bench", "fleet.__main__", "checker.shard_bench",
-    "live", "live.corpus", "obs.report", "obs.__main__")}
+    "live", "live.corpus", "obs.report", "obs.__main__", "live.oplog",
+    "live.kv_server", "live.queue_server", "live.replicated_server",
+    "live.replicated_queue", "analyze.simnet", "analyze.modelcheck",
+    "analyze.__main__")}
 
 
 def _sources():
