@@ -37,8 +37,11 @@ full width (24 clients, 20 ops in flight, bursts of 32; :data:`STREAM`):
 op by op through ``StreamChecker(device="cuda")`` with every closed
 segment folded on the device, valid, and with a corrupted read (the
 verdict flips at the violating segment's cut); its first two device
-folds and the one that empties again on the card's torch step; with
-async folds; twice on one verdict cache file (the second run all hits,
+folds and the one that empties again on the card's torch step; its
+first closed segments at the default gate, the one segment that gate
+sends to the device folded alone, and a gated burst whose undecided
+fold the checker sweeps on the host; with async folds; twice on one
+verdict cache file (the second run all hits,
 no launch); four streams through one ``StreamService``; and the stream
 bench tier.  The multi-device routes run over logical shards of the
 card (:data:`SHARDS`): the sharded-frontier search on 1k (one shard and
@@ -66,7 +69,14 @@ certificates, which replay on the card; the same command audits and
 plans 1k after the card checked it, and fails a tampered certificate;
 and the port's kv and replicated daemons run as real processes under
 client traffic and SIGKILLs, their histories checked on the card and on
-the host.  Every phase
+the host.  Then the checker library (:func:`phase_checkers`): the
+batch256 keys as a stored test, saved, loaded and checked by
+``compose`` of the lifted linearizability checker, a timeline per key
+and ``perf``, and 26 seeded histories held to the JAX package's
+verdicts, ``queue_linearizable``'s device leg among them on the card's
+torch step; and the device contract (:func:`phase_devlint`): ``python -m
+jepsen_tpu_torch.analyze --devlint`` in a fresh process, its findings
+the pinned set.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -1004,6 +1014,39 @@ def _route_counts(results) -> dict:
             "device-solo" if e.startswith("device-bfs") else
             "host" if e.startswith("host-linear") else e] += 1
     return dict(sorted(out.items()))
+
+
+class _StepTrace:
+    """Wraps ``checker.linearizable.get_kernel`` for one run: the slices
+    the torch step ran (a slice function that is not the fused kernel),
+    counted by the device the search was asked for."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        self.slices = collections.Counter()
+        self._saved = get = lin.get_kernel
+
+        def traced(model, dims, device, **kw):
+            fn = get(model, dims, device, **kw)
+            if lin._use_kernel(model, dims, device,
+                               masked=kw.get("masked", False),
+                               dedup=kw.get("dedup", False)):
+                return fn
+
+            def counted(*a):
+                self.slices[str(device)] += 1
+                return fn(*a)
+
+            return counted
+
+        lin.get_kernel = traced
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.checker import linearizable as lin
+
+        lin.get_kernel = self._saved
 
 
 def _check_batch_results(label, results, rechecked=(), configs=None):
@@ -2038,15 +2081,69 @@ def stream_history(*, corrupt: bool = False, seed: str = STREAM_SEED):
         cas_register(), bad
 
 
+#: the share of stream24's events ``stream[default]`` runs: its first
+#: closed segments, all under the default gate's cost cap, so every one
+#: folds on the host sweep (the whole stream there is about 3 minutes of
+#: host sweeps).  The gate's device route is driven past the prefix: by
+#: the fold of stream24's one gated segment alone, and inside the stream
+#: checker by ``stream[gate]``
+STREAM_DEFAULT_SHARE = 1 / 3
+
+#: ``stream[gate]``'s burst, all open at once after a sequential write
+#: of 0: a cas chain 0 -> 1 -> ... -> ``n_cas``, then ``n_writes``
+#: writes of 100 on and ``n_reads`` reads of the last one (20 rows,
+#: window 20: past the default gate's cost cap).  Its host sweep is a
+#: fraction of a second; its device fold's variants search about 4,000
+#: configs each, so at :data:`STREAM_GATE_BUDGET` the fold is undecided
+#: and the stream checker sweeps the segment on the host instead
+STREAM_GATE = dict(n_cas=10, n_writes=6, n_reads=4)
+STREAM_GATE_BUDGET = 1_000
+
+
+def stream_prefix(h, model):
+    """The stream's closed segments that start within its first
+    :data:`STREAM_DEFAULT_SHARE` of events, cut where the next one
+    starts (no op is open there), then the trailing sequential write of
+    :func:`stream_history`."""
+    from jepsen_tpu_torch.decompose.partition import quiescence_segments
+    from jepsen_tpu_torch.history import encode_ops
+
+    seq = encode_ops(h, model.f_codes)
+    starts = [int(seq.inv[s[0]]) for s in quiescence_segments(seq)]
+    cut = max(s for s in starts if s <= len(h) * STREAM_DEFAULT_SHARE)
+    return h[:cut] + h[-2:]
+
+
+def stream_gate_history():
+    """(events, model): :data:`STREAM_GATE`'s burst between two
+    sequential writes of 0 (the second closes the burst's segment)."""
+    from jepsen_tpu_torch.history import invoke_op, ok_op
+    from jepsen_tpu_torch.models import cas_register
+
+    g = STREAM_GATE
+    ops = [(p, "cas", [p, p + 1]) for p in range(g["n_cas"])]
+    ops += [(g["n_cas"] + i, "write", 100 + i) for i in range(g["n_writes"])]
+    last = 100 + g["n_writes"] - 1
+    ops += [(g["n_cas"] + g["n_writes"] + i, "read", None)
+            for i in range(g["n_reads"])]
+    h = [invoke_op(0, "write", 0), ok_op(0, "write", 0)]
+    h += [invoke_op(p, f, v) for p, f, v in ops]
+    h += [ok_op(p, f, last if f == "read" else v) for p, f, v in ops]
+    return h + [invoke_op(0, "write", 0), ok_op(0, "write", 0)], \
+        cas_register()
+
+
 class _FoldTrace:
     """Wraps ``stream.device.device_fold_states`` for one run: per
     device fold, its segment and in-states, the states out, the
     variants, the configs, and its wall on the card.  Also wraps
-    ``decompose.engine.segment_states``: the wall of each host sweep."""
+    ``decompose.engine.segment_states``: the wall of each host sweep,
+    and its rows and the states it reached."""
 
     def __init__(self):
         self.folds: list = []
         self.host: list = []
+        self.host_out: list = []
 
     def __enter__(self):
         import torch
@@ -2058,12 +2155,16 @@ class _FoldTrace:
         self._saved = fold = sd.device_fold_states
         self._saved_host = host = engine.segment_states
 
-        def host_traced(*a, **kw):
+        def host_traced(sseq, *a, **kw):
             t0 = time.perf_counter()
             try:
-                return host(*a, **kw)
+                out = host(sseq, *a, **kw)
             finally:
                 self.host.append(time.perf_counter() - t0)
+            # with witness=True: (states, witnesses)
+            self.host_out.append((len(sseq), out[0] if isinstance(
+                out, tuple) else out))
+            return out
 
         def traced(sseq, model, in_states, **kw):
             torch.cuda.synchronize()
@@ -2154,8 +2255,14 @@ def phase_stream(store_base):
     :data:`STREAM_KW`):
     ``stream[valid]`` (every closed segment folded on the device, the
     grid form launched, valid; on a cache file, the cold run of
-    ``stream[cache]``), ``stream[default]`` (the same stream at the
-    default gate and budget: its routes and walls), ``stream[corrupt]`` (invalid inside the
+    ``stream[cache]``), ``stream[default]`` (the stream's closed segments
+    of its first third at the default gate and budget, :func:`stream_prefix`:
+    its routes and walls; then the one segment the gate sends to the
+    device, folded alone at the default budget: undecided, never
+    wrong), ``stream[gate]`` (the default gate's device route inside the
+    checker: a gated burst undecided at :data:`STREAM_GATE_BUDGET`, then
+    swept on the host to the states a deciding fold reaches),
+    ``stream[corrupt]`` (invalid inside the
     violating segment, before the stream's end), ``stream[plain]`` (the
     first two device folds and the one that empties, again on the
     card's torch step: the same state sets), ``stream[async]``,
@@ -2163,8 +2270,12 @@ def phase_stream(store_base):
     file: every segment a hit, no launch), ``stream[service]`` (four streams,
     two pairs with the same content, through one service on one cache)
     and the stream bench tier (host folds, ``parity``)."""
+    import torch
+
+    from jepsen_tpu_torch.analyze.plan import segment_fold_route
     from jepsen_tpu_torch.checker import linearizable as lin
     from jepsen_tpu_torch.decompose import VerdictCache
+    from jepsen_tpu_torch.history import max_concurrency
     from jepsen_tpu_torch.stream import device as sd
     from jepsen_tpu_torch.stream.bench import run_stream_tier
     from jepsen_tpu_torch.stream.service import StreamService, serve_lines
@@ -2195,13 +2306,16 @@ def phase_stream(store_base):
 
     # what a user who sets nothing gets on this stream: the default gate
     # (most segments to the host sweep) and budget (the widest variants
-    # undecided, their folds to the host); no time is asked of it
+    # undecided, their folds to the host); no time is asked of it, so it
+    # runs the stream's first closed segments only (stream_prefix), and
+    # the gate's device route below
+    hd = stream_prefix(h, model)
     resd, tld, grid_d, single_d, folds_d, gtrace_d = _stream_run(
-        "stream[default]", h, model, forced=False)
+        "stream[default]", hd, model, forced=False)
     std = resd["stream"]
-    launches["stream[default]"] = {"grid": grid_d, "single": single_d}
     undecided = [f for f in folds_d.folds if f["out"] is None]
-    emit(f"stream[default]: valid={resd['valid']} engine={resd['engine']} "
+    emit(f"stream[default]: events={len(hd)} of {len(h)} "
+         f"valid={resd['valid']} engine={resd['engine']} "
          f"ingest_s={tld['ingest_s']:.3f} finalize_s="
          f"{tld['finalize_s']:.4f}; segments={std['segments']} routes="
          f"{std['routes']} fallback={std['fallback']} configs="
@@ -2211,6 +2325,88 @@ def phase_stream(store_base):
          f"{sum(folds_d.host):.4f} max={max(folds_d.host or [0]):.4f}; "
          f"launches grid={grid_d} single={single_d}")
     check(resd["valid"] is True, f"stream[default]: valid={resd['valid']}")
+    check(std["routes"]["device"] == 0 and not std["fallback"]
+          and not folds_d.folds, f"stream[default]: routes "
+          f"{std['routes']}, {len(folds_d.folds)} device folds tried: "
+          f"the prefix lies under the gate's cost cap")
+    # the gate's device route lies past the prefix: stream24's one
+    # segment over the gate's cost cap is its 9th (events 512 on, 29
+    # rows, 19 open at once), whose fold at the default budget is
+    # undecided and whose host sweep then takes about 94 s; its fold
+    # runs here alone, at the default budget, from the in-states
+    # stream[valid] folded it from, and is held to the states
+    # stream[valid] folded there at its budget
+    gated = [f for f in valid_folds if segment_fold_route(
+        len(f["sseq"]), max_concurrency(f["sseq"]), model) == "device"]
+    check(gated, "stream[default]: the gate routes no segment of the "
+          "stream to the device")
+    _zero_counts()
+    undecided = []
+    for f in gated:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sd.device_fold_states(f["sseq"], model, f["in"],
+                                    device="cuda")
+        torch.cuda.synchronize()
+        first = int(f["sseq"].inv[0])
+        undecided.append((first, len(f["sseq"]), out is None,
+                          round(time.perf_counter() - t0, 4)))
+        check(out is None or out[0] == f["out"],
+              f"stream[default] gate: the fold from event {first} at the "
+              f"default budget gives {out and sorted(out[0])}, "
+              f"stream[valid] {sorted(f['out'])}")
+        check(out is None, f"stream[default] gate: the fold from event "
+              f"{first} is decided at the default budget ("
+              f"{out and out[1]} configs): stream[gate] no longer stands "
+              f"for it")
+    single_g, grid_g = _read_counts()
+    launches["stream[default]"] = {"grid": grid_d + grid_g,
+                                   "single": single_d + single_g}
+    emit(f"stream[default] gate: segments past the cap (first event, rows, "
+         f"undecided at the default budget, s) {undecided}; launches "
+         f"grid={grid_g} single={single_g}")
+
+    # the same route inside the stream checker, at the default gate: a
+    # gated burst whose fold is undecided at STREAM_GATE_BUDGET and whose
+    # host sweep is cheap, so the checker sweeps it on the host; the
+    # states that sweep reaches are the device fold's at a budget that
+    # decides it
+    hg, _m = stream_gate_history()
+    resg, tlg, grid_q, single_q, folds_g, _gt = _stream_run(
+        "stream[gate]", hg, model, forced=False,
+        device_budget=STREAM_GATE_BUDGET)
+    stg = resg["stream"]
+    launches["stream[gate]"] = {"grid": grid_q, "single": single_q}
+    tried = folds_g.folds
+    check(len(tried) == 1 and tried[0]["out"] is None,
+          f"stream[gate]: device folds tried {len(tried)}, out "
+          f"{[f['out'] for f in tried]}: the burst's fold is not undecided")
+    check(grid_q + single_q > 0, "stream[gate]: the burst's fold launched "
+          "no kernel")
+    swept = [st for n, st in folds_g.host_out if n == len(tried[0]["sseq"])]
+    decided = sd.device_fold_states(tried[0]["sseq"], model, tried[0]["in"],
+                                    budget=STREAM_KW["device_budget"],
+                                    device="cuda")
+    emit(f"stream[gate]: events={len(hg)} valid={resg['valid']} "
+         f"engine={resg['engine']} ingest_s={tlg['ingest_s']:.3f} "
+         f"finalize_s={tlg['finalize_s']:.4f}; segments={stg['segments']} "
+         f"routes={stg['routes']} fallback={stg['fallback']}; the burst "
+         f"({len(tried[0]['sseq'])} rows, window "
+         f"{max_concurrency(tried[0]['sseq'])}) tried on the device: "
+         f"undecided in {tried[0]['s']:.4f} s at {STREAM_GATE_BUDGET} "
+         f"configs, then host swept to {swept and sorted(swept[0])} in "
+         f"{max(folds_g.host or [0]):.4f} s; decided at "
+         f"{STREAM_KW['device_budget']} configs: "
+         f"{decided and (sorted(decided[0]), decided[1])}; launches "
+         f"grid={grid_q} single={single_q}")
+    check(resg["valid"] is True and not stg["fallback"]
+          and stg["routes"]["host"] >= 1,
+          f"stream[gate]: valid={resg['valid']} routes {stg['routes']} "
+          f"fallback {stg['fallback']}")
+    check(len(swept) == 1 and decided is not None
+          and swept[0] == decided[0] and len(swept[0]) == STREAM_GATE[
+              "n_writes"], f"stream[gate]: the host sweep reached "
+          f"{swept}, the decided device fold {decided}")
 
     hc, _m, bad = stream_history(corrupt=True)
     resc, tlc, grid_c, single_c, folds_c, gtrace_c = _stream_run(
@@ -2247,8 +2443,6 @@ def phase_stream(store_base):
         for name, f in ([(f"valid#{i}", f) for i, f in
                          enumerate(valid_folds[:2])]
                         + [("corrupt#empty", empty[0])]):
-            import torch
-
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = sd.device_fold_states(f["sseq"], model, f["in"],
@@ -3759,6 +3953,599 @@ def phase_live(base):
     return {"live": dict(launches)}
 
 
+# ---------------------------------------------------------------------------
+# the checker library and the device contract
+# ---------------------------------------------------------------------------
+
+#: the stored batch256 test's name and start time (the one field a clock
+#: would set is pinned: the run dir is the same in every run)
+CHECKERS_TEST = {"name": "checkers-batch256", "start_time": "20260101T000000"}
+
+#: ms between the stored batch256 test's events (the timeline and perf
+#: graphs read event times)
+CHECKERS_EVENT_MS = 1
+
+
+class _BankCursor:
+    """An in-memory DB-API cursor over one ``accounts`` table: the
+    statements ``bank.sql_bank_body`` sends, in place or not."""
+
+    def __init__(self, n: int, total: int):
+        self.bal = {i: total // n + (i < total % n) for i in range(n)}
+        self._rows: list = []
+
+    def execute(self, sql, params=()):
+        if sql.startswith("select id, balance"):
+            self._rows = sorted(self.bal.items())
+        elif sql.startswith("select balance"):
+            self._rows = [(self.bal[params[0]],)]
+        elif "balance - %s" in sql:
+            self.bal[params[1]] -= params[0]
+        elif "balance + %s" in sql:
+            self.bal[params[1]] += params[0]
+        else:  # update accounts set balance = %s where id = %s
+            self.bal[params[1]] = params[0]
+
+    def fetchall(self):
+        return list(self._rows)
+
+    def fetchone(self):
+        return self._rows[0]
+
+
+def _bank_history(seed, *, n=5, total=100, n_ops=40, corrupt=False):
+    """A bank workload from the port's ``bank`` generators and
+    transaction body on :class:`_BankCursor`: one op at a time by 4
+    processes; ``corrupt`` adds 5 to one read's first balance."""
+    from jepsen_tpu_torch import bank
+    from jepsen_tpu_torch.history import Op
+
+    random.seed(seed)  # bank_transfer draws from the module generator
+    rng = random.Random(seed)
+    cur = _BankCursor(n, total)
+    transfer = bank.bank_transfer(n)
+    h = []
+    for i in range(n_ops):
+        p = rng.randrange(4)
+        gen = bank.bank_read if rng.random() < 0.4 else transfer
+        op = Op(process=p, **gen({}, p))
+        h += [op, bank.sql_bank_body(cur, op, n, in_place=bool(i % 2))]
+    if corrupt:
+        i = next(i for i, op in enumerate(h)
+                 if op.type == "ok" and op.f == "read")
+        h[i] = replace(h[i], value={**h[i].value, 0: h[i].value[0] + 5})
+    return h
+
+
+def _ops(*specs):
+    """``(type, process, f, value)`` tuples as port Ops."""
+    from jepsen_tpu_torch.history import Op
+
+    return [Op(process=p, type=t, f=f, value=v) for t, p, f, v in specs]
+
+
+def _counter_history(seed, *, corrupt=False):
+    """Concurrent adds and reads of a counter, each read's value between
+    the ok adds before its invoke and the attempted adds before its
+    completion; ``corrupt`` makes one read too high."""
+    rng = random.Random(seed)
+    lower = upper = 0
+    spec, open_ = [], {}
+    for _ in range(60):
+        p = rng.randrange(4)
+        if p in open_:
+            f, v, lo = open_.pop(p)
+            if f == "add":
+                lower += v
+                spec.append(("ok", p, "add", v))
+            else:
+                spec.append(("ok", p, "read", rng.randint(lo, upper)))
+        elif rng.random() < 0.6:
+            v = rng.randint(1, 5)
+            upper += v
+            open_[p] = ("add", v, 0)
+            spec.append(("invoke", p, "add", v))
+        else:
+            open_[p] = ("read", None, lower)
+            spec.append(("invoke", p, "read", None))
+    if corrupt:
+        i = max(i for i, s in enumerate(spec)
+                if s[0] == "ok" and s[2] == "read")
+        spec[i] = spec[i][:3] + (upper + 9,)
+    return _ops(*spec)
+
+
+def _monotonic_history(seed, *, corrupt=False):
+    """Twelve adds, then a final read of every row (two rows swapped
+    with ``corrupt``)."""
+    rng = random.Random(seed)
+    spec, rows = [], []
+    for v in range(12):
+        p = rng.randrange(3)
+        spec += [("invoke", p, "add", {"val": v}),
+                 ("ok", p, "add", {"val": v})]
+        rows.append({"val": v, "sts": 10 * v, "proc": p,
+                     "node": f"n{rng.randrange(3)}", "tb": v % 2})
+    if corrupt:
+        rows[3], rows[7] = rows[7], rows[3]
+    return _ops(*spec, ("invoke", 3, "read", None), ("ok", 3, "read", rows))
+
+
+def _schedule_history(seed, *, corrupt=False):
+    """Three jobs of 4 runs each (one missing with ``corrupt``), read
+    back at 400 s."""
+    from jepsen_tpu_torch.history import invoke_op, ok_op
+
+    rng = random.Random(seed)
+    jobs, runs, spec = [], [], []
+    for j in range(3):
+        job = {"name": str(j), "start": 100.0 + j, "interval": 60,
+               "count": 4, "epsilon": 10, "duration": 5}
+        jobs.append(job)
+        spec += [("invoke", 0, "add-job", job), ("ok", 0, "add-job", job)]
+        for i in range(4):
+            if corrupt and (j, i) == (1, 2):
+                continue
+            s = job["start"] + 60 * i + rng.randint(0, 12)
+            runs.append({"name": str(j), "start": s, "end": s + 5})
+    return _ops(*spec) + [invoke_op(0, "read", None, time=int(400e9)),
+                ok_op(0, "read", runs, time=int(400e9))]
+
+
+def checker_histories():
+    """name -> (checker, test map, history): a seeded history for each
+    checker of the library, made with the port's ``synth``, ``bank`` and
+    simple generators at the sizes of the JAX package's own tests (one
+    queue history of 200 ops for ``queue_linearizable``, with crashed
+    ops, so that neither the prepass nor the greedy witness decides it
+    and the race's device leg runs a slice).  ``checker``
+    names a factory and its arguments (:func:`make_checker`)."""
+    from jepsen_tpu_torch.history import invoke_op, ok_op
+    from jepsen_tpu_torch.synth import (corrupt_dequeue, sim_queue_history,
+                                        swap_dequeues)
+
+    def queue_h(seed, fifo=False):
+        return sim_queue_history(random.Random(seed), 40, 4, fifo=fifo)
+
+    def drained(h):
+        left = [o.value for o in h if o.type == "ok" and o.f == "enqueue"]
+        for o in h:
+            if o.type == "ok" and o.f == "dequeue":
+                left.remove(o.value)
+        return h + [invoke_op(9, "drain", None), ok_op(9, "drain", left)]
+
+    def ids(seed, dup):
+        rng = random.Random(seed)
+        vals = rng.sample(range(1000), 30)
+        if dup:
+            vals[20] = vals[4]
+        return _ops(*[s for i, v in enumerate(vals) for s in (
+            ("invoke", i % 4, "generate", None), ("ok", i % 4, "generate", v))])
+
+    def g2(seed, twice):
+        rng = random.Random(seed)
+        spec = []
+        for k in range(10):
+            a, b = rng.sample(range(4), 2)
+            spec += [("invoke", a, "insert", (k, (1, None))),
+                     ("ok", a, "insert", (k, (1, None))),
+                     ("invoke", b, "insert", (k, (None, 2))),
+                     ("ok" if twice and k == 6 else "fail", b, "insert",
+                      (k, (None, 2)))]
+        return _ops(*spec)
+
+    def seq_reads(bad):
+        spec = []
+        for k in range(8):
+            vec = [f"{k}_1", f"{k}_0"] if k % 2 else [None, f"{k}_0"]
+            if bad and k == 5:
+                vec = [f"{k}_1", None]
+            spec += [("invoke", k % 3, "read", None),
+                     ("ok", k % 3, "read", (k, vec))]
+        return _ops(*spec)
+
+    def dirty(bad):
+        spec = [("invoke", 0, "write", 1), ("ok", 0, "write", 1),
+                ("invoke", 1, "write", 2), ("fail", 1, "write", 2),
+                ("invoke", 0, "write", 3), ("ok", 0, "write", 3),
+                ("invoke", 2, "read", None), ("ok", 2, "read", [1, 1, 1]),
+                ("invoke", 3, "read", None), ("ok", 3, "read", [1, 3, 1])]
+        if bad:
+            spec += [("invoke", 2, "read", None),
+                     ("ok", 2, "read", [2, 2, 2])]
+        return _ops(*spec)
+
+    def strong(bad):
+        spec = [("invoke", 0, "write", 1), ("ok", 0, "write", 1),
+                ("invoke", 1, "write", 2), ("ok", 1, "write", 2),
+                ("invoke", 2, "read", 1), ("ok", 2, "read", 1),
+                ("invoke", 3, "read", 2), ("ok", 3, "read", 2)]
+        if bad:
+            spec += [("invoke", 2, "read", 9), ("ok", 2, "read", 9)]
+        spec += [("invoke", p, "strong-read", None) for p in range(2)]
+        spec += [("ok", p, "strong-read", [1, 2]) for p in range(2)]
+        return _ops(*spec)
+
+    q = queue_h("chk-queue")
+    return {
+        "queue/valid": (("checker.basic", "queue"), {}, q),
+        "queue/invalid": (("checker.basic", "queue"), {},
+                          corrupt_dequeue(random.Random(1), q)),
+        "queue/fifo": (("checker.basic", "queue", "FIFOQueue"), {},
+                       swap_dequeues(random.Random(2),
+                                     queue_h("chk-fifo", fifo=True))),
+        "total_queue/valid": (("checker.basic", "total_queue"), {},
+                              drained(queue_h("chk-total"))),
+        "total_queue/invalid": (("checker.basic", "total_queue"), {},
+                                drained(queue_h("chk-total"))[:-1]),
+        "unique_ids/valid": (("checker.basic", "unique_ids"), {},
+                             ids("chk-ids", False)),
+        "unique_ids/invalid": (("checker.basic", "unique_ids"), {},
+                               ids("chk-ids", True)),
+        "counter/valid": (("checker.basic", "counter"), {},
+                          _counter_history("chk-counter")),
+        "counter/invalid": (("checker.basic", "counter"), {},
+                            _counter_history("chk-counter", corrupt=True)),
+        "bank/valid": (("checker.basic", "bank"), {"total_amount": 100},
+                       _bank_history("chk-bank")),
+        "bank/invalid": (("checker.basic", "bank"), {"total_amount": 100},
+                         _bank_history("chk-bank", corrupt=True)),
+        "g2/valid": (("checker.basic", "g2"), {}, g2("chk-g2", False)),
+        "g2/invalid": (("checker.basic", "g2"), {}, g2("chk-g2", True)),
+        "sequential/valid": (("checker.extra", "sequential"),
+                             {"key_count": 2}, seq_reads(False)),
+        "sequential/invalid": (("checker.extra", "sequential"),
+                               {"key_count": 2}, seq_reads(True)),
+        "monotonic/valid": (("checker.extra", "monotonic"), {},
+                            _monotonic_history("chk-mono")),
+        "monotonic/invalid": (("checker.extra", "monotonic"), {},
+                              _monotonic_history("chk-mono", corrupt=True)),
+        "dirty_reads/valid": (("checker.dirty", "dirty_reads"), {},
+                              dirty(False)),
+        "dirty_reads/invalid": (("checker.dirty", "dirty_reads"), {},
+                                dirty(True)),
+        "strong_dirty_read/valid": (("checker.dirty", "strong_dirty_read"),
+                                    {}, strong(False)),
+        "strong_dirty_read/invalid": (("checker.dirty",
+                                       "strong_dirty_read"), {}, strong(True)),
+        "schedule/valid": (("checker.schedule", "schedule_checker"),
+                           {"start_wall_time": 0},
+                           _schedule_history("chk-sched")),
+        "schedule/invalid": (("checker.schedule", "schedule_checker"),
+                             {"start_wall_time": 0},
+                             _schedule_history("chk-sched", corrupt=True)),
+        "concurrency_limit/valid": (("checker.core", "concurrency_limit"),
+                                    {}, _counter_history("chk-limit")),
+        "concurrency_limit/invalid": (
+            ("checker.core", "concurrency_limit"), {},
+            _counter_history("chk-limit", corrupt=True)),
+        "queue_linearizable/valid": (
+            ("checker.basic", "queue_linearizable"), {},
+            sim_queue_history(random.Random("chk-queue-linear-2"), 200, 8,
+                              crash_p=0.01)),
+    }
+
+
+def make_checker(spec, root="jepsen_tpu_torch", **kw):
+    """The checker a :func:`checker_histories` entry names, from the
+    package ``root``: ``(module, factory)``, ``(module, "queue",
+    model class)``; ``concurrency_limit`` wraps the counter checker (2
+    at once, plot off for the schedule checker); ``kw`` reach
+    ``queue_linearizable``."""
+    import importlib
+
+    mod = importlib.import_module(f"{root}.{spec[0]}")
+    if spec[1] == "queue" and len(spec) > 2:
+        return mod.queue(getattr(mod, spec[2])())
+    if spec[1] == "concurrency_limit":
+        basic = importlib.import_module(f"{root}.checker.basic")
+        return mod.concurrency_limit(2, basic.counter())
+    if spec[1] == "schedule_checker":
+        return mod.schedule_checker(plot=False)
+    return getattr(mod, spec[1])(**kw)
+
+
+def queue_linear_device_leg(base, *, device="cuda"):
+    """``queue_linearizable``'s own path on its :func:`checker_histories`
+    entry, with its ``Linearizable`` held to ``algorithm="device"`` (the
+    default race may end on the host WGL before the device steps):
+    (result, the torch step's slices by device, slice functions
+    requested)."""
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    spec, tmap, h = checker_histories()["queue_linearizable/valid"]
+    saved = lin.Linearizable
+
+    class _DeviceLeg(saved):
+        def __init__(self, model=None, **kw):
+            super().__init__(model, algorithm="device", **kw)
+
+    lin.Linearizable = _DeviceLeg
+    try:
+        with _StepTrace() as steps:
+            before = sum(lin.KERNEL_CACHE_STATS.values())
+            out = make_checker(spec, device=device).check(
+                {**tmap, "store_base": base}, h, {})
+            requests = sum(lin.KERNEL_CACHE_STATS.values()) - before
+    finally:
+        lin.Linearizable = saved
+    return out, dict(steps.slices), requests
+
+
+#: the JAX package's verdict on each :func:`checker_histories` entry
+#: (recomputed by tests/test_torch_smoke_reference.py)
+CHECKERS_REFERENCE = {
+    "queue/valid": True, "queue/invalid": False, "queue/fifo": False,
+    "total_queue/valid": True, "total_queue/invalid": False,
+    "unique_ids/valid": True, "unique_ids/invalid": False,
+    "counter/valid": True, "counter/invalid": False,
+    "bank/valid": True, "bank/invalid": False,
+    "g2/valid": True, "g2/invalid": False,
+    "sequential/valid": True, "sequential/invalid": False,
+    "monotonic/valid": True, "monotonic/invalid": False,
+    "dirty_reads/valid": True, "dirty_reads/invalid": False,
+    "strong_dirty_read/valid": True, "strong_dirty_read/invalid": False,
+    "schedule/valid": True, "schedule/invalid": False,
+    "concurrency_limit/valid": True, "concurrency_limit/invalid": False,
+    "queue_linearizable/valid": True,
+}
+
+
+def _timeline_per_key():
+    """The timeline checker under ``independent.checker``, each key's
+    page in its own subdirectory: the lifted checker passes the key in
+    ``opts["history_key"]`` and no subdirectory (both packages), so a
+    bare timeline would write one file 256 times."""
+    from jepsen_tpu_torch.checker import CheckerFn, timeline
+
+    def check(test, history, opts):
+        sub = ["independent", str(opts["history_key"])]
+        return timeline.timeline().check(test, history,
+                                         {**opts, "subdirectory": sub})
+
+    return CheckerFn(check, "timeline-per-key")
+
+
+def _plots() -> bool:
+    """Whether matplotlib imports (perf's PNGs need it; its numbers do
+    not)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+@_timed_phase("checkers")
+def phase_checkers(store_base):
+    """The analysis phase of a stored Jepsen test at full width: the
+    batch256 keyed history (256 cas-register keys of 128 ops, every 4th
+    corrupted; 32,768 ops, 1 ms apart) saved with ``store.save_1``,
+    loaded back with ``store.load`` and checked with ``compose`` of the
+    linearizability checker lifted over keys (on the card: B1-T's grid),
+    the timeline lifted over keys (one page per key) and ``perf``; the
+    results saved with ``store.save_2`` and read back through
+    ``store.latest``.  Every key's verdict is the JAX package's
+    (:data:`BATCH256_INVALID`), and the valid keys' configs and depth
+    (the invalid ones are checked again alone, by the race); 256
+    timeline pages and perf's three PNGs are written (the PNGs and
+    ``perf`` in the composed verdict only where matplotlib imports).
+    Then every checker of the library on its seeded history
+    (:func:`checker_histories`) gives the JAX package's verdict
+    (:data:`CHECKERS_REFERENCE`); ``queue_linearizable`` runs on the card,
+    its race and then its device leg alone
+    (:func:`queue_linear_device_leg`), whose torch-step slices must run
+    on the card (the queue models are not B1's)."""
+    import torch
+
+    from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.checker import compose, perf
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    base = os.path.join(store_base, "checkers")
+    keyed, model = keyed_history()
+    test = {**CHECKERS_TEST, "store_base": base, "concurrency": 8,
+            "model": model}
+    # a [k v] tuple is stored as its repr by both packages' stores; the
+    # client's value is the JSON pair, lifted back after the load
+    stored = [replace(op, time=i * CHECKERS_EVENT_MS * 1_000_000,
+                      value=[op.value.key, op.value.value])
+              for i, op in enumerate(keyed)]
+    t0 = time.perf_counter()
+    store.save_1(test, stored)
+    run = store.load(test["name"], test["start_time"], base)
+    history = [replace(op, value=independent.tuple_(*op.value))
+               for op in run["history"]]
+    io_s = time.perf_counter() - t0
+    check(len(history) == len(keyed) and run["name"] == test["name"],
+          f"checkers: loaded {len(history)} of {len(keyed)} events")
+    plots = _plots()
+    checkers = {"linear": independent.checker(
+                    lin.Linearizable(model, device="cuda")),
+                "timeline": independent.checker(_timeline_per_key())}
+    if plots:
+        checkers["perf"] = perf.perf()
+    with _GridTrace() as trace:
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = compose(checkers).check(run, history)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        single, grid = _read_counts()
+    linear = res["linear"]
+    check(res["valid"] is False and linear["valid"] is False
+          and sorted(linear["failures"]) == sorted(BATCH256_INVALID),
+          f"checkers: composed valid={res['valid']}, linear failures "
+          f"{sorted(linear.get('failures', []))}")
+    _check_batch_results("checkers[linear]",
+                         [linear["results"][k] for k in range(BATCH_KEYS)],
+                         BATCH256_INVALID)
+    check(grid > 0, "checkers: B1-T's grid never launched")
+    pages = [os.path.join(store.path(test, "independent", str(k)),
+                          "timeline.html") for k in range(BATCH_KEYS)]
+    check(res["timeline"]["valid"] is True
+          and all(os.path.getsize(p) > 0 for p in pages),
+          f"checkers: timeline {res['timeline'].get('valid')}, "
+          f"{sum(os.path.exists(p) for p in pages)} pages")
+    by_f = perf.latencies_by_f_type(history)
+    q = {f: perf.latencies_to_quantiles(perf.DT, perf.QUANTILES,
+                                        by_f[f]["ok"]) for f in by_f}
+    check(sorted(by_f) == ["cas", "read", "write"] and all(q.values()),
+          f"checkers: perf numbers by f {sorted(by_f)}")
+    pngs = [store.path(test, n) for n in ("latency-raw.png",
+                                          "latency-quantiles.png",
+                                          "rate.png")]
+    if plots:
+        check(res["perf"]["valid"] is True
+              and all(os.path.getsize(p) > 0 for p in pngs),
+              f"checkers: perf {res['perf']}")
+    t1 = time.perf_counter()
+    store.save_2(test, res)
+    latest = store.latest(base)
+    io_s += time.perf_counter() - t1
+    check(latest is not None and latest["results"]["valid"] is False
+          and sorted(latest["results"]["linear"]["failures"])
+          == sorted(BATCH256_INVALID), "checkers: store.latest did not "
+          "return the saved results")
+    emit(f"checkers[batch256]: events={len(history)} keys={BATCH_KEYS} "
+         f"composed valid={res['valid']} failures="
+         f"{len(linear['failures'])} ({', '.join(sorted(checkers))}); "
+         f"compose wall_s={wall:.3f}; store save/load/latest s={io_s:.3f}; "
+         f"launches grid={grid} single={single}; {trace.summary()}; "
+         f"timeline pages={len(pages)}; perf "
+         + ("PNGs written, in the composed verdict" if plots else
+            "numbers only: matplotlib does not import here, so no PNG "
+            "and perf is left out of the composed verdict")
+         + f" (quantile buckets by f "
+         f"{ {f: len(v[1.0]) for f, v in q.items()} })")
+
+    verdicts, engine = {}, None
+    t0 = time.perf_counter()
+    for name, (spec, tmap, h) in checker_histories().items():
+        if spec[1] == "queue_linearizable":
+            _zero_counts()
+            before = sum(lin.KERNEL_CACHE_STATS.values())
+            out = make_checker(spec, device="cuda").check(
+                {**tmap, "store_base": base}, h, {})
+            q_single, q_grid = _read_counts()
+            engine = out.get("engine")
+            requests = sum(lin.KERNEL_CACHE_STATS.values()) - before
+        else:
+            out = make_checker(spec).check({**tmap, "store_base": base}, h,
+                                           {})
+        verdicts[name] = out["valid"]
+    lib_s = time.perf_counter() - t0
+    wrong = {k: (v, CHECKERS_REFERENCE[k]) for k, v in verdicts.items()
+             if v is not CHECKERS_REFERENCE[k]}
+    check(not wrong and sorted(verdicts) == sorted(CHECKERS_REFERENCE),
+          f"checkers: verdicts (port, JAX package) differ: {wrong}")
+    check(q_single + q_grid == 0, "checkers: queue_linearizable launched "
+          f"B1 ({q_single} single, {q_grid} grid): the queue models are "
+          "not the kernel's")
+    emit(f"checkers[library]: {len(verdicts)} histories, every verdict the "
+         f"JAX package's ({sum(v is True for v in verdicts.values())} "
+         f"valid) in {lib_s:.3f} s; queue_linearizable on the card: "
+         f"engine={engine}, slice functions requested={requests} (B1 "
+         f"launches 0)")
+
+    # the race above may end on the host WGL before the card steps: the
+    # device leg alone
+    name = "queue_linearizable/valid"
+    _zero_counts()
+    t0 = time.perf_counter()
+    out, slices, requests = queue_linear_device_leg(base, device="cuda")
+    torch.cuda.synchronize()
+    leg_s = time.perf_counter() - t0
+    q_single, q_grid = _read_counts()
+    emit(f"checkers[queue_linearizable device leg]: valid={out['valid']} "
+         f"engine={out.get('engine')} configs={out.get('configs')} "
+         f"model={out.get('model')} in {leg_s:.3f} s; torch step slices by "
+         f"device {dict(slices)}, slice functions requested={requests}; "
+         f"B1 launches single={q_single} grid={q_grid}")
+    check(out["valid"] is CHECKERS_REFERENCE[name],
+          f"checkers: the device leg of {name} gives {out['valid']}, the "
+          f"JAX package {CHECKERS_REFERENCE[name]}")
+    card = str(lin._resolve_device("cuda"))
+    check(requests > 0 and slices.get(card, 0) > 0 and set(slices) == {card},
+          f"checkers: the device leg requested {requests} slice functions "
+          f"and ran torch step slices {dict(slices)}")
+    check(q_single + q_grid == 0, "checkers: the device leg launched B1 "
+          f"({q_single} single, {q_grid} grid)")
+    return {"checkers": {"grid": grid, "single": single}}
+
+
+#: the device contract's findings on the card, one per (route, code,
+#: site): the torch step's host reads per level (the loop test, the
+#: closure's start and its next round) and the sharded step's (its
+#: merge widths, loop test and closure); the fused kernel's routes
+#: (single key, the bucketed batch's grid and the sharded batch's
+#: shards) are clean.  tests/test_torch_devlint.py pins the same set on
+#: the CPU with the card's dispatch.
+DEVLINT_FINDINGS = frozenset({
+    ("single-torch", "K001", "jepsen_tpu_torch/checker/step.py:472"),
+    ("single-torch", "K001", "jepsen_tpu_torch/checker/step.py:485"),
+    ("single-torch", "K001", "jepsen_tpu_torch/checker/step.py:508"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:135"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:164"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:232"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:251"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:258"),
+    ("window-sharded", "K001", "jepsen_tpu_torch/checker/sharded.py:284"),
+})
+
+#: every route the registry enumerates, and the fused kernel's
+DEVLINT_ROUTES = ("bucketed-batch", "cuda-fused", "mesh-sharded",
+                  "single-torch", "window-sharded")
+DEVLINT_B1_ROUTES = ("bucketed-batch", "cuda-fused", "mesh-sharded")
+
+
+@_timed_phase("devlint")
+def phase_devlint():
+    """``python -m jepsen_tpu_torch.analyze --devlint --json`` in a fresh
+    process on the card (its live K007 needs a cold kernel cache): every
+    registered route listed, the fused kernel's routes clean with their
+    compile spans captured and K007-clean, the findings exactly
+    :data:`DEVLINT_FINDINGS`, exit 1 because they are errors.  The
+    sweep's B1 launches join the counts."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.analyze", "--devlint",
+         "--json"], cwd=str(REPO), capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    try:
+        rep = json.loads(proc.stdout)
+    except ValueError:
+        raise SmokeFailure(f"devlint: no JSON (exit {proc.returncode}): "
+                           f"{proc.stderr[-2000:]}") from None
+    found = {tuple(f) for f in rep["findings"]}
+    check(tuple(rep["routes"]) == DEVLINT_ROUTES,
+          f"devlint: routes {rep['routes']}")
+    dirty = {f for f in found if f[0] in DEVLINT_B1_ROUTES}
+    check(not dirty and all(rep["spans"][r] > 0 for r in DEVLINT_B1_ROUTES),
+          f"devlint: the fused kernel's routes: findings {sorted(dirty)}, "
+          f"live compile spans {rep['spans']}")
+    check(found == DEVLINT_FINDINGS, f"devlint: findings beyond the pinned "
+          f"set {sorted(found - DEVLINT_FINDINGS)}, missing "
+          f"{sorted(DEVLINT_FINDINGS - found)}")
+    check(proc.returncode == (1 if rep["errors"] else 0) == 1,
+          f"devlint: exit {proc.returncode} with {rep['errors']} errors")
+    for form, n in rep["launches"].items():
+        FORM_LAUNCHES[form] += n
+    launches = {"single": sum(n for f, n in rep["launches"].items()
+                              if f.startswith("single")),
+                "grid": sum(n for f, n in rep["launches"].items()
+                            if f.startswith("grid"))}
+    check(launches["single"] > 0 and launches["grid"] > 0,
+          f"devlint: B1 launches {rep['launches']}")
+    emit(f"devlint: exit {proc.returncode}, {rep['errors']} error(s) over "
+         f"{len(rep['routes'])} routes on {rep['device']}; findings "
+         f"{len(found)} = the pinned set; B1 routes clean, live compile "
+         f"spans {rep['spans']}; launches {rep['launches']}; command "
+         f"wall_s={wall:.3f}")
+    return {"devlint": launches}
+
+
 def _ptxas(report: str) -> list:
     """(instantiation, registers, spill store bytes) of each kernel in
     nvcc's -Xptxas -v report."""
@@ -3842,6 +4629,8 @@ def main() -> int:
             launches.update(phase_mc(store_base))
             launches.update(phase_analyze_cli(store_base, checked["1k"]))
             launches.update(phase_live(store_base))
+            launches.update(phase_checkers(store_base))
+            launches.update(phase_devlint())
             phase_report(shard_trace)
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)

@@ -22,8 +22,14 @@ never plans for the host quietly::
     python -m jepsen_tpu_torch.analyze history.jsonl --model register \\
         --explain --device cpu
 
-``--devlint`` exits 254: the K001-K006 device contract over the port's
-torch routes is not ported yet (ROADMAP.md §A, A12 step 6).
+``--devlint`` takes no history: it runs one slice of every kernel
+route under the op recorder of ``analyze/devlint.py`` on ``--device``
+and holds it to the K-code device contract (K001-K007); it prints the
+findings (``--json``: the result block) and exits 1 on errors, 0
+otherwise::
+
+    python -m jepsen_tpu_torch.analyze --devlint --json
+    python -m jepsen_tpu_torch.analyze --devlint --device cpu
 
 ``--mc`` takes no history: it model-checks the live backend
 state machines at bounded scope (analyze/modelcheck.py, MC1xx codes —
@@ -46,7 +52,7 @@ machines, MC1xx), ``shell`` (the daemons' request-dispatch shells
 under a simulated transport — analyze/simnet.py, MC2xx), or ``all``.
 
 ``--mc``, ``--replay`` and ``--audit`` run on the host whatever
-``--device`` says.
+``--device`` says; ``--devlint`` runs its routes on it.
 
 Exit codes follow the JAX package's cli.py contract: 0 clean, 1 lint
 errors or audit W-codes found, 254 bad arguments.
@@ -57,12 +63,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: what ``--devlint`` says until the port has the K001-K006 contract
-DEVLINT_MISSING = (
-    "--devlint: the K001-K006 device contract over the port's torch "
-    "routes is not ported yet (ROADMAP.md §A, A12 step 6); only K007 "
-    "is, inside the fleet's warm boot")
 
 #: model factories reachable by name; parameterized ones take their
 #: knob from --model-arg
@@ -214,7 +214,7 @@ def main(argv=None) -> int:
                    help="Machine-readable output")
     p.add_argument("--devlint", action="store_true",
                    help="Lint every kernel route for the K-code "
-                        "device contract (not ported yet: exits 254)")
+                        "device contract")
     p.add_argument("--mc", action="store_true",
                    help="Model-check the live backend state machines "
                         "at bounded scope (no history needed)")
@@ -263,23 +263,36 @@ def main(argv=None) -> int:
 
     if opts.mc:
         return _run_mc_cli(opts)
-    if opts.devlint:
-        print(DEVLINT_MISSING, file=sys.stderr)
-        return 254
-    if opts.history is None:
+    if opts.history is None and not opts.devlint:
         print("history path required (or --devlint)", file=sys.stderr)
         return 254
 
-    from .. import store
     from ..checker.linearizable import _resolve_device
-    from . import analyze
-    from .plan import render_plan
 
     try:
         device = _resolve_device(opts.device)
     except RuntimeError as e:
         print(f"--device {opts.device}: {e}", file=sys.stderr)
         return 254
+    if opts.devlint:
+        from .devlint import run_devlint
+
+        rep = run_devlint(live=True, device=device)
+        if opts.as_json:
+            print(json.dumps(rep, indent=2, default=str))
+        else:
+            for d in rep["diagnostics"]:
+                print(f"{d['severity'].upper()} {d['code']} "
+                      f"{d['message']}")
+            print(f"devlint: {rep['errors']} error(s), "
+                  f"{rep['warnings']} warning(s) over "
+                  f"{len(rep['routes'])} route(s): "
+                  f"{', '.join(rep['routes'])}")
+        return 1 if rep["errors"] else 0
+
+    from .. import store
+    from . import analyze
+    from .plan import render_plan
     try:
         history = store.read_history(opts.history)
     except OSError as e:

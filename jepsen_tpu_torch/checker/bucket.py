@@ -409,3 +409,21 @@ def search_batch_sharded_bucketed(seqs: list[OpSeq], model, sharding, *,
     if results:
         results[0].setdefault("shard_batch", stats)
     return results
+
+
+# ---------------------------------------------------------------------------
+# device-contract enumeration (see linearizable.KernelRoute)
+# ---------------------------------------------------------------------------
+
+from . import linearizable as _lin  # noqa: E402
+
+_lin.register_route(_lin.KernelRoute(
+    name="bucketed-batch", span_kind="batch",
+    getter="get_batch_kernel", module=_lin.__name__,
+    build=_lin._build_batch, request=_lin._request_batch))
+_lin.register_route(_lin.KernelRoute(
+    name="mesh-sharded", span_kind="batch-sharded",
+    getter="get_sharded_batch_kernel",
+    module=_lin.__name__.rsplit(".", 1)[0] + ".sharded",
+    build=_lin._build_mesh_sharded, request=_lin._request_mesh_sharded,
+    carry_args=1, lvl_cap_arg=2))

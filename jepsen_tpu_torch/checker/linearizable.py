@@ -66,6 +66,7 @@ from __future__ import annotations
 import functools
 import threading
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -782,6 +783,222 @@ def get_batch_kernel(model, dims: SearchDims, device: torch.device, *,
     return _cached(key, build, model, dims, use_k, batch=True,
                    masked=masked, masked_crash=masked_crash, dedup=dedup,
                    telemetry=telemetry)
+
+
+# ---------------------------------------------------------------------------
+# kernel routes: the device contract's enumeration
+# ---------------------------------------------------------------------------
+# Every way a slice function can be requested is one ROUTE: the torch
+# step, the fused CUDA level loop (B1) for one key and as a grid over the
+# keys of a bucketed batch, the sharded search (B7) and the sharded batch
+# (B8).  ``analyze/devlint.py`` runs one slice of each route under an op
+# recorder and holds it to the K-codes; the declared fields are the
+# contract it checks the live code against.
+
+
+@dataclass(frozen=True)
+class KernelRoute:
+    """One slice-function dispatch route and its device contract.
+
+    ``build(model, dims, device)`` returns ``(fn, args)``: the slice
+    function the route's driver calls and the exact positional arguments
+    it passes (Python ints where the driver passes them), so one slice
+    runs as the driver runs it.  ``args[lvl_cap_arg]`` is the slice's
+    level cap and the last ``carry_args`` arguments are the carry.
+    ``request(model, dims, device)`` goes through the real cached getter
+    (``getter`` in ``module``), so a fresh process emits the route's
+    ``device.compile`` span for the K007 coordinate check.
+
+    ``int_only`` (K002: no float) and ``donate_carry`` (the K004 policy:
+    the slice drivers keep each pre-overflow carry and re-feed it
+    widened after a frontier escalation, so a slice must not write into
+    its carry arguments) keep their defaults on every shipped route;
+    they are the reference's route contract, which devlint's toy routes
+    exercise."""
+
+    name: str
+    span_kind: str     # the compile span's coordinate model (devlint K007)
+    getter: str        # the cached getter's name
+    module: str        # the dotted module defining the getter
+    build: object      # (model, dims, device) -> (fn, args)
+    request: object    # (model, dims, device) -> fn via the cache
+    int_only: bool = True
+    donate_carry: bool = False
+    carry_args: int = 6
+    lvl_cap_arg: int = 20
+
+
+KERNEL_ROUTES: dict[str, KernelRoute] = {}
+
+
+def register_route(route: KernelRoute) -> KernelRoute:
+    KERNEL_ROUTES[route.name] = route
+    return route
+
+
+#: determinate ops of the sample history after its one crashed op: a
+#: slice of it runs every level up to this depth, with a crash closure
+#: at each, so a per-level cost shows at the level caps devlint runs
+ROUTE_SAMPLE_OPS = 16
+
+#: representative key count of the batch routes, and shards of the mesh
+#: routes (logical shards of one device)
+_ROUTE_BATCH = 4
+_ROUTE_SHARDS = 2
+
+
+def _route_sample_search(model, dims: SearchDims):
+    """The encoded sample history of every route: one crashed op, then
+    :data:`ROUTE_SAMPLE_OPS` sequential ones, of the model's first
+    update function (the JAX package stages a one-op history: a staged
+    program has no levels to run)."""
+    from ..history import invoke_op, ok_op
+
+    fc = model.f_codes
+    try:
+        names = list(fc)
+    except TypeError:  # the noop model's codes accept anything
+        names = ["write"]
+    f = next((c for c in ("write", "enqueue", "acquire") if c in names),
+             names[0])
+
+    def value(i):
+        return i % 5 + 1 if f == "write" else i if f == "enqueue" else None
+
+    h = [invoke_op(0, f, value(0))]
+    for i in range(1, ROUTE_SAMPLE_OPS + 1):
+        h += [invoke_op(1, f, value(i)), ok_op(1, f, value(i))]
+    es = encode_search(encode_ops(h, fc))
+    return es, pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+
+
+def route_sample_inputs(model, dims: SearchDims, device, *, batch: int = 0):
+    """The positional arguments a route's driver passes at ``dims`` for
+    the sample history (:func:`_route_sample_search`): ``(*tables,
+    n_det, n_crash, dead_lo, dead_tok, budget, lvl_cap, bail, *carry)``
+    on ``device``, with a budget no slice reaches, 4 levels and no bail.
+    ``batch > 0`` stacks the batch routes' form of that many keys."""
+    es, esp = _route_sample_search(model, dims)
+    tail = (1 << 24, 4, False)
+    if batch:
+        return (stack_batch([esp] * batch, device=device) + tail
+                + _init_batch_carry(batch, dims, model, device))
+    return (search_args(esp, es, device=device) + tail
+            + carry_to_device(_init_carry(dims, model), device))
+
+
+_ROUTE_TELEMETRY = True  # the drivers' default
+
+
+def _build_single_torch(model, dims: SearchDims, device):
+    fn = build_search_step_fn(model, dims, device, masked=True,
+                              masked_crash=True, telemetry=_ROUTE_TELEMETRY)
+    return fn, route_sample_inputs(model, dims, device)
+
+
+def _request_single_torch(model, dims: SearchDims, device):
+    return get_kernel(model, dims, device, masked=True, masked_crash=True,
+                      telemetry=_ROUTE_TELEMETRY)
+
+
+def _build_fused(model, dims: SearchDims, device):
+    fn = level_kernel.build_level_loop_fn(model, dims,
+                                          telemetry=_ROUTE_TELEMETRY)
+    return fn, route_sample_inputs(model, dims, device)
+
+
+def _request_fused(model, dims: SearchDims, device):
+    return get_kernel(model, dims, device, telemetry=_ROUTE_TELEMETRY)
+
+
+def _build_batch(model, dims: SearchDims, device):
+    fn = functools.partial(level_kernel.level_loop_batch, model, dims,
+                           telemetry=_ROUTE_TELEMETRY)
+    return fn, route_sample_inputs(model, dims, device, batch=_ROUTE_BATCH)
+
+
+def _request_batch(model, dims: SearchDims, device):
+    return get_batch_kernel(model, dims, device, telemetry=_ROUTE_TELEMETRY)
+
+
+def _route_mesh(device):
+    from ..distributed import ShardMesh
+
+    return ShardMesh([device] * _ROUTE_SHARDS)
+
+
+def _build_window_sharded(model, dims: SearchDims, device):
+    """B7 at ``dims.frontier`` rows per shard, its root on shard 0."""
+    mesh = _route_mesh(device)
+    D = mesh.size
+    fn = _request_window_sharded(model, dims, device)
+    args = route_sample_inputs(model, dims, device)
+    frontier = torch.zeros((D * dims.frontier, dims.words),
+                           dtype=torch.int32, device=device)
+    frontier[0] = torch.as_tensor(_init_config(dims, model), device=device)
+    count = torch.zeros(D, dtype=torch.int32, device=device)
+    count[0] = 1
+    i32 = torch.int32
+    carry = (frontier, count,
+             *(torch.tensor(v, dtype=i32, device=device) for v in (-1, 0, 0)),
+             torch.tensor(False, device=device),
+             torch.tensor(1, dtype=i32, device=device))
+    return fn, args[:22] + carry
+
+
+def _request_window_sharded(model, dims: SearchDims, device):
+    from .sharded import get_sharded_search_kernel
+
+    return get_sharded_search_kernel(model, dims, _route_mesh(device),
+                                     telemetry=_ROUTE_TELEMETRY)
+
+
+def _build_mesh_sharded(model, dims: SearchDims, device):
+    """B8: each logical shard a block of the batch, its own carry."""
+    mesh = _route_mesh(device)
+    per = _ROUTE_BATCH // mesh.size
+    fn = _request_mesh_sharded(model, dims, device)
+    full = route_sample_inputs(model, dims, device, batch=_ROUTE_BATCH)
+    shard_args = [tuple(t[s * per:(s + 1) * per] for t in full[:19])
+                  for s in range(mesh.size)]
+    carries = [_init_batch_carry(per, dims, model, device)
+               for _ in range(mesh.size)]
+    return fn, (shard_args, *full[19:22], carries)
+
+
+def _request_mesh_sharded(model, dims: SearchDims, device):
+    from .sharded import get_sharded_batch_kernel
+
+    return get_sharded_batch_kernel(model, dims, batch=_ROUTE_BATCH,
+                                    mesh=_route_mesh(device),
+                                    telemetry=_ROUTE_TELEMETRY)
+
+
+register_route(KernelRoute(
+    name="single-torch", span_kind="solo",
+    getter="get_kernel", module=__name__,
+    build=_build_single_torch, request=_request_single_torch))
+register_route(KernelRoute(
+    name="cuda-fused", span_kind="solo",
+    getter="get_kernel", module=__name__,
+    build=_build_fused, request=_request_fused))
+register_route(KernelRoute(
+    name="window-sharded", span_kind="window-sharded",
+    getter="get_sharded_search_kernel",
+    module=__name__.rsplit(".", 1)[0] + ".sharded",
+    build=_build_window_sharded, request=_request_window_sharded,
+    carry_args=7))
+# the two batch routes are dispatched by the bucket scheduler, which
+# registers them on import (checker/bucket.py; kernel_routes() below
+# forces that import so the enumeration is always complete)
+
+
+def kernel_routes() -> dict[str, KernelRoute]:
+    """All registered routes (importing the bucket scheduler so its
+    batch and mesh registrations are in)."""
+    from . import bucket  # noqa: F401 — registers its routes on import
+
+    return dict(KERNEL_ROUTES)
 
 
 def _drive_batch_compacting(fn, esps, model, dims: SearchDims, budget: int,

@@ -51,8 +51,9 @@ from ..obs.telemetry import (C_DEDUP, C_EXP, C_GOAL, C_KILL, C_NEXT, C_OCC,
 from . import step as _step
 from .encode import SearchDims, _round_up
 
-__all__ = ["build_sharded_search_step_fn", "search_opseq_sharded",
-           "get_sharded_batch_kernel", "route_capacities"]
+__all__ = ["build_sharded_search_step_fn", "get_sharded_search_kernel",
+           "search_opseq_sharded", "get_sharded_batch_kernel",
+           "route_capacities"]
 
 
 def route_capacities(dims: SearchDims, n_shards: int) -> tuple[int, int]:
@@ -374,6 +375,24 @@ def _drive_slices(call, carry, is_active, *, on_slice=None,
         first = False
 
 
+def get_sharded_search_kernel(model, dims: SearchDims, mesh: ShardMesh,
+                              axis: str = "shard", *, masked: bool = False,
+                              masked_crash: bool = False, dedup: bool = False,
+                              telemetry: bool = False):
+    """The cached slice function of :func:`build_sharded_search_step_fn`,
+    built inside a ``device.compile`` span of engine ``device-sharded``
+    with the shard count among its coordinates."""
+    from . import linearizable as lin
+
+    key = ("sharded", model.name, dims, axis, mesh.key,
+           _step._DOMINANCE_MODE, masked, masked_crash, dedup, telemetry)
+    return lin._cached(key, lambda: build_sharded_search_step_fn(
+        model, dims, mesh, axis, masked=masked, masked_crash=masked_crash,
+        dedup=dedup, telemetry=telemetry), model, dims, False,
+        engine="device-sharded", shards=mesh.size, masked=masked,
+        masked_crash=masked_crash, dedup=dedup, telemetry=telemetry)
+
+
 def search_opseq_sharded(seq, model, mesh: ShardMesh, *,
                          axis: str = "shard", budget: int = 20_000_000,
                          frontier_per_device: int = 1024,
@@ -451,13 +470,9 @@ def search_opseq_sharded(seq, model, mesh: ShardMesh, *,
     resume = None
     while True:
         bail = dims.frontier < MAX_FRONTIER
-        key = ("sharded", model.name, dims, axis, mesh.key,
-               _step._DOMINANCE_MODE, masked, masked_crash, dedup, tele_on)
-        fn = lin._cached(key, lambda: build_sharded_search_step_fn(
+        fn = get_sharded_search_kernel(
             model, dims, mesh, axis, masked=masked, masked_crash=masked_crash,
-            dedup=dedup, telemetry=tele_on), model, dims, False,
-            engine="device-sharded", shards=D, masked=masked,
-            masked_crash=masked_crash, dedup=dedup, telemetry=tele_on)
+            dedup=dedup, telemetry=tele_on)
         if resume is not None:
             carry0 = resume
         else:

@@ -16,7 +16,7 @@ by invocation, with int32 value lanes (``None`` maps to :data:`NIL`).
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Sequence
+from typing import Any, Iterable, Sequence
 
 import numpy as np
 
@@ -90,17 +90,44 @@ def is_fail(op: Op) -> bool:
     return op.type == FAIL
 
 
+def is_info(op: Op) -> bool:
+    return op.type == INFO
+
+
 def is_client_op(op: Op) -> bool:
     """Client processes are integers; the nemesis is not."""
     return isinstance(op.process, int)
 
 
-def pair_index(history: Sequence[Op]) -> dict[int, int]:
+def index(history: Iterable[Op]) -> list[Op]:
+    """Every event with its sequential ``index`` (knossos.history/index);
+    new ops, the history is not mutated."""
+    return [replace(op, index=i) for i, op in enumerate(history)]
+
+
+def _strict_pairing(history: Sequence[Op]) -> None:
+    """Raise :class:`~.analyze.lint.HistoryLintError` when pairing would
+    have to tolerate a malformed event (H001 double invoke, H002 orphan
+    completion, H003 unknown type): the ``strict`` mode of
+    :func:`pair_index` and :func:`complete`."""
+    from .analyze.lint import HistoryLintError, scan_events
+
+    sc = scan_events(history, codes=("H001", "H002", "H003"))
+    if sc.errors:
+        raise HistoryLintError(sc.diagnostics)
+
+
+def pair_index(history: Sequence[Op], *,
+               strict: bool = False) -> dict[int, int]:
     """Map each event's index to its partner's (invoke <-> completion).
 
     A process has at most one outstanding op, so pairing is a
-    per-process scan; a double invoke overwrites the open one and an
-    orphan completion is dropped.  Crashed invokes are absent."""
+    per-process scan; by default a double invoke overwrites the open one
+    and an orphan completion is dropped, as knossos does.  Crashed
+    invokes are absent.  ``strict=True`` raises instead
+    (:func:`_strict_pairing`)."""
+    if strict:
+        _strict_pairing(history)
     pairs: dict[int, int] = {}
     open_by_process: dict[Any, int] = {}
     for i, op in enumerate(history):
@@ -114,9 +141,12 @@ def pair_index(history: Sequence[Op]) -> dict[int, int]:
     return pairs
 
 
-def complete(history: Sequence[Op]) -> list[Op]:
+def complete(history: Sequence[Op], *, strict: bool = False) -> list[Op]:
     """Copy each ok completion's value back onto its invocation (an ok'd
-    read is invoked with value None)."""
+    read is invoked with value None).  ``strict=True`` raises on
+    malformed pairing, as :func:`pair_index` does."""
+    if strict:
+        _strict_pairing(history)
     out = list(history)
     open_by_process: dict[Any, int] = {}
     for i, op in enumerate(out):
@@ -127,6 +157,15 @@ def complete(history: Sequence[Op]) -> list[Op]:
             if j is not None and op.type == OK and op.value is not None:
                 out[j] = replace(out[j], value=op.value)
     return out
+
+
+def processes(history: Iterable[Op]) -> list:
+    """The distinct processes of a history, in first-seen order
+    (knossos.history/processes)."""
+    seen: dict = {}
+    for op in history:
+        seen.setdefault(op.process, None)
+    return list(seen)
 
 
 class ValueEncoder:

@@ -12,12 +12,12 @@ bounded parallel map serves every other checker.
 
 from __future__ import annotations
 
-import concurrent.futures
 from dataclasses import replace
-from typing import Callable, Iterable
+from typing import Iterable
 
 from .checker.core import Checker, check_safe, merge_valid
 from .history import Op
+from .util import bounded_pmap
 
 
 class KV:
@@ -73,17 +73,6 @@ def subhistory(k, history: Iterable[Op]) -> list[Op]:
         elif op.value.key == k:
             out.append(replace(op, value=op.value.value))
     return out
-
-
-def bounded_pmap(f: Callable, xs: Iterable,
-                 max_workers: int | None = None) -> list:
-    """``[f(x) for x in xs]`` on a bounded thread pool, in order."""
-    xs = list(xs)
-    if not xs:
-        return []
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=max_workers) as ex:
-        return list(ex.map(f, xs))
 
 
 class IndependentChecker(Checker):

@@ -207,6 +207,22 @@ def flip_read(rng: random.Random, h: list[Op]) -> list[Op]:
     return h
 
 
+def mutate(rng: random.Random, h: list[Op]) -> list[Op]:
+    """One random mutation: flip a read value, swap two completions, or
+    duplicate a completion."""
+    h = list(h)
+    kind = rng.randrange(3)
+    if kind == 0:
+        return flip_read(rng, h)
+    idx = [i for i, op in enumerate(h) if op.type == "ok"]
+    if kind == 1 and len(idx) >= 2:
+        i, j = rng.sample(idx, 2)
+        h[i], h[j] = h[j], h[i]
+    elif idx:
+        h.insert(rng.choice(idx), h[rng.choice(idx)])
+    return h
+
+
 def sim_mutex_history(rng: random.Random, n_ops: int = 40,
                       n_procs: int = 4, *,
                       crash_p: float = 0.0,

@@ -649,3 +649,151 @@ def test_live_kv_history_checked_on_the_card(cuda, tmp_path):
     host = lin.linearizable(model, algorithm="host",
                             device="cpu").check(test, h)
     assert dev["valid"] is True and host["valid"] is True
+
+
+@pytest.mark.cuda
+def test_composed_keyed_check_on_the_card(cuda, tmp_path):
+    """The stored keyed test of ``chip_smoke.phase_checkers`` at 32 keys
+    of the batch256 tier: saved, loaded, checked by ``compose`` of the
+    lifted linearizability checker (B1-T's grid) and the lifted
+    timeline, every 4th key invalid, the valid keys' configs the JAX
+    package's (``BATCH256_CONFIGS``), one timeline page per key."""
+    import os
+    import sys
+    from dataclasses import replace
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.checker import compose
+
+    n = 32
+    keyed, model = cs.keyed_history(n)
+    test = {**cs.CHECKERS_TEST, "store_base": str(tmp_path)}
+    store.save_1(test, [replace(op, time=i * 1_000_000,
+                                value=[op.value.key, op.value.value])
+                        for i, op in enumerate(keyed)])
+    run = store.load(test["name"], test["start_time"], str(tmp_path))
+    history = [replace(op, value=independent.tuple_(*op.value))
+               for op in run["history"]]
+    before = lk.BATCH_LAUNCHES
+    res = compose({"linear": independent.checker(
+                       lin.Linearizable(model, device="cuda")),
+                   "timeline": independent.checker(
+                       cs._timeline_per_key())}).check(run, history)
+    assert lk.BATCH_LAUNCHES > before
+    assert res["valid"] is False
+    assert sorted(res["linear"]["failures"]) == list(range(0, n, 4))
+    for k in range(n):
+        r = res["linear"]["results"][k]
+        assert r["valid"] is (k % 4 != 0)
+        if r["valid"]:
+            assert (r["configs"], r["max_depth"]) == (
+                cs.BATCH256_CONFIGS[k], cs.BATCH256_DEPTH[k])
+        assert os.path.getsize(os.path.join(store.path(
+            test, "independent", str(k)), "timeline.html")) > 0
+    store.save_2(test, res)
+    assert store.latest(str(tmp_path))["results"]["valid"] is False
+
+
+@pytest.mark.cuda
+def test_devlint_on_the_card(cuda):
+    """``python -m jepsen_tpu_torch.analyze --devlint --json`` on the
+    card in a fresh process: the fused kernel's routes clean with their
+    compile spans captured, the findings exactly
+    ``chip_smoke.DEVLINT_FINDINGS``, exit 1, B1 launched."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke as cs
+
+    p = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.analyze", "--devlint",
+         "--json"], capture_output=True, text=True, timeout=600, cwd=repo)
+    rep = json.loads(p.stdout)
+    assert p.returncode == 1, p.stderr
+    assert {tuple(f) for f in rep["findings"]} == cs.DEVLINT_FINDINGS
+    assert tuple(rep["routes"]) == cs.DEVLINT_ROUTES
+    assert all(rep["spans"][r] > 0 for r in cs.DEVLINT_B1_ROUTES)
+    assert rep["launches"]["single,on"] > 0 and \
+        rep["launches"]["grid,on"] > 0
+
+
+@pytest.mark.cuda
+def test_stream_gate_on_the_card(cuda):
+    """``chip_smoke``'s ``stream[gate]`` burst on the card at the default
+    gate and ``STREAM_GATE_BUDGET``: the gated segment's fold launches
+    B1, is undecided, and the checker sweeps the segment on the host to
+    the states the card's fold reaches at a budget that decides it."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from jepsen_tpu_torch.decompose import engine
+    from jepsen_tpu_torch.stream import StreamChecker
+    from jepsen_tpu_torch.stream import device as sd
+
+    h, model = cs.stream_gate_history()
+    folds, sweeps = [], []
+    fold, sweep = sd.device_fold_states, engine.segment_states
+
+    def traced_fold(sseq, m, ins, **kw):
+        out = fold(sseq, m, ins, **kw)
+        folds.append((sseq, set(ins), out))
+        return out
+
+    def traced_sweep(sseq, *a, **kw):
+        out = sweep(sseq, *a, **kw)
+        sweeps.append((len(sseq), out[0] if isinstance(out, tuple) else out))
+        return out
+
+    sd.device_fold_states, engine.segment_states = traced_fold, traced_sweep
+    try:
+        before = lk.LAUNCHES + lk.BATCH_LAUNCHES
+        sc = StreamChecker(model, device="cuda",
+                           device_budget=cs.STREAM_GATE_BUDGET)
+        for op in h:
+            sc.ingest(op)
+        res = sc.finalize()
+        launched = lk.LAUNCHES + lk.BATCH_LAUNCHES - before
+    finally:
+        sd.device_fold_states, engine.segment_states = fold, sweep
+    assert res["valid"] is True and not res["stream"]["fallback"]
+    assert len(folds) == 1 and folds[0][2] is None and launched > 0
+    sseq, ins, _ = folds[0]
+    decided = fold(sseq, model, ins, budget=cs.STREAM_KW["device_budget"],
+                   device="cuda")
+    want = {(100 + i,) for i in range(cs.STREAM_GATE["n_writes"])}
+    assert [s for n, s in sweeps if n == len(sseq)] == [want]
+    assert decided is not None and decided[0] == want
+
+
+@pytest.mark.cuda
+def test_queue_linearizable_device_leg_on_the_card(cuda, tmp_path):
+    """``chip_smoke.queue_linear_device_leg`` on the card: the JAX
+    package's verdict from the torch step alone, its slices on the card,
+    no B1 launch (the queue models are not the kernel's)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    before = lk.LAUNCHES + lk.BATCH_LAUNCHES
+    out, slices, requests = cs.queue_linear_device_leg(str(tmp_path),
+                                                       device="cuda")
+    card = str(lin._resolve_device("cuda"))
+    assert out["valid"] is \
+        cs.CHECKERS_REFERENCE["queue_linearizable/valid"]
+    assert requests > 0 and set(slices) == {card} and slices[card] > 0
+    assert lk.LAUNCHES + lk.BATCH_LAUNCHES == before

@@ -58,7 +58,9 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "live", "live.corpus", "obs.report", "obs.__main__", "live.oplog",
     "live.kv_server", "live.queue_server", "live.replicated_server",
     "live.replicated_queue", "analyze.simnet", "analyze.modelcheck",
-    "analyze.__main__")}
+    "analyze.__main__", "util", "codec", "bank", "checker",
+    "checker.extra", "checker.dirty", "checker.schedule",
+    "checker.timeline", "checker.perf")}
 
 
 def _sources():

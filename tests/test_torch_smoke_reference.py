@@ -175,3 +175,126 @@ def test_shard_tier_plan_reference(monkeypatch):
         chip_smoke.SHARD_TIER_PLAN["padding_efficiency"]
     assert bench["fused_counterfactual"]["padded_ops"] == \
         chip_smoke.SHARD_TIER_PLAN["fused_padded_ops"]
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.CHECKERS_REFERENCE))
+def test_checkers_reference(name, monkeypatch, tmp_path):
+    """``phase_checkers``' verdicts (``CHECKERS_REFERENCE``): the JAX
+    package's checker of each kind on the same history.  The
+    ``queue_linearizable`` case (200 queue ops) also goes through the
+    port's checker on the CPU, as the card runs it."""
+    from jepsen_tpu import history as jh
+
+    reference_defaults(monkeypatch)
+    spec, tmap, h = chip_smoke.checker_histories()[name]
+    test = {**tmap, "store_base": str(tmp_path)}
+    hj = [jh.Op.from_dict(op.to_dict()) for op in h]
+    got = chip_smoke.make_checker(spec, root="jepsen_tpu").check(test, hj, {})
+    assert got["valid"] is chip_smoke.CHECKERS_REFERENCE[name]
+    if spec[1] == "queue_linearizable":
+        assert 400 <= len(h) <= 800  # 200 to 400 ops
+        import torch
+
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            port = chip_smoke.make_checker(spec, device="cpu").check(
+                test, h, {})
+        finally:
+            torch.set_num_threads(n)
+        assert (port["valid"], port["model"]) == (got["valid"],
+                                                  got["model"])
+
+
+def _one_thread():
+    """Pins torch to one thread for a test that runs the torch step;
+    returns the restore."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    return lambda: torch.set_num_threads(n)
+
+
+def _gate_run(checker_cls, sd, engine, model, history, monkeypatch):
+    """One stream of ``stream[gate]`` at the default gate and
+    ``STREAM_GATE_BUDGET``: (result, device folds as (rows, out), host
+    sweeps as (rows, states))."""
+    folds, sweeps = [], []
+    fold, sweep = sd.device_fold_states, engine.segment_states
+
+    def traced_fold(sseq, *a, **kw):
+        out = fold(sseq, *a, **kw)
+        folds.append((len(sseq), out))
+        return out
+
+    def traced_sweep(sseq, *a, **kw):
+        out = sweep(sseq, *a, **kw)
+        sweeps.append((len(sseq), out[0] if isinstance(out, tuple) else out))
+        return out
+
+    monkeypatch.setattr(sd, "device_fold_states", traced_fold)
+    monkeypatch.setattr(engine, "segment_states", traced_sweep)
+    kw = {"device": "cpu"} if checker_cls.__module__.startswith(
+        "jepsen_tpu_torch") else {}
+    sc = checker_cls(model, device_budget=chip_smoke.STREAM_GATE_BUDGET,
+                     **kw)
+    for op in history:
+        sc.ingest(op)
+    return sc.finalize(), folds, sweeps
+
+
+def test_stream_gate_reference(monkeypatch):
+    """``stream[gate]``'s burst: at the default gate and
+    ``STREAM_GATE_BUDGET`` both packages' stream checkers send the gated
+    segment to the device, find its fold undecided, sweep it on the host
+    to the same states and give the same verdict and routes."""
+    from jepsen_tpu import history as jh
+    from jepsen_tpu.decompose import engine as jengine
+    from jepsen_tpu.stream import StreamChecker as JStream
+    from jepsen_tpu.stream import device as jsd
+    from jepsen_tpu_torch.analyze.plan import segment_fold_route
+    from jepsen_tpu_torch.decompose import engine
+    from jepsen_tpu_torch.history import encode_ops, max_concurrency
+    from jepsen_tpu_torch.stream import StreamChecker
+    from jepsen_tpu_torch.stream import device as sd
+
+    reference_defaults(monkeypatch)
+    h, model = chip_smoke.stream_gate_history()
+    g = chip_smoke.STREAM_GATE
+    rows = g["n_cas"] + g["n_writes"] + g["n_reads"]
+    burst = encode_ops(h[2:-2], model.f_codes)
+    assert (len(burst), max_concurrency(burst)) == (rows, rows)
+    assert segment_fold_route(rows, rows, model) == "device"
+    restore = _one_thread()
+    try:
+        port, folds, sweeps = _gate_run(StreamChecker, sd, engine, model, h,
+                                        monkeypatch)
+    finally:
+        restore()
+    ref, jfolds, jsweeps = _gate_run(
+        JStream, jsd, jengine, jm.cas_register(),
+        [jh.Op.from_dict(op.to_dict()) for op in h], monkeypatch)
+    assert folds == jfolds == [(rows, None)]
+    want = {(100 + i,) for i in range(g["n_writes"])}
+    assert [s for s in sweeps if s[0] == rows] == \
+        [s for s in jsweeps if s[0] == rows] == [(rows, want)]
+    assert port["valid"] is ref["valid"] is True
+    assert port["stream"]["routes"] == ref["stream"]["routes"]
+    assert port["stream"]["routes"]["host"] >= 1
+    assert not port["stream"]["fallback"]
+
+
+def test_queue_linearizable_device_leg(tmp_path):
+    """``phase_checkers``' device leg of ``queue_linearizable``, on the
+    CPU: the JAX package's verdict (``CHECKERS_REFERENCE``) from the
+    torch step alone, its slices counted on the device asked for."""
+    restore = _one_thread()
+    try:
+        out, slices, requests = chip_smoke.queue_linear_device_leg(
+            str(tmp_path), device="cpu")
+    finally:
+        restore()
+    assert out["valid"] is \
+        chip_smoke.CHECKERS_REFERENCE["queue_linearizable/valid"]
+    assert requests > 0 and set(slices) == {"cpu"} and slices["cpu"] > 0
