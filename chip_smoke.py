@@ -42,7 +42,8 @@ first closed segments at the default gate, the one segment that gate
 sends to the device folded alone, and a gated burst whose undecided
 fold the checker sweeps on the host; with async folds; twice on one
 verdict cache file (the second run all hits,
-no launch); four streams through one ``StreamService``; and the stream
+no launch); two streams with the same content through one
+``StreamService`` (the second served from the cache); and the stream
 bench tier.  The multi-device routes run over logical shards of the
 card (:data:`SHARDS`): the sharded-frontier search on 1k (one shard and
 four) and mutex2k, the key-sharded batch on batch256 (bucketed and
@@ -76,7 +77,14 @@ and ``perf``, and 26 seeded histories held to the JAX package's
 verdicts, ``queue_linearizable``'s device leg among them on the card's
 torch step; and the device contract (:func:`phase_devlint`): ``python -m
 jepsen_tpu_torch.analyze --devlint`` in a fresh process, its findings
-the pinned set.  Every phase
+the pinned set.  Last, whole Jepsen tests through the port's
+``core.run`` (:func:`phase_run`): the etcd tutorial's register test at
+its width (50 keys, 5,000 ops, five nodes under a partition of the
+halves on a dummy remote, the streaming checker on), valid and with a
+client that lies on three keys, each key checked by linearizability
+(B1-T on the card) and a timeline, the invalid keys held to the host's
+verdict on the stored history; and a run whose generator raises, its
+streamed prefix verdict on the exception and in the store.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -102,11 +110,13 @@ from __future__ import annotations
 import collections
 import functools
 import json
+import logging
 import os
 import random
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -2495,9 +2505,10 @@ def phase_stream(store_base):
           f"stream[cache]: warm run {st2}, {g2} grid and {s2} single-key "
           f"launches")
 
-    # the service: four streams, two pairs with the same content
-    streams = {f"s{i}": stream_history(seed=f"{STREAM_SEED}-{i % 2}")[0]
-               for i in range(4)}
+    # the service: two streams with the same content, the second served
+    # from the cache the first fills
+    streams = {f"s{i}": stream_history(seed=f"{STREAM_SEED}-0")[0]
+               for i in range(2)}
     lines = [json.dumps({"run": r, "model": "cas-register"})
              for r in streams]
     for i in range(max(len(x) for x in streams.values())):
@@ -2516,7 +2527,8 @@ def phase_stream(store_base):
     finals = {d["run"]: d["final"] for d in replies if "final" in d}
     errors = [d for d in replies if "error" in d]
     n_events = sum(len(x) for x in streams.values())
-    emit(f"stream[service]: streams=4 events={n_events} wall_s={wall:.3f} "
+    emit(f"stream[service]: streams={len(streams)} events={n_events} "
+         f"wall_s={wall:.3f} "
          f"({n_events / wall:.1f} events/s); cache hits/misses/inserts="
          f"{cache.hits}/{cache.misses}/{cache.inserts}; finals "
          + " ".join(f"{r}={f['valid']}/{f['stream']['routes']}"
@@ -2526,6 +2538,8 @@ def phase_stream(store_base):
     check(sorted(finals) == sorted(streams)
           and all(f["valid"] is True for f in finals.values()),
           f"stream[service]: finals {finals}")
+    check(cache.hits > 0, f"stream[service]: the second stream had no "
+          f"cache hit (hits/misses {cache.hits}/{cache.misses})")
 
     # the bench tier: 6 clients, host folds
     _zero_counts()
@@ -4226,23 +4240,28 @@ def checker_histories():
     }
 
 
-def make_checker(spec, root="jepsen_tpu_torch", **kw):
-    """The checker a :func:`checker_histories` entry names, from the
-    package ``root``: ``(module, factory)``, ``(module, "queue",
-    model class)``; ``concurrency_limit`` wraps the counter checker (2
-    at once, plot off for the schedule checker); ``kw`` reach
-    ``queue_linearizable``."""
+def port_module(name):
+    """The port's module ``name`` (dotted, below the package)."""
     import importlib
 
-    mod = importlib.import_module(f"{root}.{spec[0]}")
+    return importlib.import_module(f"jepsen_tpu_torch.{name}")
+
+
+def make_checker(spec, mod=port_module, **kw):
+    """The checker a :func:`checker_histories` entry names, its modules
+    from ``mod`` (a module name -> module function; the port's by
+    default): ``(module, factory)``, ``(module, "queue", model
+    class)``; ``concurrency_limit`` wraps the counter checker (2 at
+    once, plot off for the schedule checker); ``kw`` reach
+    ``queue_linearizable``."""
+    m = mod(spec[0])
     if spec[1] == "queue" and len(spec) > 2:
-        return mod.queue(getattr(mod, spec[2])())
+        return m.queue(getattr(m, spec[2])())
     if spec[1] == "concurrency_limit":
-        basic = importlib.import_module(f"{root}.checker.basic")
-        return mod.concurrency_limit(2, basic.counter())
+        return m.concurrency_limit(2, mod("checker.basic").counter())
     if spec[1] == "schedule_checker":
-        return mod.schedule_checker(plot=False)
-    return getattr(mod, spec[1])(**kw)
+        return m.schedule_checker(plot=False)
+    return getattr(m, spec[1])(**kw)
 
 
 def queue_linear_device_leg(base, *, device="cuda"):
@@ -4474,6 +4493,404 @@ def phase_checkers(store_base):
     return {"checkers": {"grid": grid, "single": single}}
 
 
+# ---------------------------------------------------------------------------
+# a whole Jepsen test through core.run
+# ---------------------------------------------------------------------------
+
+#: the etcd tutorial's register workload (jepsen.etcdemo): five nodes, 10
+#: threads per key, 100 ops per key over values 0-4; stagger and the
+#: nemesis's half-period in seconds (the tutorial's 5 s nemesis is cut
+#: to 0.5 s so its faults land while the in-process register runs)
+RUN = dict(nodes=("n1", "n2", "n3", "n4", "n5"), concurrency=50,
+           per_key=10, keys=50, ops_per_key=100, values=5, stagger_s=0.02,
+           nemesis_s=0.5, cycles=2)
+
+#: run[invalid]: these keys answer their first read with RUN_LIE, a value
+#: no write gives
+RUN_LIARS = frozenset({3, 17, 41})
+RUN_LIE = 7
+
+#: run[abort]: reads before the generator raises
+RUN_ABORT_OPS = 2000
+
+#: what the dummy remote answers for each node's address (the default
+#: dummy answers nothing, on which ``net.ip`` raises in both packages)
+RUN_GETENT = {f"getent ahosts {n}": (0, f"10.0.0.{i + 1} STREAM {n}\n", "")
+              for i, n in enumerate(RUN["nodes"])}
+
+#: the command log of a run: each (node, command) with its count, as the
+#: JAX package's dummy remote records them on the CPU for RUN's nodes and
+#: nemesis schedule (recomputed by tests/test_torch_smoke_reference.py)
+RUN_NEMESIS_COMMANDS = {
+    ('n1', "sudo -S -u root sh -c 'getent ahosts n3'"): 2,
+    ('n1', "sudo -S -u root sh -c 'getent ahosts n4'"): 2,
+    ('n1', "sudo -S -u root sh -c 'getent ahosts n5'"): 2,
+    ('n1', "sudo -S -u root sh -c 'iptables -A INPUT -s 10.0.0.3,10.0.0.4,10.0.0.5 -j DROP -w'"): 2,
+    ('n1', "sudo -S -u root sh -c 'iptables -F -w'"): 5,
+    ('n1', "sudo -S -u root sh -c 'iptables -X -w'"): 5,
+    ('n2', "sudo -S -u root sh -c 'getent ahosts n3'"): 2,
+    ('n2', "sudo -S -u root sh -c 'getent ahosts n4'"): 2,
+    ('n2', "sudo -S -u root sh -c 'getent ahosts n5'"): 2,
+    ('n2', "sudo -S -u root sh -c 'iptables -A INPUT -s 10.0.0.3,10.0.0.4,10.0.0.5 -j DROP -w'"): 2,
+    ('n2', "sudo -S -u root sh -c 'iptables -F -w'"): 5,
+    ('n2', "sudo -S -u root sh -c 'iptables -X -w'"): 5,
+    ('n3', "sudo -S -u root sh -c 'getent ahosts n1'"): 2,
+    ('n3', "sudo -S -u root sh -c 'getent ahosts n2'"): 2,
+    ('n3', "sudo -S -u root sh -c 'iptables -A INPUT -s 10.0.0.1,10.0.0.2 -j DROP -w'"): 2,
+    ('n3', "sudo -S -u root sh -c 'iptables -F -w'"): 5,
+    ('n3', "sudo -S -u root sh -c 'iptables -X -w'"): 5,
+    ('n4', "sudo -S -u root sh -c 'getent ahosts n1'"): 2,
+    ('n4', "sudo -S -u root sh -c 'getent ahosts n2'"): 2,
+    ('n4', "sudo -S -u root sh -c 'iptables -A INPUT -s 10.0.0.1,10.0.0.2 -j DROP -w'"): 2,
+    ('n4', "sudo -S -u root sh -c 'iptables -F -w'"): 5,
+    ('n4', "sudo -S -u root sh -c 'iptables -X -w'"): 5,
+    ('n5', "sudo -S -u root sh -c 'getent ahosts n1'"): 2,
+    ('n5', "sudo -S -u root sh -c 'getent ahosts n2'"): 2,
+    ('n5', "sudo -S -u root sh -c 'iptables -A INPUT -s 10.0.0.1,10.0.0.2 -j DROP -w'"): 2,
+    ('n5', "sudo -S -u root sh -c 'iptables -F -w'"): 5,
+    ('n5', "sudo -S -u root sh -c 'iptables -X -w'"): 5,
+}
+
+
+class RegisterClient:
+    """One in-process cas register per key, each op atomic under one
+    lock; on the keys in ``liars`` the first read answers
+    :data:`RUN_LIE`.  ``tuple_`` is the package's ``independent.tuple_``."""
+
+    def __init__(self, tuple_, liars=()):
+        self.tuple_ = tuple_
+        self.liars = set(liars)
+        self.regs: dict = {}
+        self.lock = threading.Lock()
+
+    def open(self, test, node):
+        return self
+
+    def setup(self, test):
+        pass
+
+    def teardown(self, test):
+        pass
+
+    def close(self, test):
+        pass
+
+    def invoke(self, test, op):
+        k, v = op.value.key, op.value.value
+        with self.lock:
+            cur = self.regs.get(k, 0)
+            if op.f == "read":
+                if k in self.liars:
+                    self.liars.discard(k)
+                    cur = RUN_LIE
+                return replace(op, type="ok", value=self.tuple_(k, cur))
+            if op.f == "write":
+                self.regs[k] = v
+                return replace(op, type="ok")
+            if cur != v[0]:
+                return replace(op, type="fail")
+            self.regs[k] = v[1]
+            return replace(op, type="ok")
+
+
+class ExplodingGen:
+    """``n`` reads, then raises (the reference's generator-recovery
+    test)."""
+
+    def __init__(self, n):
+        self.n = n
+        self.lock = threading.Lock()
+
+    def op(self, test, process):
+        with self.lock:
+            self.n -= 1
+            if self.n < 0:
+                raise RuntimeError("generator exploded!")
+        return {"type": "invoke", "f": "read", "value": None}
+
+
+def _read_op(test, process):
+    return {"type": "invoke", "f": "read", "value": None}
+
+
+def _write_op(test, process):
+    return {"type": "invoke", "f": "write",
+            "value": random.randrange(RUN["values"])}
+
+
+def _cas_op(test, process):
+    return {"type": "invoke", "f": "cas",
+            "value": (random.randrange(RUN["values"]),
+                      random.randrange(RUN["values"]))}
+
+
+def run_test(checker, *, mod=port_module, liars=(), abort=None,
+             **kw) -> dict:
+    """The test map of a :data:`RUN` test (``kw`` overrides RUN's keys),
+    its modules from ``mod`` (as :func:`make_checker`'s): the etcd
+    tutorial's phases (the workload under a start/stop nemesis, then
+    heal) on per-key in-process registers, a partition of the halves
+    over iptables on a dummy remote.  ``abort`` (a read count) swaps the
+    workload for :class:`ExplodingGen` on the atom register."""
+    gen, ind, fixtures = mod("generator"), mod("independent"), mod("fixtures")
+    cfg = {**RUN, **kw}
+    start = {"type": "info", "f": "start"}
+    stop = {"type": "info", "f": "stop"}
+    test = fixtures.noop_test() | {
+        "nodes": list(cfg["nodes"]), "concurrency": cfg["concurrency"],
+        "remote": mod("control").DummyRemote(dict(RUN_GETENT)),
+        "net": mod("net").iptables,
+        "nemesis": mod("nemesis").partition_halves(),
+        "model": mod("models").cas_register(0), "checker": checker}
+    if abort is not None:
+        state = fixtures.AtomRegister(0)
+        return test | {"db": fixtures.atom_db(state),
+                       "client": fixtures.atom_client(state),
+                       "generator": gen.clients(gen.phases(
+                           ExplodingGen(abort),
+                           gen.limit(10, _read_op)))}
+    workload = ind.concurrent_generator(
+        cfg["per_key"], range(cfg["keys"]),
+        lambda k: gen.limit(cfg["ops_per_key"],
+                            gen.mix([_read_op, _write_op, _cas_op])))
+    dt = cfg["nemesis_s"]
+    main = gen.nemesis(
+        gen.seq([gen.sleep(dt), start, gen.sleep(dt), stop] * cfg["cycles"]),
+        gen.stagger(cfg["stagger_s"], workload))
+    return test | {
+        "client": RegisterClient(ind.tuple_, liars),
+        "generator": gen.phases(main, gen.log("Healing cluster"),
+                                gen.nemesis(gen.once(stop)))}
+
+
+def nemesis_commands(remote) -> dict:
+    """A dummy remote's exec log as (node, command) -> count, the sources
+    of each drop rule sorted (a grudge is a set: its order is the hash
+    seed's)."""
+    def canonical(cmd):
+        head, sep, rest = cmd.partition(" -s ")
+        if not sep:
+            return cmd
+        srcs, _, tail = rest.partition(" ")
+        return f"{head} -s {','.join(sorted(srcs.split(',')))} {tail}"
+
+    return dict(sorted(collections.Counter(
+        (node, canonical(cmd)) for node, kind, cmd in remote.log
+        if kind == "exec").items()))
+
+
+def run_checker():
+    """The etcd tutorial's register checker
+    (``suites/etcdemo.py:202-205``): linearizability and a timeline,
+    composed and lifted over keys.  Both packages check the lifted
+    composition key by key, each key a race of the host engines and
+    B1-T's single-key form; B1-T's grid never runs (``ROADMAP.md`` §C)."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker import compose, timeline
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import cas_register
+
+    return independent.checker(compose({
+        "linear": linearizable(cas_register(0), device="cuda"),
+        "timeline": timeline.timeline()}))
+
+
+def _error_paths(v, path="results") -> list:
+    """Every ``"error"`` key at any depth of a result."""
+    out = []
+    if isinstance(v, dict):
+        for k, x in v.items():
+            if k == "error":
+                out.append(f"{path}.error")
+            out += _error_paths(x, f"{path}.{k}")
+    elif isinstance(v, (list, tuple)):
+        for i, x in enumerate(v):
+            out += _error_paths(x, f"{path}[{i}]")
+    return out
+
+
+def stored_kv(v):
+    """A stored ``[k v]`` value (the store writes a tuple as its repr)
+    as the port's tuple."""
+    import ast
+
+    from jepsen_tpu_torch import independent
+
+    k, x = v[1:-1].split(" ", 1)
+    return independent.tuple_(ast.literal_eval(k), ast.literal_eval(x))
+
+
+def _run_once(test):
+    """``core.run`` on ``test`` with its launches counted: (the run or
+    the exception it raised, seconds, (single, grid) launches)."""
+    import torch
+
+    from jepsen_tpu_torch import core
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out = core.run(test)
+    except Exception as e:  # noqa: BLE001 — run[abort] expects one
+        out = e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, _read_counts()
+
+
+def _check_run(label, out, *, keys, ops, store_base):
+    """What every finished run owes: each client op completed, the
+    history indexed, a stream verdict, no ``"error"`` anywhere, and the
+    store's copy of the history and verdict."""
+    from jepsen_tpu_torch import store
+
+    check(not isinstance(out, BaseException), f"{label}: core.run raised "
+          f"{out!r}")
+    h = out["history"]
+    client = [op for op in h if isinstance(op.process, int)]
+    done = [op for op in client if op.type in ("ok", "fail")]
+    check(len(client) == 2 * ops and len(done) == ops,
+          f"{label}: {len(client)} client events, {len(done)} completed, "
+          f"want {2 * ops} and {ops}")
+    check(all(op.index == i for i, op in enumerate(h)),
+          f"{label}: the history is not indexed 0..{len(h) - 1}")
+    res = out["results"]
+    got = sorted(res["results"])
+    check(got == list(range(keys))
+          and all({"linear", "timeline"} <= set(res["results"][k])
+                  for k in got),
+          f"{label}: checked {len(got)} keys, want {keys}, each with its "
+          f"linear and timeline results")
+    errors = _error_paths(res)
+    check(not errors, f"{label}: error keys in the results: {errors[:5]}")
+    sres = out.get("stream_results")
+    check(sres is not None and res.get("stream") is not None,
+          f"{label}: no streamed verdict")
+    loaded = store.load(out["name"], out["start_time"], store_base)
+    check(len(loaded["history"]) == len(h)
+          and loaded["results"]["valid"] == res["valid"],
+          f"{label}: the store holds {len(loaded.get('history', []))} "
+          f"events and valid={loaded.get('results', {}).get('valid')}")
+    return res, sres, loaded
+
+
+@_timed_phase("run")
+def phase_run(store_base):
+    """Whole Jepsen tests through the port's ``core.run`` (the sessions,
+    the OS and DB, client and nemesis workers from the generator with
+    the stream linter and the streaming checker as op sinks, the store,
+    the composed checker): the etcd tutorial's register test at its
+    width (:data:`RUN`: 50 keys, 5,000 ops) under a partition of the
+    halves, checked by the tutorial's :func:`run_checker` (each key a
+    race of the host engines and B1-T's single-key form); the same test
+    with a client that lies on :data:`RUN_LIARS`, whose keys the host
+    holds to the same verdict on the stored history; and a run whose
+    generator raises, whose streamed prefix verdict rides the exception
+    and the store."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.independent import subhistory
+    from jepsen_tpu_torch.models import cas_register
+
+    base = os.path.join(store_base, "run")
+    quiet = logging.StreamHandler()
+    quiet.setLevel(logging.WARNING)
+    logger = logging.getLogger("jepsen")
+    logger.addHandler(quiet)  # the run log goes to the store's jepsen.log
+    launches = {}
+    ops = RUN["keys"] * RUN["ops_per_key"]
+    try:
+        for label, liars in (("run[register]", ()),
+                             ("run[invalid]", RUN_LIARS)):
+            random.seed(label)
+            test = run_test(run_checker(), liars=liars) | {
+                "name": label.replace("[", "-").strip("]"),
+                "store_base": base, "stream": True, "device": "cuda"}
+            out, wall, (single, grid) = _run_once(test)
+            launches[label] = {"grid": grid, "single": single}
+            res, sres, loaded = _check_run(label, out, keys=RUN["keys"],
+                                           ops=ops, store_base=base)
+            per_key = [res["results"][k] for k in range(RUN["keys"])]
+            linear = [r["linear"] for r in per_key]
+            failures = sorted(res["failures"])
+            cmds = nemesis_commands(out["remote"])
+            nem = [op for op in out["history"] if op.process == "nemesis"]
+            emit(f"{label}: wall_s={wall:.3f} events={len(out['history'])} "
+                 f"client ops={ops} nemesis events={len(nem)} phases_s="
+                 f"{out.get('phase_s')}; valid={res['valid']} failures="
+                 f"{failures} linear engines "
+                 f"{_route_counts(linear)}; stream valid={sres['valid']} "
+                 f"routes={res['stream']['stream'].get('routes')} "
+                 f"segments={res['stream']['stream'].get('segments')}; "
+                 f"launches "
+                 f"grid={grid} single={single}; commands={sum(cmds.values())}")
+            check(cmds == RUN_NEMESIS_COMMANDS,
+                  f"{label}: the dummy remote's commands differ from the JAX "
+                  f"package's: {sorted(set(cmds.items()) ^ set(RUN_NEMESIS_COMMANDS.items()))[:6]}")
+            if grid == 0:
+                emit(f"{label}: B1-T's grid did not launch: the tutorial "
+                     f"lifts the composition, which checks key by key in "
+                     f"both packages (ROADMAP.md section C)")
+            if not liars:
+                check(res["valid"] is True and sres["valid"] is True
+                      and all(r["valid"] is True and r["linear"]["valid"]
+                              is True and r["timeline"]["valid"] is True
+                              for r in per_key),
+                      f"{label}: valid={res['valid']} stream "
+                      f"{sres['valid']} failures {failures}")
+                continue
+            check(res["valid"] is False and sres["valid"] is False
+                  and failures == sorted(RUN_LIARS),
+                  f"{label}: valid={res['valid']} stream {sres['valid']} "
+                  f"failures {failures}")
+            stored = [replace(op, value=stored_kv(op.value))
+                      if isinstance(op.process, int) else op
+                      for op in loaded["history"]]
+            host = linearizable(cas_register(0), device="cpu")
+            for k in sorted(RUN_LIARS):
+                want = host.check({"store_base": base}, subhistory(k, stored),
+                                  {})
+                check(linear[k]["valid"] is want["valid"] is False,
+                      f"{label}: key {k} is {linear[k]['valid']} on the "
+                      f"card, {want['valid']} on the host")
+            emit(f"{label}: the invalid keys' races (the host engines "
+                 f"and B1-T's single-key form): "
+                 + ", ".join(f"{k} {linear[k].get('engine')}"
+                             for k in sorted(RUN_LIARS)))
+
+        label = "run[abort]"
+        test = run_test(run_checker(), abort=RUN_ABORT_OPS) | {
+            "name": "run-abort", "store_base": base, "stream": True,
+            "device": "cuda", "start_time": "20260101T000000"}
+        out, wall, (single, grid) = _run_once(test)
+        launches[label] = {"grid": grid, "single": single}
+        check(isinstance(out, RuntimeError)
+              and "generator exploded" in str(out),
+              f"{label}: core.run gave {out!r}, want the generator's error")
+        sres = getattr(out, "stream_results", None)
+        check(sres is not None and sres["aborted"] is True
+              and sres["valid"] is True,
+              f"{label}: the exception carries {sres}")
+        loaded = store.load("run-abort", test["start_time"], base)
+        check(loaded["results"]["valid"] is True
+              and loaded["results"]["aborted"] is True
+              and len(loaded["history"]) > 0,
+              f"{label}: the store holds {loaded.get('results')}")
+        emit(f"{label}: wall_s={wall:.3f} raised {out!r}; streamed prefix "
+             f"valid={sres['valid']} aborted={sres['aborted']} over "
+             f"{len(loaded['history'])} stored events "
+             f"(routes={sres['stream']['stream'].get('routes')}); launches "
+             f"grid={grid} single={single}")
+    finally:
+        logger.removeHandler(quiet)
+    grid = sum(v["grid"] for v in launches.values())
+    single = sum(v["single"] for v in launches.values())
+    emit(f"run: B1-T launches over the three runs grid={grid} "
+         f"single={single}")
+    check(grid + single > 0, "run: B1 never launched on the run path")
+    return launches
+
+
 #: the device contract's findings on the card, one per (route, code,
 #: site): the torch step's host reads per level (the loop test, the
 #: closure's start and its next round) and the sharded step's (its
@@ -4630,6 +5047,7 @@ def main() -> int:
             launches.update(phase_analyze_cli(store_base, checked["1k"]))
             launches.update(phase_live(store_base))
             launches.update(phase_checkers(store_base))
+            launches.update(phase_run(store_base))
             launches.update(phase_devlint())
             phase_report(shard_trace)
             shares = phase_traced(store_base)

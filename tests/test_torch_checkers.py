@@ -11,6 +11,7 @@ the slice as a whole: a keyed history stored, loaded and checked by
 and perf, in both packages."""
 
 import argparse
+import importlib
 import os
 import random
 import sys
@@ -48,6 +49,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
+
+
+def _jax_module(name):
+    """The JAX package's module ``name``, for chip_smoke's builders."""
+    return importlib.import_module(f"jepsen_tpu.{name}")
+
 
 KNOBS = ("JEPSEN_TPU_LINT", "JEPSEN_TPU_HB", "JEPSEN_TPU_DPOR",
          "JEPSEN_TPU_AUDIT", "JEPSEN_TPU_BATCH_BUCKETS",
@@ -88,7 +95,7 @@ def test_checker_equals_the_reference(name, tmp_path):
     spec, tmap, h = CASES[name]
     rt = chip_smoke.make_checker(spec).check(
         {**tmap, "store_base": str(tmp_path / "t")}, h, {})
-    rj = chip_smoke.make_checker(spec, root="jepsen_tpu").check(
+    rj = chip_smoke.make_checker(spec, mod=_jax_module).check(
         {**tmap, "store_base": str(tmp_path / "j")}, _j(h), {})
     assert rt == rj
     assert rt["valid"] is chip_smoke.CHECKERS_REFERENCE[name]

@@ -797,3 +797,52 @@ def test_queue_linearizable_device_leg_on_the_card(cuda, tmp_path):
         cs.CHECKERS_REFERENCE["queue_linearizable/valid"]
     assert requests > 0 and set(slices) == {card} and slices[card] > 0
     assert lk.LAUNCHES + lk.BATCH_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("liars", [(), (2, 5)])
+def test_core_run_register_on_the_card(cuda, tmp_path, liars):
+    """``chip_smoke.phase_run``'s register test at 8 keys through the
+    port's ``core.run`` with the streaming checker on the card: every
+    op completed, the dummy remote's commands the JAX package's, and
+    each key's verdict (the tutorial's lifted composition: a race of
+    the host engines and B1-T's single-key form, never the grid) the
+    host's on the stored history."""
+    import os
+    import sys
+    from dataclasses import replace
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.independent import subhistory
+
+    random.seed(14)
+    base = str(tmp_path)
+    test = cs.run_test(cs.run_checker(), liars=liars, keys=8,
+                       concurrency=20) | {
+        "name": "run-card", "store_base": base, "stream": True,
+        "device": "cuda"}
+    before = lk.BATCH_LAUNCHES
+    out = core.run(test)
+    h = out["history"]
+    assert all(op.index == i for i, op in enumerate(h))
+    assert sum(isinstance(op.process, int) for op in h) == 2 * 8 * 100
+    assert cs.nemesis_commands(out["remote"]) == cs.RUN_NEMESIS_COMMANDS
+    res = out["results"]
+    # the lifted composition checks key by key (ROADMAP.md section C)
+    assert lk.BATCH_LAUNCHES == before
+    assert not cs._error_paths(res)
+    assert res["valid"] is (not liars) is out["stream_results"]["valid"]
+    assert sorted(res["failures"]) == sorted(liars)
+    stored = [replace(op, value=cs.stored_kv(op.value))
+              if isinstance(op.process, int) else op
+              for op in store.load("run-card", out["start_time"],
+                                   base)["history"]]
+    host = lin.linearizable(cas_register(0), device="cpu")
+    for k in range(8):
+        want = host.check({"store_base": base}, subhistory(k, stored), {})
+        assert res["results"][k]["linear"]["valid"] is want["valid"]
+        assert res["results"][k]["timeline"]["valid"] is True

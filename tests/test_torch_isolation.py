@@ -60,7 +60,10 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "live.replicated_queue", "analyze.simnet", "analyze.modelcheck",
     "analyze.__main__", "util", "codec", "bank", "checker",
     "checker.extra", "checker.dirty", "checker.schedule",
-    "checker.timeline", "checker.perf")}
+    "checker.timeline", "checker.perf", "client", "db", "generator",
+    "control", "control_util", "os", "os.debian", "os.smartos", "net",
+    "nemesis", "nemesis_time", "faketime", "faultfs", "fixtures", "core",
+    "report", "repl")}
 
 
 def _sources():

@@ -4,6 +4,8 @@ device search with the JAX package's defaults (``REFERENCE_REDUCED``,
 ``PREPASS_REASON``), the queue histories' verdicts (``QUEUES``), and
 the batch256 keys' answers (``BATCH256_*``)."""
 
+import importlib
+
 import pytest
 
 import chip_smoke
@@ -12,6 +14,11 @@ from jepsen_tpu import models as jm
 from jepsen_tpu.checker import linear as jlinear
 from jepsen_tpu.history import OpSeq
 from test_torch_search import reference_defaults
+
+
+def _jax_module(name):
+    """The JAX package's module ``name``, for chip_smoke's builders."""
+    return importlib.import_module(f"jepsen_tpu.{name}")
 
 
 def _jax(seq):
@@ -189,7 +196,7 @@ def test_checkers_reference(name, monkeypatch, tmp_path):
     spec, tmap, h = chip_smoke.checker_histories()[name]
     test = {**tmap, "store_base": str(tmp_path)}
     hj = [jh.Op.from_dict(op.to_dict()) for op in h]
-    got = chip_smoke.make_checker(spec, root="jepsen_tpu").check(test, hj, {})
+    got = chip_smoke.make_checker(spec, mod=_jax_module).check(test, hj, {})
     assert got["valid"] is chip_smoke.CHECKERS_REFERENCE[name]
     if spec[1] == "queue_linearizable":
         assert 400 <= len(h) <= 800  # 200 to 400 ops
@@ -298,3 +305,24 @@ def test_queue_linearizable_device_leg(tmp_path):
     assert out["valid"] is \
         chip_smoke.CHECKERS_REFERENCE["queue_linearizable/valid"]
     assert requests > 0 and set(slices) == {"cpu"} and slices["cpu"] > 0
+
+
+def test_run_nemesis_commands_reference():
+    """``phase_run``'s pinned command log (``RUN_NEMESIS_COMMANDS``): the
+    JAX package's ``core.run`` of the same test map on its dummy remote,
+    the same nodes and nemesis schedule (the client workload shrunk: it
+    runs no command)."""
+    import random
+
+    from jepsen_tpu import checker, core
+
+    random.seed(14)
+    test = chip_smoke.run_test(checker.unbridled_dionysus, mod=_jax_module,
+                               keys=4, concurrency=4, per_key=2,
+                               ops_per_key=5) | {"name": None}
+    out = core.run(test)
+    assert chip_smoke.nemesis_commands(out["remote"]) == \
+        chip_smoke.RUN_NEMESIS_COMMANDS
+    nem = [op for op in out["history"] if op.process == "nemesis"]
+    assert [op.f for op in nem[::2]] == ["start", "stop"] * \
+        chip_smoke.RUN["cycles"] + ["stop"]
