@@ -84,7 +84,16 @@ halves on a dummy remote, the streaming checker on), valid and with a
 client that lies on three keys, each key checked by linearizability
 (B1-T on the card) and a timeline, the invalid keys held to the host's
 verdict on the stored history; and a run whose generator raises, its
-streamed prefix verdict on the exception and in the store.  Every phase
+streamed prefix verdict on the exception and in the store.  Then the
+suites (:func:`phase_suites`): ``python -m
+jepsen_tpu_torch.suites.atomdemo test`` as a user types it, in a child
+process with the device route, the stream and the trace on; the same
+suite through ``cli.run`` in process on the default route; ``localnode``
+with three real server processes under kill -9; the lock server's
+staged double grant caught on the card; hazelcast's lock fixture
+(BASELINE config 4) sound and broken; each verdict held to the host's
+check of the stored history; and the results web server on the phase's
+store.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -2735,9 +2744,11 @@ def phase_sharded():
 
 #: the fleet tier at the JAX package's own size (``fleet/bench.py``):
 #: 2 workers, 400-op register runs of 6 processes (overlap 4, quiescent
-#: every 8 ops, 5 values), rungs of 1, 2, 4 and 8 clients, 3 runs each
+#: every 8 ops, 5 values), rungs of 1, 2, 4 and 8 clients; one run per
+#: client where the JAX package's tier runs 3 (cut to make room for
+#: phase_suites inside the script's time limit)
 FLEET_RUNGS = (1, 2, 4, 8)
-FLEET_RUNS_PER_CLIENT = 3
+FLEET_RUNS_PER_CLIENT = 1
 FLEET_OPS = 400
 #: seeds of the traffic sample whose compile spans give the warm set
 #: (the swarm's seeds start at 1001)
@@ -4663,6 +4674,25 @@ def run_test(checker, *, mod=port_module, liars=(), abort=None,
                                 gen.nemesis(gen.once(stop)))}
 
 
+def double_grant_generator(gen):
+    """The lock workload's staged double grant, from ``gen`` (a
+    generator module): thread 0 acquires, the nemesis kills the lock
+    server with kill -9 and restarts it, thread 1 acquires, then thread
+    0 releases.  Each phase ends before the next begins, so thread 1's
+    grant completes before thread 0's release is invoked: on a server
+    that forgets its holder in a crash (``lock_volatile``) two acquires
+    succeed with no release between them, which no mutex linearization
+    explains; a durable server answers thread 1 BUSY."""
+    acquire = {"type": "invoke", "f": "acquire", "value": None}
+    release = {"type": "invoke", "f": "release", "value": None}
+    return gen.phases(
+        gen.on(lambda t: t == 0, gen.once(acquire)),
+        gen.nemesis(gen.once({"type": "info", "f": "kill"})),
+        gen.nemesis(gen.once({"type": "info", "f": "restart"})),
+        gen.on(lambda t: t == 1, gen.once(acquire)),
+        gen.on(lambda t: t == 0, gen.once(release)))
+
+
 def nemesis_commands(remote) -> dict:
     """A dummy remote's exec log as (node, command) -> count, the sources
     of each drop rule sorted (a grudge is a set: its order is the hash
@@ -4891,6 +4921,336 @@ def phase_run(store_base):
     return launches
 
 
+#: the atomdemo command a user types (the README's recipe for a suite),
+#: with the device route forced on every key, the stream and the trace on
+SUITE_CMD = ("test", "--dummy", "-n", "n1", "-n", "n2", "-n", "n3",
+             "--time-limit", "5", "--lin-algorithm", "device", "--stream",
+             "--trace")
+#: ...and four threads on each key at 200 ops/s, each reply delayed up to
+#: 10 ms after its op applies (``--latency``).  At atomdemo's defaults the
+#: in-process register replies in the order it applies the ops, so the
+#: greedy witness decides nearly every key on the host before a search
+#: (114 of 115 keys on the card at four threads a key) and B1-T need not
+#: launch in the child; more threads alone reorder too rarely (0 of 32
+#: keys on the card at thirty-two threads).  Delayed replies reorder
+#: completions on every busy key: 43 of 44 keys reached the device search
+#: in a CPU rehearsal.
+SUITE_OVERLAP = ("-r", "200", "--group-size", "4", "--concurrency", "8",
+                 "--latency", "10")
+#: the device the phase's runs ask for ("cpu" only to rehearse the phase
+#: off the card: the child process runs where this says)
+SUITE_DEVICE = "cuda"
+#: engines that decide a key on the host before any search, as the
+#: device route does ahead of its first launch
+SUITE_PRESEARCH = ("greedy-witness", "hb-decide", "constraint-decide",
+                   "trivial")
+
+
+def _run_ports(n: int) -> int:
+    """The first of ``n`` consecutive ports below the kernel's ephemeral
+    range, all free now (the localnode servers bind them)."""
+    import socket
+
+    rng = random.Random()
+    while True:
+        base = rng.randrange(20000, 32000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+        return base
+
+
+def _host_keys(label, stored, card, store_base):
+    """Each key of a stored keyed history checked again on the host,
+    held to the card's per-key verdicts (``card``: key -> valid)."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.independent import subhistory
+    from jepsen_tpu_torch.models import cas_register
+
+    hist = [replace(op, value=stored_kv(op.value))
+            if isinstance(op.process, int) else op for op in stored]
+    host = linearizable(cas_register(0), device="cpu")
+    for k, valid in sorted(card.items()):
+        want = host.check({"store_base": store_base}, subhistory(k, hist))
+        check(want["valid"] is valid, f"{label}: key {k} is {valid} on the "
+              f"card, {want['valid']} on the host")
+
+
+def _host_lock(label, stored, valid, store_base):
+    """A stored lock history checked again on the host under the mutex
+    model, held to the card's verdict."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import mutex
+
+    want = linearizable(mutex(), device="cpu").check(
+        {"store_base": store_base}, stored)
+    check(want["valid"] is valid, f"{label}: {valid} on the card, "
+          f"{want['valid']} on the host")
+
+
+def _suite_child(d):
+    """``python -m jepsen_tpu_torch.suites.atomdemo`` as a user types it,
+    run in ``d`` (where its ``store/`` lands; the package is linked in):
+    (exit code, stdout, stderr, wall seconds)."""
+    link = os.path.join(d, "jepsen_tpu_torch")
+    if not os.path.exists(link):
+        os.symlink(REPO / "jepsen_tpu_torch", link)
+    argv = [*SUITE_CMD, *SUITE_OVERLAP]
+    if SUITE_DEVICE != "cuda":
+        argv += ["--device", SUITE_DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.suites.atomdemo", *argv],
+        cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    code, out, err = _finish(proc, timeout=300)
+    return code, out, err, time.perf_counter() - t0
+
+
+@_timed_phase("suites")
+def phase_suites(store_base):
+    """The suites' command line and the results web server on the card.
+
+    ``suites[atomdemo-cli]``: ``python -m jepsen_tpu_torch.suites.atomdemo
+    test`` in a child process (:data:`SUITE_CMD`, :data:`SUITE_OVERLAP`):
+    exit 0, ``results.json`` valid, every key on the device route (B1-T
+    in the child: ``device-bfs(cuda...)``, or decided on the host before
+    a search), most keys on B1-T, ``trace.json`` with device spans, ``live.json`` from the
+    stream.  ``suites[atomdemo]``: ``cli.run`` of the suite in process
+    with no algorithm flag (the default route: the race), its launches
+    counted, every key held to the host's check of the stored history.
+    ``suites[localnode]``: three real server processes under kill -9 and
+    restart for 6 s, checked on the card (``lin_algorithm`` device: the
+    keys the greedy witness leaves, those with crashed ops, on B1-T),
+    valid, every key held to the host.
+    ``suites[locknode]``: the lock server with ``lock_volatile`` and
+    :func:`double_grant_generator`, checked on the card
+    (``lin_algorithm`` device, ``hb`` off: the search, not the prepass),
+    invalid, as the host says.  ``suites[hazelcast]``: the lock fixture
+    (BASELINE config 4), sound and broken, on the card the same way:
+    valid and invalid, each the host's verdict.  Every run stores under
+    one store.  ``suites[web]``: the results server on it answers ``/``
+    (every run listed), each run's page (its search telemetry shown
+    wherever one of the page's result panels carries it, on one page at
+    least), ``/api/live/...`` for the streamed run, ``/api/stats``
+    (device seconds > 0) and ``?zip``.  Returns the counted paths'
+    launches."""
+    import json as json_mod
+    import urllib.request
+
+    import torch
+
+    from jepsen_tpu_torch import cli, core, store, web
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.suites import atomdemo, hazelcast, localnode
+
+    base = os.path.join(store_base, "suites")
+    sbase = os.path.join(base, "store")
+    hostb = os.path.join(base, "host")  # the host re-checks' reports
+    os.makedirs(base, exist_ok=True)
+    quiet = logging.StreamHandler()
+    quiet.setLevel(logging.WARNING)
+    logger = logging.getLogger("jepsen")
+    logger.addHandler(quiet)  # the run log goes to the store's jepsen.log
+    launches = {}
+
+    def counted(label, fn):
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if SUITE_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        single, grid = _read_counts()
+        launches[label] = {"grid": grid, "single": single}
+        return out, wall, single, grid
+
+    try:
+        # -- suites[atomdemo-cli]: the command line in a child --------------
+        label = "suites[atomdemo-cli]"
+        code, out, err, wall = _suite_child(base)
+        run = store.latest(sbase)
+        check(code == 0, f"{label}: exit {code}; errors in the results "
+              f"{_error_paths((run or {}).get('results'))[:5]}; "
+              f"{err[-1500:]}")
+        res = run["results"]
+        keys = res["workload"]["results"]
+        engines = collections.Counter(r["linear"]["engine"]
+                                      for r in keys.values())
+        on_card = sum(n for e, n in engines.items()
+                      if e.startswith("device-bfs(cuda"))
+        rel = os.path.join("atomdemo", run["start_time"])
+        with open(os.path.join(sbase, rel, "trace.json")) as f:
+            spans = collections.Counter(
+                e.get("name") for e in json_mod.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") == "device")
+        live = os.path.join(sbase, rel, "live.json")
+        emit(f"{label}: exit {code}, child wall_s={wall:.3f}, "
+             f"{len(keys)} keys, valid={res['valid']} stream "
+             f"{res['stream']['valid']}; engines {dict(engines)}; device "
+             f"spans in trace.json {dict(spans)}; live.json "
+             f"{os.path.isfile(live)}")
+        check(res["valid"] is True and res["stream"]["valid"] is True,
+              f"{label}: valid={res['valid']}")
+        check(all(e.startswith("device-bfs") or e in SUITE_PRESEARCH
+                  for e in engines),
+              f"{label}: engines off the device route: {dict(engines)}")
+        check(2 * on_card > len(keys) or SUITE_DEVICE != "cuda",
+              f"{label}: B1-T searched {on_card} of {len(keys)} keys in "
+              f"the child, not most: {dict(engines)}")
+        check(spans and os.path.isfile(live),
+              f"{label}: device spans {dict(spans)}, live.json "
+              f"{os.path.isfile(live)}")
+
+        # -- suites[atomdemo]: the default route, in process ----------------
+        label = "suites[atomdemo]"
+        random.seed(label)
+        argv = ["test", "--dummy", "-n", "n1", "-n", "n2", "-n", "n3",
+                "--time-limit", "3", "--device", SUITE_DEVICE]
+        code, wall, single, grid = counted(label, lambda: cli.run(
+            cli.single_test_cmd(
+                lambda opts: atomdemo.atom_test(opts) | {"store_base": sbase},
+                add_opts=atomdemo.add_opts), argv))
+        check(code == 0, f"{label}: cli.run exit {code}")
+        run = store.latest(sbase)
+        keys = run["results"]["workload"]["results"]
+        engines = collections.Counter(r["linear"]["engine"]
+                                      for r in keys.values())
+        _host_keys(label, run["history"], {
+            int(k): r["linear"]["valid"] for k, r in keys.items()}, hostb)
+        emit(f"{label}: cli.run exit {code}, wall_s={wall:.3f}, {len(keys)} "
+             f"keys valid={run['results']['valid']}, every key the host's; "
+             f"engines {dict(engines)}; launches single={single} "
+             f"grid={grid} (the race may retire every key on the host)")
+
+        # -- suites[localnode]: real processes -------------------------------
+        label = "suites[localnode]"
+        random.seed(label)
+        test = localnode.localnode_test({
+            "nodes": ["n1", "n2", "n3"], "base_port": _run_ports(3),
+            "data_root": os.path.join(base, "nodes"), "store_base": sbase,
+            "time_limit": 6, "device": SUITE_DEVICE,
+            "lin_algorithm": "device"})
+        out, wall, single, grid = counted(label, lambda: core.run(test))
+        res = out["results"]
+        nem = collections.Counter(op.f for op in out["history"]
+                                  if op.process == "nemesis"
+                                  and op.type == "info")
+        keys = res["workload"]["results"]
+        check(res["valid"] is True and nem["kill"] > 0
+              and nem["restart"] > 0,
+              f"{label}: valid={res['valid']} nemesis {dict(nem)}")
+        _host_keys(label, store.latest(sbase)["history"],
+                   {k: r["linear"]["valid"] for k, r in keys.items()}, hostb)
+        engines = collections.Counter(r["linear"]["engine"]
+                                      for r in keys.values())
+        emit(f"{label}: wall_s={wall:.3f} events={len(out['history'])} "
+             f"nemesis {dict(nem)}; {len(keys)} keys valid={res['valid']}, "
+             f"every key the host's; engines {dict(engines)}; launches "
+             f"single={single} grid={grid}")
+
+        # -- suites[locknode]: the volatile server's double grant -------------
+        label = "suites[locknode]"
+        test = localnode.locknode_test({
+            "base_port": _run_ports(1), "store_base": sbase,
+            "data_root": os.path.join(base, "locknodes"),
+            "lock_volatile": True, "concurrency": 2,
+            "device": SUITE_DEVICE, "lin_algorithm": "device", "hb": False})
+        test["generator"] = double_grant_generator(gen)
+        out, wall, single, grid = counted(label, lambda: core.run(test))
+        lin = out["results"]["linear"]
+        _host_lock(label, store.latest(sbase)["history"], lin["valid"], hostb)
+        grants = [op.type for op in out["history"]
+                  if op.f == "acquire" and op.type != "invoke"]
+        emit(f"{label}: wall_s={wall:.3f} acquires {grants}; valid="
+             f"{lin['valid']} engine {lin.get('engine')}, the host's; "
+             f"launches single={single} grid={grid}")
+        check(lin["valid"] is False and grants == ["ok", "ok"],
+              f"{label}: valid={lin['valid']} acquires {grants}")
+
+        # -- suites[hazelcast]: BASELINE config 4 ----------------------------
+        for broken in (False, True):
+            label = f"suites[hazelcast{'-broken' if broken else ''}]"
+            random.seed(label)
+            svc = hazelcast.InProcessLockService()
+            svc.broken = broken
+            opts = {"nodes": ["n1", "n2"], "concurrency": 3,
+                    "time_limit": 2, "rate": 100,
+                    "workload": "lock-fixture", "store_base": sbase,
+                    "device": SUITE_DEVICE, "lin_algorithm": "device",
+                    "hb": False}
+            test = hazelcast.hazelcast_test(opts) | {
+                "name": "hazelcast-lock",
+                "client": hazelcast.LockClient(svc)}
+            out, wall, single, grid = counted(label, lambda: core.run(test))
+            lin = out["results"]["workload"]["linear"]
+            _host_lock(label, store.latest(sbase)["history"], lin["valid"],
+                       hostb)
+            n_ops = sum(1 for op in out["history"]
+                        if isinstance(op.process, int)
+                        and op.type != "invoke")
+            emit(f"{label}: wall_s={wall:.3f} {n_ops} lock ops; valid="
+                 f"{lin['valid']} engine {lin.get('engine')}, the host's; "
+                 f"launches single={single} grid={grid}")
+            check(lin["valid"] is (not broken),
+                  f"{label}: valid={lin['valid']}")
+    finally:
+        logger.removeHandler(quiet)
+
+    # -- suites[web]: the results server on the phase's store -----------------
+    label = "suites[web]"
+    srv = web.make_server("127.0.0.1", 0, base=sbase)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    runs = sorted((name, t) for name, ts in store.tests(base=sbase).items()
+                  for t in ts)
+    try:
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=30) as r:
+                return r.status, r.read()
+
+        home = get("/")
+        pages = {f"{n}/{t}": get(f"/files/{n}/{t}/") for n, t in runs}
+        live = get(f"/api/live/{rel}")
+        stats = get("/api/stats")
+        zipped = get(f"/files/{rel}/?zip")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    shown = []
+    for r, (status, body) in pages.items():
+        with open(os.path.join(sbase, r, "results.json")) as f:
+            res = json_mod.load(f)
+        panels = [res] + [sub for _, sub in web._evidence_results(res)]
+        has = any(isinstance(p.get("search_telemetry"), dict)
+                  for p in panels)
+        check(status == 200 and (b"device telemetry" in body) == has,
+              f"{label}: {r}: {status}, telemetry in its panels {has}")
+        if has:
+            shown.append(r)
+    snap = json_mod.loads(stats[1])
+    dev_s = snap["jtpu_device_seconds_total"]["values"]
+    live_d = json_mod.loads(live[1])
+    emit(f"{label}: / {home[0]} ({len(home[1])} bytes, {len(runs)} runs), "
+         f"{len(pages)} run pages 200, search telemetry shown on {shown}; "
+         f"/api/live {live[0]} status={live_d.get('status')} "
+         f"final={(live_d.get('final') or {}).get('valid')}, /api/stats "
+         f"{stats[0]} jtpu_device_seconds_total={dev_s}, ?zip {zipped[0]} "
+         f"{len(zipped[1])} bytes")
+    check(home[0] == live[0] == stats[0] == zipped[0] == 200
+          and all(f"{n}/{t}".encode() in home[1] for n, t in runs)
+          and live_d.get("final") is not None and zipped[1][:2] == b"PK"
+          and (dev_s > 0 and shown or SUITE_DEVICE != "cuda"),
+          f"{label}: a route answered wrong")
+    return launches
+
+
 #: the device contract's findings on the card, one per (route, code,
 #: site): the torch step's host reads per level (the loop test, the
 #: closure's start and its next round) and the sharded step's (its
@@ -5048,6 +5408,7 @@ def main() -> int:
             launches.update(phase_live(store_base))
             launches.update(phase_checkers(store_base))
             launches.update(phase_run(store_base))
+            launches.update(phase_suites(store_base))
             launches.update(phase_devlint())
             phase_report(shard_trace)
             shares = phase_traced(store_base)

@@ -46,6 +46,13 @@ _SIGNATURES = {
 }
 
 
+def use_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (the command line's
+    ``--compile-cache-dir``); libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

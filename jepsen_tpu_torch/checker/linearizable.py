@@ -63,6 +63,7 @@ here).
 
 from __future__ import annotations
 
+import copy
 import functools
 import threading
 import time
@@ -1566,7 +1567,8 @@ class Linearizable:
     (``shrink``; histories up to :attr:`SHRINK_MAX_OPS` rows;
     ``shrink=False`` turns it off).  ``model`` may be given here or ride
     in ``test["model"]``.  ``device`` follows the package rule: "cuda"
-    by default, "cpu" only when asked for.
+    by default, "cpu" only when asked for; None (the default) takes the
+    test map's ``"device"``, else "cuda".
 
     ``lint`` (None: on) lints the events, or the columns of an OpSeq,
     before anything else: errors raise ``HistoryLintError``, warnings
@@ -1584,7 +1586,12 @@ class Linearizable:
     ``linear`` sweep (the WGL oracle under ``algorithm="host"``).  The
     verdict is the same.  ``verdict_cache`` is its VerdictCache, a jsonl
     path (opened once per checker), True for the store's default path,
-    or None (no cache)."""
+    or None (no cache).
+
+    Suites build their checkers with no arguments, so each setting left
+    open is taken from the test map at check time (:meth:`resolved`),
+    where the command line puts its flags: the JAX package reads the same
+    settings from its ``JEPSEN_TPU_*`` environment variables."""
 
     name = "linearizable"
 
@@ -1604,7 +1611,7 @@ class Linearizable:
                  lint: bool | None = None, explain: bool | None = None,
                  audit: bool | None = None, shrink: bool | None = None,
                  hb: bool | None = None, dpor: bool | None = None,
-                 telemetry: bool | None = None, device="cuda"):
+                 telemetry: bool | None = None, device=None):
         try:
             self.algorithm = self.ALGORITHMS[algorithm]
         except KeyError:
@@ -1625,8 +1632,56 @@ class Linearizable:
         self.decompose = decompose
         self.verdict_cache = verdict_cache
         self._cache_obj = None
+        # the checker a resolved copy was made from, which keeps the
+        # verdict cache opened across checks
+        self._origin = self
+        # the test map's hb and dpor, which the host confirmation after
+        # a device verdict follows whatever the constructor says (the
+        # JAX package's confirmation reads JEPSEN_TPU_HB/_DPOR)
+        self._confirm: dict = {}
+
+    #: settings a test map sets where the constructor left them None
+    TEST_MAP_KEYS = ("lint", "explain", "audit", "shrink", "hb", "dpor",
+                     "telemetry")
+
+    def resolved(self, test) -> "Linearizable":
+        """This checker with the settings its constructor left open taken
+        from ``test``, with the JAX package's precedence: an argument
+        given wins.  Each of :data:`TEST_MAP_KEYS` left None follows the
+        key of its name; ``decompose`` left False turns on with
+        ``test["lin_decompose"]``; ``algorithm="auto"`` follows
+        ``test["lin_algorithm"]``; ``device`` left None is
+        ``test["device"]``, else "cuda".  Returns ``self`` when nothing
+        changes, else a copy."""
+        test = test or {}
+        over = {k: test[k] for k in self.TEST_MAP_KEYS
+                if getattr(self, k) is None and test.get(k) is not None}
+        if not self.decompose and test.get("lin_decompose"):
+            over["decompose"] = True
+        algo = test.get("lin_algorithm")
+        if self.algorithm == "auto" and algo:
+            try:
+                over["algorithm"] = self.ALGORITHMS[algo]
+            except KeyError:
+                raise ValueError(
+                    f"unknown algorithm {algo!r} (from the test map's "
+                    f"lin_algorithm); one of {sorted(self.ALGORITHMS)}"
+                ) from None
+        if self.device is None:
+            over["device"] = test.get("device") or "cuda"
+        over["_confirm"] = {k: test[k] for k in ("hb", "dpor")
+                            if test.get(k) is not None}
+        over = {k: v for k, v in over.items() if getattr(self, k) != v}
+        if not over:
+            return self
+        out = copy.copy(self)
+        out.__dict__.update(over)
+        return out
 
     def check(self, test, history, opts=None):
+        return self.resolved(test)._check(test, history, opts)
+
+    def _check(self, test, history, opts):
         from ..analyze.lint import check_history, check_opseq_lint
 
         model = self.model or (test or {}).get("model")
@@ -1678,9 +1733,10 @@ class Linearizable:
         if isinstance(cache, str):
             # one cache per checker, not per check: each one re-reads
             # the whole append-only file
-            if self._cache_obj is None or self._cache_obj.path != cache:
-                self._cache_obj = VerdictCache(cache)
-            cache = self._cache_obj
+            owner = self._origin
+            if owner._cache_obj is None or owner._cache_obj.path != cache:
+                owner._cache_obj = VerdictCache(cache)
+            cache = owner._cache_obj
         sub_check = None
         if self.algorithm == "host":
             # the selected host engine runs the sub-searches too; the
@@ -1745,9 +1801,10 @@ class Linearizable:
             if target is None:
                 target = seq
             if len(target) <= self.witness_threshold:
-                # hb and dpor at their defaults, as the JAX package's
-                # confirmation runs
-                confirm = seqmod.check_opseq(target, model, lint=False)
+                # hb and dpor at the test map's, else their defaults, as
+                # the JAX package's confirmation runs
+                confirm = seqmod.check_opseq(target, model, lint=False,
+                                             **self._confirm)
                 if confirm["valid"] is False:
                     confirm["engine"] = out["engine"] + "+host-witness"
                     confirm["device_configs"] = out["configs"]

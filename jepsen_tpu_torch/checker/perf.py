@@ -6,7 +6,9 @@ throughput plots (rate-graph! 351), with nemesis-active intervals shaded
 (nemesis-regions 190) — all via a gnuplot subprocess.  Rebuilt on
 matplotlib (host-side; the checker's numbers ride along the history, no
 device work needed for O(n) stats).  matplotlib is imported only when a
-graph is drawn; the numbers do not need it.
+graph is drawn; the numbers do not need it.  Where matplotlib does not
+import, the graph checkers draw nothing and say so in a valid result (the
+JAX package's raise, which leaves a whole run's verdict "unknown").
 """
 
 from __future__ import annotations
@@ -23,6 +25,19 @@ DT = 10.0
 QUANTILES = [0.5, 0.95, 0.99, 1.0]
 
 TYPE_COLORS = {"ok": "#81BFFC", "info": "#FFA400", "fail": "#FF1E90"}
+
+
+#: a graph checker's note where matplotlib does not import
+NOT_DRAWN = "matplotlib does not import here: no graph drawn"
+
+
+def can_draw() -> bool:
+    """Whether matplotlib imports in this process."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def _mpl():
@@ -172,6 +187,8 @@ class LatencyGraph(Checker):
     """checker.clj:408-415."""
 
     def check(self, test, history, opts=None):
+        if not can_draw():
+            return {"valid": True, "graphs": NOT_DRAWN}
         point_graph(test, history, opts)
         quantiles_graph(test, history, opts)
         return {"valid": True}
@@ -181,6 +198,8 @@ class RateGraph(Checker):
     """checker.clj:417-423."""
 
     def check(self, test, history, opts=None):
+        if not can_draw():
+            return {"valid": True, "graphs": NOT_DRAWN}
         rate_graph(test, history, opts)
         return {"valid": True}
 

@@ -202,7 +202,8 @@ def concurrent_generator(n: int, keys, fgen) -> ConcurrentGenerator:
 class IndependentChecker(Checker):
     """A checker over values lifted to ``[k v]`` histories: valid iff
     every key's subhistory is.  ``"unknown"`` keys are not failures.
-    ``telemetry`` (None: on) goes to the batch's ``search_batch``."""
+    ``telemetry`` (None: the test map's ``"telemetry"``, else on) goes
+    to the batch's ``search_batch``."""
 
     def __init__(self, checker: Checker, *, batch_device: bool = True,
                  telemetry: bool | None = None):
@@ -218,7 +219,7 @@ class IndependentChecker(Checker):
         from .checker.linearizable import search_batch
         from .history import encode_ops
 
-        chk = self.checker
+        chk = self.checker.resolved(test)
         model = chk.model or test.get("model")
         keys = list(subhistories)
         seqs = [encode_ops(subhistories[k], model.f_codes) for k in keys]
@@ -229,9 +230,16 @@ class IndependentChecker(Checker):
             results[keys[i]] = check_safe(chk, test, subhistories[keys[i]])
         big = [i for i in range(len(keys)) if i not in small]
         if big:
+            # the batch follows the test map's settings, not the lifted
+            # checker's arguments, as the JAX package's follows its
+            # JEPSEN_TPU_* variables
+            knobs = {k: test.get(k) for k in ("lint", "audit", "hb", "dpor",
+                                              "telemetry")}
+            if self.telemetry is not None:
+                knobs["telemetry"] = self.telemetry
             batch = search_batch([seqs[i] for i in big], model,
                                  budget=chk.budget, device=chk.device,
-                                 telemetry=self.telemetry)
+                                 **knobs)
             for i, r in zip(big, batch):
                 if r["valid"] is False:
                     results[keys[i]] = check_safe(

@@ -846,3 +846,47 @@ def test_core_run_register_on_the_card(cuda, tmp_path, liars):
         want = host.check({"store_base": base}, subhistory(k, stored), {})
         assert res["results"][k]["linear"]["valid"] is want["valid"]
         assert res["results"][k]["timeline"]["valid"] is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volatile", [False, True])
+def test_suite_lock_runs_on_the_card(cuda, tmp_path, volatile):
+    """A suite's whole test through its command line on the card, then
+    localnode's lock server under the staged double grant: the flags
+    reach the suite-built checker (``--lin-algorithm device --no-hb``:
+    the search on B1-T, not the prepass), and each verdict is the host's
+    on the stored history."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from jepsen_tpu_torch import cli, core, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.suites import atomdemo, localnode
+
+    base = str(tmp_path)
+    rc = cli.run(cli.single_test_cmd(
+        lambda opts: atomdemo.atom_test(opts) | {"store_base": base},
+        add_opts=atomdemo.add_opts),
+        ["test", "--dummy", "-n", "n1", "--time-limit", "2",
+         "--lin-algorithm", "device", "--no-hb"])
+    assert rc == cli.EXIT_OK
+    run = store.latest(base)
+    assert run["device"] == "cuda" and run["results"]["valid"] is True
+    test = localnode.locknode_test({
+        "base_port": cs._run_ports(1), "store_base": base,
+        "data_root": str(tmp_path / "nodes"), "lock_volatile": volatile,
+        "concurrency": 2, "lin_algorithm": "device", "hb": False})
+    test["generator"] = cs.double_grant_generator(gen)
+    before = lk.LAUNCHES
+    lin_res = core.run(test)["results"]["linear"]
+    want = lin.linearizable(mutex(), device="cpu").check(
+        {"store_base": str(tmp_path / "host")},
+        store.latest(base)["history"])
+    assert lin_res["valid"] is want["valid"] is (not volatile)
+    if volatile:
+        assert lin_res["engine"].startswith("device-bfs(cuda)")
+        assert lk.LAUNCHES > before

@@ -63,7 +63,9 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "checker.timeline", "checker.perf", "client", "db", "generator",
     "control", "control_util", "os", "os.debian", "os.smartos", "net",
     "nemesis", "nemesis_time", "faketime", "faultfs", "fixtures", "core",
-    "report", "repl")}
+    "report", "repl", "cli", "web", "suites", "suites.atomdemo",
+    "suites.registry", "suites.localnode_server", "suites.localnode",
+    "suites.hazelcast")}
 
 
 def _sources():
