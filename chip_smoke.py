@@ -92,8 +92,12 @@ suite through ``cli.run`` in process on the default route; ``localnode``
 with three real server processes under kill -9; the lock server's
 staged double grant caught on the card; hazelcast's lock fixture
 (BASELINE config 4) sound and broken; each verdict held to the host's
-check of the stored history; and the results web server on the phase's
-store.  Every phase
+check of the stored history; the etcd tutorial (BASELINE config 1,
+``python -m jepsen_tpu_torch.suites.etcdemo test``) against three etcd
+gateway stand-ins, sound and with one gateway serving stale reads; the
+suite and service lint (``python -m
+jepsen_tpu_torch.analyze.lint_suites``) over the tree under test; and
+the results web server on the phase's store.  Every phase
 prints one line per case, timed
 lines with the card's name and power limit; the line before the last is
 the per-kernel JSON record and the last line the device record.  Any failed
@@ -118,6 +122,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import http.server
 import json
 import logging
 import os
@@ -4945,6 +4950,129 @@ SUITE_DEVICE = "cuda"
 SUITE_PRESEARCH = ("greedy-witness", "hb-decide", "constraint-decide",
                    "trivial")
 
+#: the etcd tutorial's nodes: an etcd v3 JSON gateway stand-in on each
+#: loopback address at etcd's client port, which ``suites/etcdemo.py``'s
+#: ``client_url`` names, so the suite's command line runs unchanged
+ETCD_NODES = ("127.0.0.1", "127.0.0.2", "127.0.0.3")
+ETCD_PORT = 2379
+#: ``python -m jepsen_tpu_torch.suites.etcdemo`` as a user types it: ten
+#: threads a key (the tutorial's ``--concurrency 10n``), the device route
+#: on every key; the suite keeps its 10 s join wait, its partition of the
+#: halves every 5 s and its 10 s recovery wait
+ETCD_CMD = ("test", "--dummy", "-n", ETCD_NODES[0], "-n", ETCD_NODES[1],
+            "-n", ETCD_NODES[2], "--time-limit", "10", "--concurrency",
+            "10n", "--lin-algorithm", "device")
+#: the dummy remote's answers (``--dummy-responses``) that let the DB's
+#: archive install finish: a fresh temporary directory, and one root in
+#: the unpacked archive.  Without them the default dummy answers every
+#: ``stat``, and ``control_util.tmp_dir`` never finds a fresh directory
+#: (in both packages)
+ETCD_DUMMY_RESPONSES = {
+    "stat /tmp/jepsen/": [1, "", "stat: No such file or directory"],
+    "ls -A": [0, "etcd-v3.1.5-linux-amd64\n", ""]}
+#: each stand-in delays its reply by a uniform draw up to this many
+#: seconds after the op applies, as a network's reply leg: completions
+#: then leave the order the ops applied in, and the greedy witness no
+#: longer decides every key before the search
+ETCD_LATENCY_S = 0.01
+
+
+class EtcdGateway(http.server.BaseHTTPRequestHandler):
+    """A stand-in for etcd's v3 JSON gateway (``/kv/put``, ``/kv/range``,
+    ``/kv/txn`` with base64 keys and values), the handler of
+    ``tests/test_clients_live.py``: every gateway of one cluster shares
+    ``server.kv`` under ``server.lock``.  Each reply waits up to
+    ``server.latency`` seconds after its op applies.  The store also
+    keeps ``server.prev``, each key's value before its latest write: a
+    ``server.stale`` gateway answers reads from it, a copy of the store
+    one write behind."""
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):  # noqa: N802
+        import base64
+
+        srv = self.server
+        n = int(self.headers.get("Content-Length", 0))
+        body = json.loads(self.rfile.read(n))
+
+        def b64d(x):
+            return base64.b64decode(x).decode()
+
+        def b64e(x):
+            return base64.b64encode(x.encode()).decode()
+
+        def put(k, v):
+            if k in srv.kv:
+                srv.prev[k] = srv.kv[k]
+            srv.kv[k] = v
+
+        with srv.lock:
+            if self.path.endswith("/kv/put"):
+                put(b64d(body["key"]), b64d(body["value"]))
+                out = {}
+            elif self.path.endswith("/kv/range"):
+                kv = srv.prev if srv.stale else srv.kv
+                k = b64d(body["key"])
+                out = {}
+                if k in kv:
+                    out["kvs"] = [{"key": body["key"],
+                                   "value": b64e(kv[k])}]
+            elif self.path.endswith("/kv/txn"):
+                cmp_ = body["compare"][0]
+                k = b64d(cmp_["key"])
+                ok = srv.kv.get(k) == b64d(cmp_["value"])
+                if ok:
+                    req = body["success"][0]["requestPut"]
+                    put(b64d(req["key"]), b64d(req["value"]))
+                out = {"succeeded": ok}
+            else:
+                self.send_response(404)
+                self.end_headers()
+                return
+        time.sleep(random.uniform(0, srv.latency))
+        data = json.dumps(out).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+class _GatewayServer(http.server.ThreadingHTTPServer):
+    # the standard library's listen backlog of 5 overflows under a
+    # tutorial run's thirty clients, and a dropped SYN is retried after
+    # a second: every op would take one
+    request_queue_size = 128
+    daemon_threads = True
+
+
+def etcd_gateways(addrs, *, stale_last=False, latency=ETCD_LATENCY_S):
+    """One :class:`EtcdGateway` server per ``(host, port)`` of ``addrs``,
+    each serving on a daemon thread, all sharing one store; the last one
+    stale when ``stale_last``.  Raises OSError (the servers started so
+    far shut down) when an address is taken."""
+    kv, prev, lock = {}, {}, threading.Lock()
+    servers = []
+    try:
+        for i, addr in enumerate(addrs):
+            srv = _GatewayServer(addr, EtcdGateway)
+            srv.kv, srv.prev, srv.lock, srv.latency = kv, prev, lock, latency
+            srv.stale = stale_last and i == len(addrs) - 1
+            servers.append(srv)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+    except OSError:
+        stop_gateways(servers)
+        raise
+    return servers
+
+
+def stop_gateways(servers) -> None:
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+
 
 def _run_ports(n: int) -> int:
     """The first of ``n`` consecutive ports below the kernel's ephemeral
@@ -4967,16 +5095,17 @@ def _run_ports(n: int) -> int:
         return base
 
 
-def _host_keys(label, stored, card, store_base):
+def _host_keys(label, stored, card, store_base, model=None):
     """Each key of a stored keyed history checked again on the host,
-    held to the card's per-key verdicts (``card``: key -> valid)."""
+    held to the card's per-key verdicts (``card``: key -> valid), under
+    ``model`` (default a cas-register from 0)."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.independent import subhistory
     from jepsen_tpu_torch.models import cas_register
 
     hist = [replace(op, value=stored_kv(op.value))
             if isinstance(op.process, int) else op for op in stored]
-    host = linearizable(cas_register(0), device="cpu")
+    host = linearizable(model or cas_register(0), device="cpu")
     for k, valid in sorted(card.items()):
         want = host.check({"store_base": store_base}, subhistory(k, hist))
         check(want["valid"] is valid, f"{label}: key {k} is {valid} on the "
@@ -5013,6 +5142,62 @@ def _suite_child(d):
     return code, out, err, time.perf_counter() - t0
 
 
+def _etcd_child(d, *, stale):
+    """``python -m jepsen_tpu_torch.suites.etcdemo`` (:data:`ETCD_CMD`)
+    as a user types it, in ``d`` (the package linked in), against
+    :func:`etcd_gateways` on :data:`ETCD_NODES`, the last one stale when
+    ``stale``: (exit code, stdout, stderr, wall seconds).  Raises
+    SmokeFailure when a gateway's address is taken."""
+    os.makedirs(d, exist_ok=True)
+    link = os.path.join(d, "jepsen_tpu_torch")
+    if not os.path.exists(link):
+        os.symlink(REPO / "jepsen_tpu_torch", link)
+    responses = os.path.join(d, "dummy-responses.json")
+    with open(responses, "w") as f:
+        json.dump(ETCD_DUMMY_RESPONSES, f)
+    argv = [*ETCD_CMD, "--dummy-responses", responses]
+    if SUITE_DEVICE != "cuda":
+        argv += ["--device", SUITE_DEVICE]
+    try:
+        servers = etcd_gateways([(h, ETCD_PORT) for h in ETCD_NODES],
+                                stale_last=stale)
+    except OSError as e:
+        raise SmokeFailure(f"etcd gateway stand-ins: cannot bind "
+                           f"{ETCD_NODES} at port {ETCD_PORT}: {e}") from e
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.suites.etcdemo",
+             *argv], cwd=d, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        code, out, err = _finish(proc, timeout=300)
+        return code, out, err, time.perf_counter() - t0
+    finally:
+        stop_gateways(servers)
+
+
+def _etcd_keys(label, d, code, wall):
+    """The stored run of an etcd child in ``d``: (results, per-key
+    results, engine counts, keys on B1-T), with its line printed."""
+    from jepsen_tpu_torch import store
+
+    run = store.latest(os.path.join(d, "store"))
+    check(run is not None and "results" in run,
+          f"{label}: exit {code}, no stored results")
+    res = run["results"]
+    keys = res["workload"]["results"]
+    engines = collections.Counter(r["linear"]["engine"]
+                                  for r in keys.values())
+    on_card = {k for k, r in keys.items()
+               if r["linear"]["engine"].startswith("device-bfs(cuda")}
+    invalid = sorted(int(k) for k, r in keys.items()
+                     if r["linear"]["valid"] is False)
+    emit(f"{label}: exit {code}, child wall_s={wall:.3f}, {len(keys)} "
+         f"keys, valid={res['valid']}, invalid keys {invalid}; engines "
+         f"{dict(engines)}; {len(on_card)} keys on B1-T in the child")
+    return run, keys, on_card, invalid
+
+
 @_timed_phase("suites")
 def phase_suites(store_base):
     """The suites' command line and the results web server on the card.
@@ -5035,7 +5220,17 @@ def phase_suites(store_base):
     invalid, as the host says.  ``suites[hazelcast]``: the lock fixture
     (BASELINE config 4), sound and broken, on the card the same way:
     valid and invalid, each the host's verdict.  Every run stores under
-    one store.  ``suites[web]``: the results server on it answers ``/``
+    one store.  ``suites[etcdemo-cli]``: ``python -m
+    jepsen_tpu_torch.suites.etcdemo test`` (:data:`ETCD_CMD`) in a child
+    against three gateway stand-ins sharing one store: exit 0, valid,
+    most keys on B1-T (``device-bfs(cuda...)``).  ``suites[etcdemo-stale]``:
+    the same with the third gateway answering reads from a lagging copy:
+    exit 1, every key's verdict the host's on the stored history, one
+    invalid key at least decided on B1-T.  ``lint``: ``python -m
+    jepsen_tpu_torch.analyze.lint_suites --json`` over the tree under
+    test exits 0 with no error.  The etcd runs store apart from the
+    others (their test's name has spaces, which the web check's URLs
+    would have to quote).  ``suites[web]``: the results server on it answers ``/``
     (every run listed), each run's page (its search telemetry shown
     wherever one of the page's result panels carries it, on one page at
     least), ``/api/live/...`` for the streamed run, ``/api/stats``
@@ -5200,6 +5395,53 @@ def phase_suites(store_base):
                  f"launches single={single} grid={grid}")
             check(lin["valid"] is (not broken),
                   f"{label}: valid={lin['valid']}")
+
+        # -- suites[etcdemo-cli]: BASELINE config 1 as a user types it -------
+        from jepsen_tpu_torch.models import cas_register
+
+        label = "suites[etcdemo-cli]"
+        d = os.path.join(base, "etcd")
+        code, out, err, wall = _etcd_child(d, stale=False)
+        run, keys, on_card, invalid = _etcd_keys(label, d, code, wall)
+        check(code == 0 and run["results"]["valid"] is True,
+              f"{label}: exit {code}, valid={run['results']['valid']}; "
+              f"errors {_error_paths(run['results'])[:5]}; {err[-1500:]}")
+        check(2 * len(on_card) > len(keys) or SUITE_DEVICE != "cuda",
+              f"{label}: B1-T searched {len(on_card)} of {len(keys)} keys "
+              f"in the child, not most")
+
+        # -- suites[etcdemo-stale]: one gateway serves stale reads -----------
+        label = "suites[etcdemo-stale]"
+        d = os.path.join(base, "etcd-stale")
+        code, out, err, wall = _etcd_child(d, stale=True)
+        run, keys, on_card, invalid = _etcd_keys(label, d, code, wall)
+        check(code == 1 and run["results"]["valid"] is False and invalid,
+              f"{label}: exit {code}, valid={run['results']['valid']}, "
+              f"invalid keys {invalid}; {err[-1500:]}")
+        _host_keys(label, run["history"], {
+            int(k): r["linear"]["valid"] for k, r in keys.items()}, hostb,
+            model=cas_register())
+        decided = sorted(k for k in invalid if str(k) in on_card)
+        emit(f"{label}: every key the host's; invalid keys decided on B1-T "
+             f"{decided}")
+        check(decided or SUITE_DEVICE != "cuda",
+              f"{label}: no invalid key was decided on B1-T")
+
+        # -- the lint as a user runs it --------------------------------------
+        label = "lint"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.analyze.lint_suites",
+             "--json"], cwd=str(REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        code, out, err = _finish(proc, timeout=300)
+        wall = time.perf_counter() - t0
+        payload = json_mod.loads(out) if code in (0, 1) else {}
+        emit(f"{label}: python -m jepsen_tpu_torch.analyze.lint_suites "
+             f"--json exit {code}, wall_s={wall:.3f}, errors "
+             f"{payload.get('errors')}, warnings {payload.get('warnings')}")
+        check(code == 0 and payload.get("errors") == 0,
+              f"{label}: exit {code}; {out[-1500:]} {err[-1500:]}")
     finally:
         logger.removeHandler(quiet)
 

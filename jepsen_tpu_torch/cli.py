@@ -27,6 +27,7 @@ quietly.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import re
 import sys
@@ -88,6 +89,14 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
                    help="Test duration excluding setup/teardown, seconds")
     p.add_argument("--dummy", action="store_true", default=False,
                    help="Use the dummy remote (no SSH; harness testing)")
+    p.add_argument("--dummy-responses", metavar="FILE", default=None,
+                   help="With --dummy: a JSON object mapping a command "
+                        "substring to the dummy remote's answer, [exit, "
+                        "out, err] or out; the first match wins, and any "
+                        "other command exits 0 with no output.  A DB "
+                        "whose setup installs an archive needs one (the "
+                        "default answers every stat, so no fresh "
+                        "temporary directory is ever found).")
     p.add_argument("--lin-decompose", action="store_true", default=False,
                    help="Run linearizability checks through the "
                         "decomposition layer (jepsen_tpu_torch/decompose/):"
@@ -212,6 +221,11 @@ def test_opt_fn(parsed: argparse.Namespace) -> dict:
         _trace.enable(True)
     if opts.get("lin_algorithm") is None:
         opts.pop("lin_algorithm", None)
+    if opts.get("dummy_responses") is None:
+        opts.pop("dummy_responses", None)
+    else:
+        opts["dummy_responses"] = load_dummy_responses(
+            opts["dummy_responses"])
     try:
         _resolve_device(opts["device"])
     except RuntimeError as e:
@@ -224,6 +238,31 @@ def test_opt_fn(parsed: argparse.Namespace) -> dict:
     return opts
 
 
+def load_dummy_responses(path: str) -> dict:
+    """``--dummy-responses``: the JSON file as ``DummyRemote``'s
+    responses, each ``[exit, out, err]`` a tuple.  Raises ValueError on
+    a file that is not such an object."""
+    try:
+        with open(path) as f:
+            raw = json.load(f)
+    except (OSError, ValueError) as e:
+        raise ValueError(f"--dummy-responses {path}: {e}") from None
+    if not isinstance(raw, dict):
+        raise ValueError(f"--dummy-responses {path}: not a JSON object")
+    out = {}
+    for k, v in raw.items():
+        if isinstance(v, list) and len(v) == 3 \
+                and isinstance(v[0], int) \
+                and all(isinstance(x, str) for x in v[1:]):
+            out[k] = tuple(v)
+        elif isinstance(v, str):
+            out[k] = v
+        else:
+            raise ValueError(f"--dummy-responses {path}: {k!r} maps to "
+                             f"{v!r}, not [exit, out, err] or out")
+    return out
+
+
 def run_test_cmd(test_fn: Callable[[dict], dict], opts: dict) -> int:
     """Run test-count tests; exit 1 on the first invalid result
     (cli.clj:325-331)."""
@@ -234,7 +273,8 @@ def run_test_cmd(test_fn: Callable[[dict], dict], opts: dict) -> int:
         if opts.get("dummy"):
             from .control import DummyRemote
 
-            test.setdefault("remote", DummyRemote())
+            test.setdefault("remote", DummyRemote(
+                opts.get("dummy_responses")))
         test = core.run(test)
         valid = test.get("results", {}).get("valid")
         if valid is not True:

@@ -535,7 +535,7 @@ class StreamChecker:
             self._fold_inner(cell, retained)
         _M_FOLD_S.observe(time.perf_counter() - t0)
 
-    # single owner: folds run only on the dedicated
+    # threadlint: ok — single-owner: folds run only on the dedicated
     # "stream-fold" worker (or synchronously on the ingest thread when
     # async folds are off), so _stats/_cstats/cell fold-state have
     # exactly one writer until _drain_folds() joins the worker; all
@@ -770,7 +770,7 @@ class StreamChecker:
         # equally true first cause, and a lost overwrite is harmless —
         # the slot only ever goes None -> some-reason, never back
         if self._drops[kind] is None:
-            self._drops[kind] = reason
+            self._drops[kind] = reason  # threadlint: ok — idempotent
 
     # ------------------------------------------------------------------
     # the live provisional verdict
@@ -865,7 +865,7 @@ class StreamChecker:
         return _rows_opseq(self._cells[key].rows, self._enc,
                            value_lane=self._multi)
 
-    # callers (finalize, close) serialize on
+    # threadlint: ok — callers (finalize, close) serialize on
     # self._lock / the single finalize path; after the join the fold
     # worker is gone, so nulling _q/_worker has one writer
     def _drain_folds(self) -> None:
@@ -944,7 +944,7 @@ class StreamChecker:
             # under that shape would poison real single-object lookups
             wkey = canonical_key(self._seq, self.model)
 
-        # the finalize path: runs strictly after
+        # threadlint: ok — finalize path: runs strictly after
         # _drain_folds() joined the fold worker, so the process is
         # single-threaded over this state from here on
         def done(valid, extra: dict | None = None) -> dict:
@@ -1079,7 +1079,7 @@ class StreamChecker:
             extra["final_ops"] = sorted(invalid_frontier)
         return done(verdict, extra=extra or None)
 
-    # the finalize path (post-_drain_folds join):
+    # threadlint: ok — finalize path (post-_drain_folds join):
     # single-threaded over _stats/_cstats/_drops by construction
     def _check_final(self, c: _Cell, sub_check, canonical_payload,
                      _skey):
@@ -1143,7 +1143,7 @@ class StreamChecker:
                        "no frontier")
         return v, lin, (frontier if v is False else None)
 
-    # the finalize path (post-_drain_folds join):
+    # threadlint: ok — finalize path (post-_drain_folds join):
     # single-threaded over _stats/_methods by construction
     def _cell_direct(self, c: _Cell):
         """Per-cell direct fallback (independent mode): one ordinary
@@ -1162,7 +1162,7 @@ class StreamChecker:
         return v, r.get("linearization"), \
             (r.get("final_ops") if v is False else None)
 
-    # the finalize path (post-_drain_folds join):
+    # threadlint: ok — finalize path (post-_drain_folds join):
     # single-threaded over _stats/_cstats by construction
     def _finish_fallback(self, wkey):
         """One direct check of the whole recorded history — the

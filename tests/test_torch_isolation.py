@@ -65,7 +65,10 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "nemesis", "nemesis_time", "faketime", "faultfs", "fixtures", "core",
     "report", "repl", "cli", "web", "suites", "suites.atomdemo",
     "suites.registry", "suites.localnode_server", "suites.localnode",
-    "suites.hazelcast")}
+    "suites.hazelcast", "analyze.suites", "analyze.lint_suites",
+    "suites.etcdemo", "suites.etcd", "suites.zookeeper", "suites.consul",
+    "suites.logcabin", "suites.disque", "suites.raftis", "suites.rethinkdb",
+    "suites.tidb", "suites.aerospike")}
 
 
 def _sources():
