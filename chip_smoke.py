@@ -94,8 +94,11 @@ staged double grant caught on the card; hazelcast's lock fixture
 (BASELINE config 4) sound and broken; each verdict held to the host's
 check of the stored history; the etcd tutorial (BASELINE config 1,
 ``python -m jepsen_tpu_torch.suites.etcdemo test``) against three etcd
-gateway stand-ins, sound and with one gateway serving stale reads; the
-suite and service lint (``python -m
+gateway stand-ins, sound and with one gateway serving stale reads;
+cockroach's SQL register (``python -m jepsen_tpu_torch.suites.cockroach
+test --workload register``) against three pgwire stand-ins, sound from
+its command line and in process with one stand-in serving stale reads;
+the suite and service lint (``python -m
 jepsen_tpu_torch.analyze.lint_suites``) over the tree under test; and
 the results web server on the phase's store.  Every phase
 prints one line per case, timed
@@ -4976,6 +4979,32 @@ ETCD_DUMMY_RESPONSES = {
 #: longer decides every key before the search
 ETCD_LATENCY_S = 0.01
 
+#: cockroach's SQL port, which ``SQLClient.open`` reads from the test map
+#: (``sql_port``; no flag sets it): a pgwire stand-in listens on it at
+#: each of :data:`ETCD_NODES`
+PG_PORT = 26257
+#: ``python -m jepsen_tpu_torch.suites.cockroach`` as a user types it:
+#: the register workload at its own width (four threads a key, 100 ops a
+#: key; ``--concurrency 4``, one key at a time, where the default of one
+#: thread a node would give three), no nemesis, the device route on
+#: every key.  The primary's setup keeps its 5 s wait
+COCKROACH_CMD = ("test", "--dummy", "-n", ETCD_NODES[0], "-n",
+                 ETCD_NODES[1], "-n", ETCD_NODES[2], "--workload",
+                 "register", "--nemesis", "none", "--time-limit", "10",
+                 "--concurrency", "4", "--lin-algorithm", "device")
+#: the stale run, in process: the same at 5 s
+COCKROACH_STALE_S = 5
+#: the dummy remote's answers that let cockroach's archive install
+#: finish (see :data:`ETCD_DUMMY_RESPONSES`)
+COCKROACH_DUMMY_RESPONSES = {
+    "stat /tmp/jepsen/": [1, "", "stat: No such file or directory"],
+    "ls -A": [0, "cockroach-v2.0.0.linux-amd64\n", ""]}
+#: each pgwire stand-in delays a reply by a uniform draw up to this many
+#: seconds once the statement has applied and its connection holds no
+#: transaction (after COMMIT or ROLLBACK), so replies leave the order
+#: the transactions committed in while transactions still serialize
+PG_LATENCY_S = 0.01
+
 
 class EtcdGateway(http.server.BaseHTTPRequestHandler):
     """A stand-in for etcd's v3 JSON gateway (``/kv/put``, ``/kv/range``,
@@ -5074,6 +5103,84 @@ def stop_gateways(servers) -> None:
         srv.server_close()
 
 
+def pg_standins(addrs, *, stale_last=False, latency=PG_LATENCY_S):
+    """One pgwire ``MiniPGServer`` per ``(host, port)`` of ``addrs``, each
+    serving on a daemon thread, all sharing one ``RegisterEngine``: the
+    stand-ins of a cockroach cluster for ``suites/cockroach.py``'s SQL
+    clients.  The engine delays each reply by up to ``latency`` seconds
+    once the statement has applied and the connection holds no
+    transaction: never while the transaction lock is held, so
+    transactions serialize and their replies still reorder.  It also
+    keeps each register's value before its latest committed write; with
+    ``stale_last`` the last server answers a register's ``SELECT`` from
+    that copy, one committed write behind.  Raises OSError (the servers
+    started so far shut down) when an address is taken."""
+    import re
+
+    from jepsen_tpu_torch.suites import pgwire
+
+    class Engine(pgwire.RegisterEngine):
+        def __init__(self):
+            super().__init__()
+            self.prev = {}
+
+        def execute(self, sql):
+            me = threading.get_ident()
+            if (self._txn_owner == me
+                    and re.fullmatch(r"COMMIT", sql.strip().rstrip(";"),
+                                     re.I)):
+                seen = set()
+                for table, k, old in self._undo:  # oldest first
+                    if table == "registers" and k not in seen:
+                        seen.add(k)
+                        if old is None:
+                            self.prev.pop(k, None)
+                        else:
+                            self.prev[k] = old
+            out = super().execute(sql)
+            if self._txn_owner != me:
+                time.sleep(random.uniform(0, latency))
+            return out
+
+    class StaleView:
+        """The shared engine, whose register reads answer from the copy
+        one committed write behind."""
+
+        def __init__(self, engine):
+            self.engine = engine
+
+        def execute(self, sql):
+            m = re.fullmatch(r"SELECT value FROM registers WHERE id=(-?\d+)",
+                             sql.strip().rstrip(";"), re.I)
+            if m is None:
+                return self.engine.execute(sql)
+            with self.engine.lock:
+                v = self.engine.prev.get(int(m.group(1)))
+            rows = [] if v is None else [(v,)]
+            return rows, ["value"], f"SELECT {len(rows)}"
+
+        def abort_connection(self):
+            self.engine.abort_connection()
+
+    class Server(pgwire.MiniPGServer):
+        # every client connects at once when the run starts
+        request_queue_size = 128
+
+    engine = Engine()
+    servers = []
+    try:
+        for i, addr in enumerate(addrs):
+            srv = Server(addr, pgwire._Handler)
+            srv.engine = (StaleView(engine)
+                          if stale_last and i == len(addrs) - 1 else engine)
+            servers.append(srv)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+    except OSError:
+        stop_gateways(servers)
+        raise
+    return servers
+
+
 def _run_ports(n: int) -> int:
     """The first of ``n`` consecutive ports below the kernel's ephemeral
     range, all free now (the localnode servers bind them)."""
@@ -5095,17 +5202,21 @@ def _run_ports(n: int) -> int:
         return base
 
 
-def _host_keys(label, stored, card, store_base, model=None):
-    """Each key of a stored keyed history checked again on the host,
-    held to the card's per-key verdicts (``card``: key -> valid), under
-    ``model`` (default a cas-register from 0)."""
+def _host_keys(label, stored, card, store_base, model=None,
+               algorithm="auto"):
+    """Each key of a stored keyed history checked again on the host
+    (``algorithm``: the default route's race of the host engines and the
+    CPU's torch step, or ``"host"``, the WGL search alone), held to the
+    card's per-key verdicts (``card``: key -> valid), under ``model``
+    (default a cas-register from 0)."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.independent import subhistory
     from jepsen_tpu_torch.models import cas_register
 
     hist = [replace(op, value=stored_kv(op.value))
             if isinstance(op.process, int) else op for op in stored]
-    host = linearizable(model or cas_register(0), device="cpu")
+    host = linearizable(model or cas_register(0), device="cpu",
+                        algorithm=algorithm)
     for k, valid in sorted(card.items()):
         want = host.check({"store_base": store_base}, subhistory(k, hist))
         check(want["valid"] is valid, f"{label}: key {k} is {valid} on the "
@@ -5142,32 +5253,26 @@ def _suite_child(d):
     return code, out, err, time.perf_counter() - t0
 
 
-def _etcd_child(d, *, stale):
-    """``python -m jepsen_tpu_torch.suites.etcdemo`` (:data:`ETCD_CMD`)
-    as a user types it, in ``d`` (the package linked in), against
-    :func:`etcd_gateways` on :data:`ETCD_NODES`, the last one stale when
-    ``stale``: (exit code, stdout, stderr, wall seconds).  Raises
-    SmokeFailure when a gateway's address is taken."""
+def _suite_cli_child(d, module, argv, responses, start):
+    """``python -m jepsen_tpu_torch.suites.<module> *argv`` as a user types
+    it, in ``d`` (the package linked in), with ``responses`` as its
+    ``--dummy-responses`` file, while the stand-ins ``start()`` returns
+    serve: (exit code, stdout, stderr, wall seconds)."""
     os.makedirs(d, exist_ok=True)
     link = os.path.join(d, "jepsen_tpu_torch")
     if not os.path.exists(link):
         os.symlink(REPO / "jepsen_tpu_torch", link)
-    responses = os.path.join(d, "dummy-responses.json")
-    with open(responses, "w") as f:
-        json.dump(ETCD_DUMMY_RESPONSES, f)
-    argv = [*ETCD_CMD, "--dummy-responses", responses]
+    path = os.path.join(d, "dummy-responses.json")
+    with open(path, "w") as f:
+        json.dump(responses, f)
+    argv = [*argv, "--dummy-responses", path]
     if SUITE_DEVICE != "cuda":
         argv += ["--device", SUITE_DEVICE]
-    try:
-        servers = etcd_gateways([(h, ETCD_PORT) for h in ETCD_NODES],
-                                stale_last=stale)
-    except OSError as e:
-        raise SmokeFailure(f"etcd gateway stand-ins: cannot bind "
-                           f"{ETCD_NODES} at port {ETCD_PORT}: {e}") from e
+    servers = start()
     try:
         t0 = time.perf_counter()
         proc = subprocess.Popen(
-            [sys.executable, "-m", "jepsen_tpu_torch.suites.etcdemo",
+            [sys.executable, "-m", f"jepsen_tpu_torch.suites.{module}",
              *argv], cwd=d, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
         code, out, err = _finish(proc, timeout=300)
@@ -5176,26 +5281,142 @@ def _etcd_child(d, *, stale):
         stop_gateways(servers)
 
 
-def _etcd_keys(label, d, code, wall):
-    """The stored run of an etcd child in ``d``: (results, per-key
-    results, engine counts, keys on B1-T), with its line printed."""
+def _etcd_child(d, *, stale):
+    """``python -m jepsen_tpu_torch.suites.etcdemo`` (:data:`ETCD_CMD`)
+    against :func:`etcd_gateways` on :data:`ETCD_NODES`, the last one
+    stale when ``stale`` (:func:`_suite_cli_child`).  Raises
+    SmokeFailure when a gateway's address is taken."""
+    def start():
+        try:
+            return etcd_gateways([(h, ETCD_PORT) for h in ETCD_NODES],
+                                 stale_last=stale)
+        except OSError as e:
+            raise SmokeFailure(f"etcd gateway stand-ins: cannot bind "
+                               f"{ETCD_NODES} at port {ETCD_PORT}: "
+                               f"{e}") from e
+
+    return _suite_cli_child(d, "etcdemo", ETCD_CMD, ETCD_DUMMY_RESPONSES,
+                            start)
+
+
+def _pg_start(stale):
+    """:func:`pg_standins` on :data:`ETCD_NODES` at :data:`PG_PORT`, the
+    last one stale when ``stale``; SmokeFailure when a port is taken."""
+    try:
+        return pg_standins([(h, PG_PORT) for h in ETCD_NODES],
+                           stale_last=stale)
+    except OSError as e:
+        raise SmokeFailure(f"pgwire stand-ins: cannot bind {ETCD_NODES} "
+                           f"at port {PG_PORT}: {e}") from e
+
+
+def _cockroach_child(d):
+    """``python -m jepsen_tpu_torch.suites.cockroach``
+    (:data:`COCKROACH_CMD`) against three sound :func:`pg_standins`."""
+    return _suite_cli_child(d, "cockroach", COCKROACH_CMD,
+                            COCKROACH_DUMMY_RESPONSES,
+                            lambda: _pg_start(False))
+
+
+def _stored_keys(label, d, code, wall, where="in the child"):
+    """The stored keyed run under ``d/store`` (a child's or an in-process
+    run's): (the run, per-key results, keys on B1-T, invalid keys), with
+    its line printed."""
     from jepsen_tpu_torch import store
 
     run = store.latest(os.path.join(d, "store"))
     check(run is not None and "results" in run,
           f"{label}: exit {code}, no stored results")
     res = run["results"]
-    keys = res["workload"]["results"]
-    engines = collections.Counter(r["linear"]["engine"]
+    # etcdemo composes its lifted checker under "workload"; the
+    # registry's suites check with the lifted checker alone
+    keys = res["workload"]["results"] if "workload" in res \
+        else res["results"]
+    # a key whose check raised has no engine: check_safe leaves only
+    # its verdict ("unknown") and the traceback
+    raised = {k: r["linear"].get("error", "") for k, r in keys.items()
+              if "engine" not in r["linear"]}
+    engines = collections.Counter(r["linear"].get("engine", "raised")
                                   for r in keys.values())
-    on_card = {k for k, r in keys.items()
-               if r["linear"]["engine"].startswith("device-bfs(cuda")}
+    on_card = {k for k, r in keys.items() if r["linear"].get(
+        "engine", "").startswith("device-bfs(cuda")}
     invalid = sorted(int(k) for k, r in keys.items()
                      if r["linear"]["valid"] is False)
-    emit(f"{label}: exit {code}, child wall_s={wall:.3f}, {len(keys)} "
+    emit(f"{label}: exit {code}, {where} wall_s={wall:.3f}, {len(keys)} "
          f"keys, valid={res['valid']}, invalid keys {invalid}; engines "
-         f"{dict(engines)}; {len(on_card)} keys on B1-T in the child")
+         f"{dict(engines)}; {len(on_card)} keys on B1-T {where}")
+    for k, tb in sorted(raised.items(), key=lambda kv: int(kv[0])):
+        emit(f"{label}: key {k}'s check raised: {tb.strip()[-1500:]!r}")
+    if raised:
+        first = min(raised, key=int)
+        raise SmokeFailure(f"{label}: the checks of keys "
+                           f"{sorted(raised, key=int)} raised; key {first}'s:"
+                           f" {raised[first].strip()[-1500:]}")
+    check(all(e.startswith("device-bfs") or e in SUITE_PRESEARCH
+              for e in engines),
+          f"{label}: engines off the device route: {dict(engines)}")
     return run, keys, on_card, invalid
+
+
+def _cockroach_runs(base, hostb, counted):
+    """``suites[cockroach-cli]`` and ``suites[cockroach-stale]`` of
+    :func:`phase_suites` (``counted(label, fn)`` runs ``fn`` with its
+    launches counted: (its value, wall, single, grid)), each key held to
+    the host's WGL check of the stored history."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.suites import cockroach
+
+    # -- suites[cockroach-cli]: the SQL register as a user types it ----------
+    label = "suites[cockroach-cli]"
+    d = os.path.join(base, "cockroach")
+    code, out, err, wall = _cockroach_child(d)
+    run, keys, on_card, invalid = _stored_keys(label, d, code, wall)
+    check(code == 0 and run["results"]["valid"] is True,
+          f"{label}: exit {code}, valid={run['results']['valid']}; "
+          f"errors {_error_paths(run['results'])[:5]}; {err[-1500:]}")
+    check(2 * len(on_card) > len(keys) or SUITE_DEVICE != "cuda",
+          f"{label}: B1-T searched {len(on_card)} of {len(keys)} keys "
+          f"in the child, not most")
+    _host_keys(label, run["history"], {
+        int(k): r["linear"]["valid"] for k, r in keys.items()}, hostb,
+        model=cas_register(), algorithm="host")
+    emit(f"{label}: every key the host's")
+
+    # -- suites[cockroach-stale]: in process, one stand-in a write behind --
+    label = "suites[cockroach-stale]"
+    d = os.path.join(base, "cockroach-stale")
+    os.makedirs(d, exist_ok=True)
+    responses = os.path.join(d, "dummy-responses.json")
+    with open(responses, "w") as f:
+        json.dump(COCKROACH_DUMMY_RESPONSES, f)
+    argv = list(COCKROACH_CMD)
+    argv[argv.index("--time-limit") + 1] = str(COCKROACH_STALE_S)
+    argv += ["--dummy-responses", responses, "--device", SUITE_DEVICE]
+    dstore = os.path.join(d, "store")
+    random.seed(label)
+    servers = _pg_start(True)
+    try:
+        code, wall, single, grid = counted(label, lambda: cli.run(
+            cli.single_test_cmd(
+                lambda opts: cockroach.REGISTRY.build_test(opts)
+                | {"store_base": dstore},
+                add_opts=cockroach.REGISTRY.add_opts), argv))
+    finally:
+        stop_gateways(servers)
+    run, keys, on_card, invalid = _stored_keys(label, d, code, wall,
+                                               where="in process")
+    check(code == 1 and run["results"]["valid"] is False and invalid,
+          f"{label}: exit {code}, valid={run['results']['valid']}, "
+          f"invalid keys {invalid}")
+    _host_keys(label, run["history"], {
+        int(k): r["linear"]["valid"] for k, r in keys.items()}, hostb,
+        model=cas_register(), algorithm="host")
+    decided = sorted(k for k in invalid if str(k) in on_card)
+    emit(f"{label}: every key the host's; invalid keys decided on B1-T "
+         f"{decided}; launches single={single} grid={grid}")
+    check(decided or SUITE_DEVICE != "cuda",
+          f"{label}: no invalid key was decided on B1-T")
 
 
 @_timed_phase("suites")
@@ -5226,7 +5447,16 @@ def phase_suites(store_base):
     most keys on B1-T (``device-bfs(cuda...)``).  ``suites[etcdemo-stale]``:
     the same with the third gateway answering reads from a lagging copy:
     exit 1, every key's verdict the host's on the stored history, one
-    invalid key at least decided on B1-T.  ``lint``: ``python -m
+    invalid key at least decided on B1-T.  ``suites[cockroach-cli]``:
+    ``python -m jepsen_tpu_torch.suites.cockroach test --workload
+    register`` (:data:`COCKROACH_CMD`) in a child against three pgwire
+    stand-ins on :data:`ETCD_NODES` at :data:`PG_PORT` sharing one engine
+    (:func:`pg_standins`): exit 0, valid, most keys on B1-T, every key
+    the host's.  ``suites[cockroach-stale]``: the same in process for
+    :data:`COCKROACH_STALE_S` seconds with the third stand-in answering
+    reads one committed write behind: exit 1, every key the host's, one
+    invalid key at least decided on B1-T (:func:`_cockroach_runs`).
+    ``lint``: ``python -m
     jepsen_tpu_torch.analyze.lint_suites --json`` over the tree under
     test exits 0 with no error.  The etcd runs store apart from the
     others (their test's name has spaces, which the web check's URLs
@@ -5402,7 +5632,7 @@ def phase_suites(store_base):
         label = "suites[etcdemo-cli]"
         d = os.path.join(base, "etcd")
         code, out, err, wall = _etcd_child(d, stale=False)
-        run, keys, on_card, invalid = _etcd_keys(label, d, code, wall)
+        run, keys, on_card, invalid = _stored_keys(label, d, code, wall)
         check(code == 0 and run["results"]["valid"] is True,
               f"{label}: exit {code}, valid={run['results']['valid']}; "
               f"errors {_error_paths(run['results'])[:5]}; {err[-1500:]}")
@@ -5414,7 +5644,7 @@ def phase_suites(store_base):
         label = "suites[etcdemo-stale]"
         d = os.path.join(base, "etcd-stale")
         code, out, err, wall = _etcd_child(d, stale=True)
-        run, keys, on_card, invalid = _etcd_keys(label, d, code, wall)
+        run, keys, on_card, invalid = _stored_keys(label, d, code, wall)
         check(code == 1 and run["results"]["valid"] is False and invalid,
               f"{label}: exit {code}, valid={run['results']['valid']}, "
               f"invalid keys {invalid}; {err[-1500:]}")
@@ -5426,6 +5656,8 @@ def phase_suites(store_base):
              f"{decided}")
         check(decided or SUITE_DEVICE != "cuda",
               f"{label}: no invalid key was decided on B1-T")
+
+        _cockroach_runs(base, hostb, counted)
 
         # -- the lint as a user runs it --------------------------------------
         label = "lint"

@@ -101,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define MAXF 2048                // widest frontier the kernel takes
 #define TELE_ROWS 128            // telemetry block: rows (levels)
 #define TELE_COLS 8              //   and columns, as obs/telemetry.py
@@ -813,6 +815,14 @@ level_loop_kernel(Tables tg, Dims d, Plan pl, Keys ks,
 // host side
 // ---------------------------------------------------------------------------
 
+// cudaFuncSetAttribute sets a limit of the function itself, which each
+// later launch or occupancy query of it is checked against.  Keys checked
+// in parallel threads launch one instantiation at plans of different
+// shared memory, so each set-then-use pair holds this lock: otherwise a
+// launch may meet the smaller limit another thread set in between, and
+// fail.  A launch only enqueues, so the lock is held briefly.
+static std::mutex attr_lock;
+
 static long long round16(long long x) { return (x + 15) & ~15ll; }
 
 static int next_pow2(int x) {
@@ -870,6 +880,7 @@ static int plan_sw(int F, int NC, int n_det_pad, Plan* pl) {
 // for the keyed form: the grid's blocks)
 template <int SW, bool TELE>
 static int occupancy_sw(const Plan& pl, int* blocks) {
+  std::lock_guard<std::mutex> hold(attr_lock);
   cudaError_t err = cudaFuncSetAttribute(
       level_loop_kernel<SW, true, TELE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
@@ -917,6 +928,7 @@ static int launch_sw(int B, const Tables& t, const Dims& d, const Plan& pl,
                               : level_loop_kernel<SW, false, true>)
                      : (B > 1 ? level_loop_kernel<SW, true, false>
                               : level_loop_kernel<SW, false, false>);
+  std::lock_guard<std::mutex> hold(attr_lock);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;

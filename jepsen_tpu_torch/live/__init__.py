@@ -8,6 +8,8 @@ daemons and its corpus:
   queue_server.py      a disque-shaped RESP job queue node.
   replicated_server.py one replica of a 3-node leader-lease KV group.
   replicated_queue.py  one replica of the replicated RESP queue.
+  pgwire_server.py     the pgwire shim's server as a process, its
+                       committed register writes journalled.
   corpus.py            the corpus of banked histories and its replay
                        through every engine route.
 

@@ -18,6 +18,17 @@ order:
   raftis    — the databases' suites; a DB's commands are strings sent
               to the remote, and each register workload is checked
               through ``Linearizable``
+  cockroach — the registry runner's SQL suite: bank, register
+              (independent CAS), monotonic, sets, sequential, g2, with
+              clock-skew and split nemeses; its driver falls back to
+              the stdlib pgwire shim (``pgwire.py``: client, engine and
+              ``MiniPGServer``) when psycopg2 does not import
+  mongodb   — document CAS register and bank over pymongo
+  chronos, rabbitmq, robustirc, galera, percona, postgres_rds, crate,
+  elasticsearch, dgraph, mysql_cluster
+            — suites checked on the host (schedules, queues, sets,
+              dirty reads, banks); crate's and dgraph's register
+              workloads lift ``Linearizable``
   localnode — every logical node a real server process
               (localnode_server.py), killed with kill -9
 
@@ -30,8 +41,11 @@ Each runs from the command line:
 from importlib import import_module
 
 SUITES = ["atomdemo", "etcdemo", "zookeeper", "hazelcast", "registry",
-          "consul", "disque", "aerospike", "rethinkdb", "tidb", "etcd",
-          "logcabin", "raftis", "localnode"]
+          "consul", "rabbitmq", "cockroach", "galera", "elasticsearch",
+          "mongodb", "disque", "chronos", "aerospike", "crate",
+          "rethinkdb", "tidb", "etcd", "logcabin", "raftis",
+          "robustirc", "percona", "mysql_cluster", "postgres_rds",
+          "dgraph", "localnode"]
 
 
 def suite(name: str):

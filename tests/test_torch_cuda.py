@@ -890,3 +890,61 @@ def test_suite_lock_runs_on_the_card(cuda, tmp_path, volatile):
     if volatile:
         assert lin_res["engine"].startswith("device-bfs(cuda)")
         assert lk.LAUNCHES > before
+
+
+@pytest.mark.cuda
+def test_kernel_launches_from_threads_at_different_plans(cuda):
+    """Keys checked in parallel threads (the independent checker's
+    ``bounded_pmap``) launch one kernel instantiation at plans of
+    different shared memory at once: no launch fails, and each thread's
+    last slice equals the same slice launched alone.  Without the kernel's
+    lock around setting its shared-memory limit and launching, a launch
+    now and then failed with "invalid argument"."""
+    import threading
+
+    model = cas_register()
+    setups = []
+    for seed, frontier in enumerate([16, 128, 512, 2048]):
+        h = register_history(random.Random(seed), n_ops=200, n_procs=12,
+                             overlap=10, crash_p=0.06, max_crashes=6,
+                             n_values=3)
+        seq = encode_ops(h, model.f_codes)
+        es = enc.encode_search(seq)
+        dims = enc.choose_dims(es, model, device=cuda, frontier=frontier)
+        esp = enc.pad_search(es, dims.n_det_pad, dims.n_crash_pad)
+        args = enc.search_args(esp, es, device=cuda)
+        carry = enc.carry_to_device(enc._init_carry(dims, model), cuda)
+        setups.append((dims, args, carry))
+    assert len({lk.launch_plan(d, cuda, telemetry=True)["smem_bytes"]
+                for d, _, _ in setups}) > 1
+
+    def launch(dims, args, carry):
+        return lk.level_loop(model, dims, *args, 10**8, 8, False, *carry,
+                             telemetry=True)
+
+    def host(out):
+        return [int(v) for v in out[1:6]], out[0][:int(out[1])].cpu()
+
+    alone = [host(launch(*s)) for s in setups]
+    last = [None] * (2 * len(setups))
+    errors = []
+
+    def work(t):
+        # no host read between launches, as between a search's slices
+        for _ in range(300):
+            try:
+                last[t] = launch(*setups[t % len(setups)])
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(t,))
+               for t in range(len(last))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [], errors[:3]
+    for t, out in enumerate(last):
+        ids, rows = host(out)
+        want = alone[t % len(setups)]
+        assert ids == want[0] and torch.equal(rows, want[1]), t

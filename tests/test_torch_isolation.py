@@ -68,7 +68,12 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "suites.hazelcast", "analyze.suites", "analyze.lint_suites",
     "suites.etcdemo", "suites.etcd", "suites.zookeeper", "suites.consul",
     "suites.logcabin", "suites.disque", "suites.raftis", "suites.rethinkdb",
-    "suites.tidb", "suites.aerospike")}
+    "suites.tidb", "suites.aerospike", "suites.pgwire",
+    "live.pgwire_server", "suites.cockroach", "suites.mongodb",
+    "suites.chronos", "suites.rabbitmq", "suites.robustirc",
+    "suites.galera", "suites.percona", "suites.postgres_rds",
+    "suites.crate", "suites.elasticsearch", "suites.dgraph",
+    "suites.mysql_cluster")}
 
 
 def _sources():

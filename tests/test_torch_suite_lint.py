@@ -1,8 +1,7 @@
 """The port's suite and service lint (``jepsen_tpu_torch.analyze.suites``)
 against the JAX package's (``jepsen_tpu.analyze.suites``).
 
-Every case of ``tests/test_suite_lint.py`` (but the ``chronos`` and
-``robustirc`` suites', which the port does not hold yet) and the T-code
+Every case of ``tests/test_suite_lint.py`` and the T-code
 fixtures of ``tests/test_devlint.py`` run through both packages on the
 same fixture source or fixture package, and the two must agree on every
 finding: code, severity, message and ``index``.  The N-codes are
@@ -668,6 +667,143 @@ def test_the_repaired_sites_carry_the_reference_arguments():
         ref = (REPO / "jepsen_tpu" / rel).read_text().count(
             "threadlint: ok")
         assert port == ref == n, rel
+
+
+# ---------------------------------------------------------------------------
+# the defects the lint found in chronos and robustirc stay repaired, in
+# the port's copies (tests/test_suite_lint.py :343-449)
+# ---------------------------------------------------------------------------
+
+
+def test_chronos_crashed_addjob_is_indeterminate(monkeypatch):
+    """A crashed add-job POST may have been applied: it completes
+    ``info``; a crashed read (effect-free) stays ``fail``."""
+    import urllib.error
+
+    from jepsen_tpu_torch.history import Op
+    from jepsen_tpu_torch.suites import chronos
+
+    def boom(*a, **kw):
+        raise urllib.error.URLError("connection refused")
+
+    monkeypatch.setattr(chronos.urllib.request, "urlopen", boom)
+    client = chronos.ChronosClient(node="n1")
+    job = {"name": "j1", "start": 10.0, "count": 5, "interval": 60,
+           "epsilon": 15, "duration": 5}
+    out = client.invoke({}, Op(process=0, type="invoke", f="add-job",
+                               value=job))
+    assert out.type == "info"
+
+    def read_boom(_test):
+        raise OSError("ssh down")
+
+    monkeypatch.setattr(chronos, "read_runs", read_boom)
+    out = client.invoke({}, Op(process=0, type="invoke", f="read",
+                               value=None))
+    assert out.type == "fail"
+
+
+def test_robustirc_close_deletes_server_session():
+    """close() quits the client's server-side session (the worker reopens
+    clients after every crash) and survives a dead server."""
+    from jepsen_tpu_torch.suites import robustirc
+
+    calls = []
+
+    class FakeSession:
+        def quit(self, message="x"):
+            calls.append("quit")
+
+    c = robustirc.SetClient("n1")
+    c.session = FakeSession()
+    c.close({})
+    assert calls == ["quit"]
+    assert c.session is None
+
+    class DeadSession:
+        def quit(self, message="x"):
+            raise OSError("server gone")
+
+    c2 = robustirc.SetClient("n1")
+    c2.session = DeadSession()
+    c2.close({})  # must not raise
+    assert c2.session is None
+
+
+def test_robustirc_session_quit_issues_delete(monkeypatch):
+    from jepsen_tpu_torch.suites import robustirc
+
+    reqs = []
+
+    class R:
+        def __init__(self):
+            self.fp = None
+
+        def read(self):
+            return b"{}"
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def close(self):
+            pass
+
+    def fake_urlopen(req, timeout=None, context=None):
+        reqs.append((req.get_method(), req.full_url))
+        return R()
+
+    monkeypatch.setattr(robustirc.urllib.request, "urlopen",
+                        fake_urlopen)
+    monkeypatch.setattr(
+        robustirc.IRCSession, "__init__",
+        lambda self, node, timeout=10.0: (
+            setattr(self, "node", str(node)),
+            setattr(self, "timeout", timeout),
+            setattr(self, "ctx", None),
+            setattr(self, "session_id", "sess42"),
+            setattr(self, "session_auth", "auth"),
+        ) and None)
+    s = robustirc.IRCSession("n1")
+    s.quit()
+    assert reqs and reqs[-1][0] == "DELETE"
+    assert "/robustirc/v1/sess42" in reqs[-1][1]
+
+
+@pytest.mark.parametrize("fname", ["chronos.py", "robustirc.py"])
+def test_fixed_suites_stay_clean(fname):
+    """The port's copy lints with no error, and every finding is the one
+    the JAX package's lint gives on its own file."""
+    port = tlint.lint_paths([PKG / "suites" / fname])
+    ref = jlint.lint_paths([REPO / "jepsen_tpu" / "suites" / fname])
+    assert _errors(port) == []
+    assert [d.to_dict() for ds in port.values() for d in ds] == \
+        [d.to_dict() for ds in ref.values() for d in ds]
+
+
+def test_new_suites_warnings_are_the_references():
+    """Over the suites this slice added, each warning of the port's
+    sweep is the counterpart of one the JAX package's sweep gives on its
+    own file (same code, line and message but the path)."""
+    names = ("pgwire", "cockroach", "mongodb", "chronos", "rabbitmq",
+             "robustirc", "galera", "percona", "postgres_rds", "crate",
+             "elasticsearch", "dgraph", "mysql_cluster")
+
+    def found(lint, root):
+        out = []
+        for name in names:
+            for path, ds in lint.lint_paths(
+                    [root / "suites" / f"{name}.py"]).items():
+                out += [(name, d.code, d.severity, d.index,
+                         d.message.replace(str(root), "<pkg>"))
+                        for d in ds]
+        return out
+
+    port = found(tlint, PKG)
+    assert port == found(jlint, REPO / "jepsen_tpu")
+    assert {c for _n, c, sev, *_ in port if sev == "error"} == set()
 
 
 # ---------------------------------------------------------------------------

@@ -101,13 +101,14 @@ def _stored(base, name):
 def test_suites_list_the_ported_suites_and_import_them():
     from jepsen_tpu import suites as jsuites
 
-    assert suites.SUITES == ["atomdemo", "etcdemo", "zookeeper",
-                             "hazelcast", "registry", "consul", "disque",
-                             "aerospike", "rethinkdb", "tidb", "etcd",
-                             "logcabin", "raftis", "localnode"]
-    # the JAX package's order: SUITES is a subsequence of its list
-    rest = iter(jsuites.SUITES)
-    assert all(name in rest for name in suites.SUITES)
+    # all 26 of the JAX package's suites, in its order
+    assert suites.SUITES == [
+        "atomdemo", "etcdemo", "zookeeper", "hazelcast", "registry",
+        "consul", "rabbitmq", "cockroach", "galera", "elasticsearch",
+        "mongodb", "disque", "chronos", "aerospike", "crate", "rethinkdb",
+        "tidb", "etcd", "logcabin", "raftis", "robustirc", "percona",
+        "mysql_cluster", "postgres_rds", "dgraph", "localnode"]
+    assert suites.SUITES == jsuites.SUITES
     for name in suites.SUITES:
         mod = suites.suite(name)
         assert mod.__name__ == f"jepsen_tpu_torch.suites.{name}"
