@@ -2292,11 +2292,14 @@ def phase_stream(store_base):
     ``stream[corrupt]`` (invalid inside the
     violating segment, before the stream's end), ``stream[plain]`` (the
     first two device folds and the one that empties, again on the
-    card's torch step: the same state sets), ``stream[async]``,
+    card's torch step: the same state sets), ``stream[async]`` (async
+    folds of the stream's first third, :func:`stream_prefix`, against
+    inline folds of it: the same final result),
     ``stream[cache]`` (``stream[valid]`` again from a fresh cache on its
-    file: every segment a hit, no launch), ``stream[service]`` (four streams,
-    two pairs with the same content, through one service on one cache)
-    and the stream bench tier (host folds, ``parity``)."""
+    file: every segment a hit, no launch), ``stream[service]`` (two streams
+    with the same content, a stream's closed segments of its first third,
+    :func:`stream_prefix`, through one service on one cache) and the
+    stream bench tier (host folds, ``parity``)."""
     import torch
 
     from jepsen_tpu_torch.analyze.plan import segment_fold_route
@@ -2486,9 +2489,13 @@ def phase_stream(store_base):
     finally:
         lin._use_kernel = saved
 
-    # async folds: the same final result
+    # async folds: the same final result as inline folds, on the stream's
+    # first third (the comparison at a third of the folds)
+    resi, tli, grid_i, single_i, _f, _g = _stream_run(
+        "stream[async] inline", hd, model)
+    launches["stream[async] inline"] = {"grid": grid_i, "single": single_i}
     resa, tla, grid_a, single_a, _f, _g = _stream_run(
-        "stream[async]", h, model, async_folds=True)
+        "stream[async]", hd, model, async_folds=True)
     launches["stream[async]"] = {"grid": grid_a, "single": single_a}
 
     def final(r):
@@ -2499,11 +2506,12 @@ def phase_stream(store_base):
             s.pop(k, None)
         return {**r, "stream": s}
 
-    emit(f"stream[async]: valid={resa['valid']} ingest_s="
-         f"{tla['ingest_s']:.3f} finalize_s={tla['finalize_s']:.4f} "
-         f"routes={resa['stream']['routes']}; launches grid={grid_a} "
-         f"single={single_a}")
-    check(final(resa) == final(res), "stream[async]: the final result "
+    emit(f"stream[async]: events={len(hd)} of {len(h)} valid={resa['valid']}"
+         f" ingest_s={tla['ingest_s']:.3f} finalize_s="
+         f"{tla['finalize_s']:.4f} routes={resa['stream']['routes']}; "
+         f"launches grid={grid_a} single={single_a}; inline ingest_s="
+         f"{tli['ingest_s']:.3f} launches grid={grid_i} single={single_i}")
+    check(final(resa) == final(resi), "stream[async]: the final result "
           "differs from the inline one")
 
     # the verdict cache: stream[valid] was the cold run on this file; a
@@ -2523,9 +2531,10 @@ def phase_stream(store_base):
           f"launches")
 
     # the service: two streams with the same content, the second served
-    # from the cache the first fills
-    streams = {f"s{i}": stream_history(seed=f"{STREAM_SEED}-0")[0]
-               for i in range(2)}
+    # from the cache the first fills; a stream's first third, which keeps
+    # the service's routes and cache at a third of the folds
+    served = stream_prefix(stream_history(seed=f"{STREAM_SEED}-0")[0], model)
+    streams = {f"s{i}": served for i in range(2)}
     lines = [json.dumps({"run": r, "model": "cas-register"})
              for r in streams]
     for i in range(max(len(x) for x in streams.values())):
@@ -3618,7 +3627,7 @@ def phase_analyze_cli(base, checked):
     return {"analyze_cli": {"grid": grid, "single": single}}
 
 
-#: ``phase_live``: the kv daemon's run (16 clients, 2,000 read/write/cas
+#: ``phase_live``: the kv daemon's run (16 clients, 1,000 read/write/cas
 #: ops on one key at 200 ops/s in all, values 1 to 5, no fault during
 #: the traffic; the rate keeps the history's window, the ops invoked
 #: while one is open, inside B1's 64 lanes: at 1,429 ops/s a stall of a
@@ -3632,7 +3641,7 @@ def phase_analyze_cli(base, checked):
 #: shared oplog alone, down for ``down_s`` as in the JAX package's
 #: kill-restart cadence, ``jepsen_tpu/live/matrix.py:112-113``, then
 #: restarted)
-LIVE_KV = dict(clients=16, ops=2000, rate=200.0, values=(1, 2, 3, 4, 5))
+LIVE_KV = dict(clients=16, ops=1000, rate=200.0, values=(1, 2, 3, 4, 5))
 LIVE_REPLICATED = dict(nodes=3, lease_ms=400, clients=4, rate=20.0,
                        seconds=12.0, read_weight=4, kill_every=2.0,
                        down_s=0.7, values=(1, 2, 3, 4, 5))
@@ -4965,6 +4974,9 @@ ETCD_PORT = 2379
 ETCD_CMD = ("test", "--dummy", "-n", ETCD_NODES[0], "-n", ETCD_NODES[1],
             "-n", ETCD_NODES[2], "--time-limit", "10", "--concurrency",
             "10n", "--lin-algorithm", "device")
+#: the stale etcd child's seconds of workload (the sound child runs
+#: :data:`ETCD_CMD`'s 10): a stale read shows within seconds
+ETCD_STALE_S = 5
 #: the dummy remote's answers (``--dummy-responses``) that let the DB's
 #: archive install finish: a fresh temporary directory, and one root in
 #: the unpacked archive.  Without them the default dummy answers every
@@ -5295,7 +5307,10 @@ def _etcd_child(d, *, stale):
                                f"{ETCD_NODES} at port {ETCD_PORT}: "
                                f"{e}") from e
 
-    return _suite_cli_child(d, "etcdemo", ETCD_CMD, ETCD_DUMMY_RESPONSES,
+    argv = list(ETCD_CMD)
+    if stale:
+        argv[argv.index("--time-limit") + 1] = str(ETCD_STALE_S)
+    return _suite_cli_child(d, "etcdemo", argv, ETCD_DUMMY_RESPONSES,
                             start)
 
 
@@ -5445,7 +5460,8 @@ def phase_suites(store_base):
     jepsen_tpu_torch.suites.etcdemo test`` (:data:`ETCD_CMD`) in a child
     against three gateway stand-ins sharing one store: exit 0, valid,
     most keys on B1-T (``device-bfs(cuda...)``).  ``suites[etcdemo-stale]``:
-    the same with the third gateway answering reads from a lagging copy:
+    the same for :data:`ETCD_STALE_S` seconds of workload with the third
+    gateway answering reads from a lagging copy:
     exit 1, every key's verdict the host's on the stored history, one
     invalid key at least decided on B1-T.  ``suites[cockroach-cli]``:
     ``python -m jepsen_tpu_torch.suites.cockroach test --workload
@@ -5725,6 +5741,294 @@ def phase_suites(store_base):
     return launches
 
 
+#: the campaign phase (:func:`phase_campaign`): ``python -m
+#: jepsen_tpu_torch.live`` as a user types it, two families under kill -9
+#: and restart for 5 s of workload a cell, every cell checked on the card
+#: (``--lin-algorithm device``: the register family's keys of 30 ops sit
+#: under the default route's 48-op host threshold); ``--rate 100`` so
+#: that kills land on writes in flight and some keys defeat the greedy
+#: witness; ``--cell-retries 0`` so that a failed cell, a kernel's
+#: failure above all, is never hidden by a second attempt that passes.
+#: The seeded cell keeps the JAX package's ``SEEDED`` settings
+CAMPAIGN_CMD = ("--families", "register,replicated", "--nemeses",
+                "kill-restart", "--time-limit", "5", "--rate", "100",
+                "--lin-algorithm", "device", "--cell-retries", "0",
+                "--json")
+#: (family, nemesis, seeded) of that command's cells, in order;
+#: tests/test_torch_campaign.py holds it to the JAX package's ``plan()``
+CAMPAIGN_PLAN = (("register", "kill-restart", False),
+                 ("replicated", "kill-restart", False),
+                 ("replicated", "kill-restart", True))
+#: campaigns at most: when the seeded cell's stage did not land (a valid
+#: history: a kill-all whose amnesiac cluster first accepted a write),
+#: :data:`CAMPAIGN_CMD` runs once more with the replicated family alone;
+#: a second miss fails the phase
+CAMPAIGN_SEEDED_ATTEMPTS = 2
+#: the matrix rows that need nothing of the host; the phase prints the
+#: ``--dry-run`` skip reasons of the others (clock, port partitions, disk
+#: faults, links)
+CAMPAIGN_ANYWHERE = ("kill-restart", "pause")
+#: the cells' models: register's keys from the unset register, the
+#: replicated family's from the V2 client's MISSING
+CAMPAIGN_MODELS = {"register": None, "replicated": -1}
+
+
+def _campaign_results(results) -> list:
+    """Every checker result in a stored cell's results that names an
+    engine (the lifted keys' ``linear`` results, a history's ``linear``),
+    the stream's summaries left out."""
+    out = []
+    if isinstance(results, dict):
+        if "engine" in results and "valid" in results \
+                and not str(results["engine"]).startswith("stream"):
+            out.append(results)
+        for k, v in results.items():
+            if k != "stream":
+                out += _campaign_results(v)
+    return out
+
+
+def _dry_run_start(d) -> tuple:
+    """``python -m jepsen_tpu_torch.live --dry-run --json`` started in
+    ``d``: (the process, the rows not probed and why).  TcEngine's probe
+    adds and deletes a qdisc on ``lo`` where ``tc`` is on the PATH and the
+    caller is root; the script changes no setting of the host, so there
+    it leaves the link rows out."""
+    import shutil
+
+    from jepsen_tpu_torch.live.matrix import standard_matrix
+
+    rows = list(standard_matrix())
+    link_rows = [r for r in rows if r.startswith("link-")]
+    unprobed = None
+    if shutil.which("tc") is not None and os.geteuid() == 0:
+        unprobed = (f"{', '.join(link_rows)} not probed: `tc` is on the "
+                    f"PATH and the script runs as root, where the link "
+                    f"engines' probe adds and deletes a qdisc on lo")
+        rows = [r for r in rows if r not in link_rows]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.live", "--dry-run",
+         "--json", "--nemeses", ",".join(rows)], cwd=d,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, unprobed
+
+
+def _dry_run_rows(proc) -> tuple:
+    """The started dry run's (exit code, {row: skip reason or "run"})."""
+    code, out, err = _finish(proc, timeout=300)
+    check(code == 0, f"campaign[dry-run]: exit {code}; {err[-1500:]}")
+    cells = json.loads(out)
+    # the rows of a family that can run them all (the link rows skip for
+    # a family whose nodes exchange no packet)
+    reasons = {c["nemesis"]: c["skip"] or "run" for c in cells
+               if c["family"] == "replicated" and not c["seeded"]
+               and c["nemesis"] not in CAMPAIGN_ANYWHERE}
+    return code, reasons
+
+
+def _kill_pidfiles(root) -> list:
+    """SIGKILL every live pid a node's ``server.pid`` under ``root``
+    names: a child that timed out leaves its daemons behind."""
+    import glob
+    import signal
+
+    killed = []
+    for pf in glob.glob(os.path.join(root, "*", "server.pid")):
+        try:
+            with open(pf) as f:
+                pid = int(f.read().split()[0])
+            os.kill(pid, signal.SIGKILL)
+            killed.append(pid)
+        except (OSError, ValueError, IndexError):
+            pass
+    return killed
+
+
+def _campaign_child(base, sbase, argv) -> tuple:
+    """``python -m jepsen_tpu_torch.live *argv`` in ``base`` (the package
+    linked in); its daemons are killed if any outlive it: (exit code,
+    stderr, wall seconds, the record of the campaign it wrote)."""
+    data = argv[argv.index("--data-root") + 1]
+    runs = os.path.join(sbase, "campaigns")
+    before = set(os.listdir(runs)) if os.path.isdir(runs) else set()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.live", *argv], cwd=base,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        code, _out, err = _finish(proc, timeout=400)
+    finally:
+        left = _kill_pidfiles(data)
+    wall = time.perf_counter() - t0
+    check(code == 0 and not left, f"campaign: exit {code}, daemons left "
+          f"behind {left}; {err[-2000:]}")
+    [cid] = sorted(set(os.listdir(runs)) - before)
+    with open(os.path.join(runs, cid, "campaign.json")) as f:
+        return code, err, wall, json.load(f)
+
+
+def _campaign_cell(c, sbase, hostb) -> tuple:
+    """One cell of a campaign record, checked: ``ok``, no ``error`` in its
+    results, each key or history's verdict the host WGL search's on the
+    stored history, a plain cell valid with ``audit.ok`` and a fault at
+    least.  (keys or histories on B1-T, their launches in the child from
+    the stored ``search_telemetry`` slices)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import cas_register
+
+    tag = f"campaign[{c['family']}{'-seeded' if c['seeded'] else ''}]"
+    check(c["status"] == "ok" and c["attempts"] == 1,
+          f"{tag}: {c['status']} after {c['attempts']} attempt(s): "
+          f"{c.get('reason')}")
+    run = store.load(os.path.basename(os.path.dirname(c["store"])),
+                     os.path.basename(c["store"]), sbase)
+    res = run["results"]
+    results = _campaign_results(res)
+    engines = collections.Counter(r["engine"] for r in results)
+    card = [r for r in results if r["engine"].startswith("device-bfs(cuda")]
+    slices = sum((r.get("search_telemetry") or {}).get("slices", 0)
+                 for r in card)
+    det = c.get("detection") or {}
+    emit(f"{tag}: valid={c['valid']} stream_valid={c.get('stream_valid')} "
+         f"wall_s={c['wall_s']} ops={c['ops']} faults={c['faults']} "
+         f"audit={c.get('audit')} detection={det.get('at')}/"
+         f"{det.get('latency_s')}s recovery={c.get('recovery')} "
+         f"phases={c.get('phases')}; engines {dict(engines)}; {len(card)} on "
+         f"B1-T, {slices} B1-T launches in the child (search_telemetry "
+         f"slices)")
+    errors = _error_paths(res)
+    check(not errors, f"{tag}: errors in the results {errors[:5]}")
+    init = CAMPAIGN_MODELS[c["family"]]
+    model = cas_register() if init is None else cas_register(init)
+    if "workload" in res:
+        _host_keys(tag, run["history"], {
+            int(k): r["linear"]["valid"]
+            for k, r in res["workload"]["results"].items()}, hostb,
+            model=model, algorithm="host")
+    else:
+        want = linearizable(model, device="cpu", algorithm="host").check(
+            {"store_base": hostb}, run["history"])
+        check(want["valid"] is res["linear"]["valid"],
+              f"{tag}: {res['linear']['valid']} on the card, "
+              f"{want['valid']} on the host")
+    if not c["seeded"]:
+        check(c["valid"] is True and (c.get("audit") or {}).get("ok")
+              and c["faults"] >= 1, f"{tag}: valid={c['valid']} audit "
+              f"{c.get('audit')} faults {c['faults']}")
+    return len(card), slices
+
+
+@_timed_phase("campaign")
+def phase_campaign(store_base):
+    """The live fault-injection campaign on the card.
+
+    ``campaign``: ``python -m jepsen_tpu_torch.live`` (:data:`CAMPAIGN_CMD`)
+    in a child, with a store, a data root and a base port of the phase's
+    own: the register family (localnode's three server processes, a key
+    per node) and the replicated family (three replicas of a leader-lease
+    KV group) under kill -9 and restart, and the seeded cell (a volatile
+    replica under kill-all, the JAX package's ``SEEDED``).  Each cell is a
+    whole ``core.run`` with the streaming checker and the certificate
+    audit on.  The child exits 0, its cells are :data:`CAMPAIGN_PLAN`,
+    every cell ``ok`` (:func:`_campaign_cell`); both plain cells valid
+    with ``audit.ok`` and a fault at least; no result carries an
+    ``error``; every key or history's verdict is the host WGL search's on
+    the stored history; B1-T (``device-bfs(cuda...)``) decided a key or
+    history of each family.  The seeded cell must be invalid with a
+    detection.  Its stage is timing: a kill-all whose restarted, amnesiac
+    cluster first accepts a write leaves a valid history, which the host
+    confirms; then the replicated cells run again, once
+    (:data:`CAMPAIGN_SEEDED_ATTEMPTS`), each cell checked alike and
+    printed, and the misses are counted.  No cell is retried within a
+    campaign (``--cell-retries 0``): each ran once.  The child's
+    launches are not counted in process: the lines count them from the
+    stored results.  ``campaign[dry-run]``: the skip reasons
+    ``--dry-run`` gives on this host for the clock, partition, disk and
+    link rows; ``campaign[sweep]``: ``--sweep`` of the data root exits 0.
+    The two run beside the campaign child and the host's checks.
+    Returns no in-process launch."""
+    base = os.path.join(store_base, "campaign")
+    sbase = os.path.join(base, "store")
+    data = os.path.join(base, "nodes")
+    hostb = os.path.join(base, "host")
+    os.makedirs(base, exist_ok=True)
+    link = os.path.join(base, "jepsen_tpu_torch")
+    if not os.path.exists(link):
+        os.symlink(REPO / "jepsen_tpu_torch", link)
+    label = "campaign"
+    own = ["--store-base", sbase, "--data-root", data, "--device",
+           SUITE_DEVICE]
+    dry, unprobed = _dry_run_start(base)
+    children = [dry]
+    try:
+        argv = [*CAMPAIGN_CMD, *own, "--base-port", str(_run_ports(3))]
+        code, err, wall, record = _campaign_child(base, sbase, argv)
+        sweep = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.live", "--sweep",
+             data], cwd=base, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children.append(sweep)
+        cells = record["cells"]
+        got = tuple((c["family"], c["nemesis"], bool(c.get("seeded")))
+                    for c in cells)
+        emit(f"{label}: python -m jepsen_tpu_torch.live exit {code}, child "
+             f"wall_s={wall:.3f}, cells {got}, summary {record['summary']}")
+        check(got == CAMPAIGN_PLAN, f"{label}: cells {got}, want "
+              f"{CAMPAIGN_PLAN}")
+        on_card = collections.Counter()
+        child_launches = 0
+        seeded = []
+        for attempt in range(CAMPAIGN_SEEDED_ATTEMPTS):
+            if attempt:
+                argv = list(CAMPAIGN_CMD)
+                argv[argv.index("--families") + 1] = "replicated"
+                argv += [*own, "--base-port", str(_run_ports(3))]
+                code, err, wall, record = _campaign_child(base, sbase, argv)
+                cells = record["cells"]
+                emit(f"{label}: the seeded stage did not land; the "
+                     f"replicated cells again (attempt {attempt + 1}): exit "
+                     f"{code}, child wall_s={wall:.3f}, summary "
+                     f"{record['summary']}")
+            for c in cells:
+                n, slices = _campaign_cell(c, sbase, hostb)
+                on_card[c["family"]] += n
+                child_launches += slices
+                if c["seeded"]:
+                    seeded.append(c)
+            if seeded[-1]["valid"] is False:
+                break
+        misses = sum(c["valid"] is not False for c in seeded)
+        emit(f"{label}: every verdict the host's; keys or histories on B1-T "
+             f"by family {dict(on_card)}; {child_launches} B1-T launches "
+             f"counted from the child's stored results; seeded cell valid "
+             f"{[c['valid'] for c in seeded]}: {misses} miss(es) in "
+             f"{len(seeded)} campaign(s)")
+        check(seeded[-1]["valid"] is False and seeded[-1].get("detection"),
+              f"{label}: the seeded cell was never invalid with a detection "
+              f"in {len(seeded)} campaigns: "
+              f"{[(c['valid'], c.get('detection')) for c in seeded]}")
+        check(all(on_card[f] > 0 for f in ("register", "replicated"))
+              or SUITE_DEVICE != "cuda",
+              f"{label}: B1-T decided nothing of a family: {dict(on_card)}")
+
+        # -- campaign[dry-run]: the host's skip reasons ----------------------
+        code, reasons = _dry_run_rows(dry)
+        emit(f"{label}[dry-run]: exit {code}; skip reasons on this host "
+             f"{reasons}" + (f"; {unprobed}" if unprobed else ""))
+
+        # -- campaign[sweep]: the rule journals under the data root ----------
+        code, out, err = _finish(sweep, timeout=120)
+        emit(f"{label}[sweep]: exit {code}: {out.strip()}")
+        check(code == 0, f"{label}[sweep]: exit {code}; {err[-1500:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=30)
+    return {}
+
+
 #: the device contract's findings on the card, one per (route, code,
 #: site): the torch step's host reads per level (the loop test, the
 #: closure's start and its next round) and the sharded step's (its
@@ -5883,6 +6187,7 @@ def main() -> int:
             launches.update(phase_checkers(store_base))
             launches.update(phase_run(store_base))
             launches.update(phase_suites(store_base))
+            launches.update(phase_campaign(store_base))
             launches.update(phase_devlint())
             phase_report(shard_trace)
             shares = phase_traced(store_base)

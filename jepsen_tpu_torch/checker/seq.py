@@ -17,6 +17,7 @@ work ("unknown" past them).
 
 from __future__ import annotations
 
+import random
 import time
 
 from ..history import INF_RET, NIL, OpSeq
@@ -39,6 +40,7 @@ def check_opseq(seq: OpSeq, model, *,
                 max_configs: int = 5_000_000,
                 deadline: float | None = None,
                 cancel=None,
+                order_seed: int | None = None,
                 decompose: bool = False,
                 decompose_cache=None,
                 lint: bool | None = None,
@@ -55,6 +57,12 @@ def check_opseq(seq: OpSeq, model, *,
     ``threading.Event``, how the competition race retires a loser) are
     tested every 4096 configs and give "unknown" with ``info``
     "exceeded deadline" or "cancelled".
+
+    ``order_seed`` shuffles the order in which each configuration's
+    candidates are pushed (``Random(order_seed ^ hash(key))`` per
+    configuration ``key``): the verdict is the same, but seeds dive into
+    different subtrees first, the diversity of the portfolio race
+    (``checker/parallel.py``).
 
     ``lint`` (None: on) lints the OpSeq first and raises
     ``HistoryLintError`` on errors.  ``hb`` (None: on) runs the static
@@ -82,12 +90,14 @@ def check_opseq(seq: OpSeq, model, *,
         def _direct(s):
             return check_opseq(s, model, max_configs=max_configs,
                                deadline=deadline, cancel=cancel,
-                               lint=False, hb=hb, dpor=dpor)
+                               order_seed=order_seed, lint=False,
+                               hb=hb, dpor=dpor)
 
         def _sub(s, m, *, max_configs=max_configs, deadline=deadline):
             return check_opseq(s, m, max_configs=max_configs,
                                deadline=deadline, cancel=cancel,
-                               lint=False, hb=hb, dpor=dpor)
+                               order_seed=order_seed, lint=False,
+                               hb=hb, dpor=dpor)
 
         # the entry was linted above; the search keeps parent chains
         # anyway, so the decomposed route stitches witnesses for free
@@ -226,9 +236,14 @@ def check_opseq(seq: OpSeq, model, *,
                     first = False
                 elif r < m2:
                     m2 = r
+        order = range(len(cand))
+        if order_seed is not None:
+            order = list(order)
+            random.Random(order_seed ^ hash(key)).shuffle(order)
         pushes: list[tuple[int, tuple]] = []
         explorable = 0  # candidates past the real-time and mask tests
-        for idx, j2 in enumerate(cand):
+        for idx in order:
+            j2 = cand[idx]
             excl = m2 if rets[idx] == m1 and m1_count == 1 else m1
             if inv[j2] >= excl:
                 continue

@@ -184,10 +184,8 @@ def _load_campaign(base: str, cid: str) -> dict | None:
 #: the /campaigns fleet-health strip: polls /api/stats every 5s and
 #: shows the live registry's headline numbers (open runs, cache hit
 #: ratio, sheds, watchdog firings) so a running fleet is glanceable
-#: from the grid page itself.  The strip's "rules swept" series is
-#: registered by ``live/links.py``, which the port does not hold yet, so
-#: its line carries a ``metriclint: ok`` mark until that module lands
-_HEALTH_STRIP = ("""
+#: from the grid page itself
+_HEALTH_STRIP = """
 <p id="fleet-health" style="font-family:monospace"></p>
 <script>
 async function pollStats() {
@@ -208,16 +206,15 @@ async function pollStats() {
         + " · " + v("jtpu_shed_total") + " shed · watchdog "
         + v("jtpu_watchdog_total")
         + " · corpus " + v("jtpu_corpus_pool_size")
-"""
-    '        + " · rules swept " + v("jtpu_link_rules_swept_total")\n'  # metriclint: ok
-    """        + " · device idle " + (d.device_idle_fraction ?? "n/a")
+        + " · rules swept " + v("jtpu_link_rules_swept_total")
+        + " · device idle " + (d.device_idle_fraction ?? "n/a")
         + " · observed prune " + (d.observed_prune_ratio ?? "n/a");
     }
   } catch (e) {}
   setTimeout(pollStats, 5000);
 }
 pollStats();
-</script>""")
+</script>"""
 
 
 def campaigns_html(base: str) -> str:

@@ -948,3 +948,43 @@ def test_kernel_launches_from_threads_at_different_plans(cuda):
         ids, rows = host(out)
         want = alone[t % len(setups)]
         assert ids == want[0] and torch.equal(rows, want[1]), t
+
+
+@pytest.mark.cuda
+def test_campaign_cell_checked_on_the_card(cuda, tmp_path):
+    """One live campaign cell, replicated x kill-restart (three real
+    replicas under kill -9 and restart), its history checked on B1-T:
+    ok, valid, audited, and decided by the device search."""
+    import json
+    import os
+    import socket
+
+    from jepsen_tpu_torch.live.campaign import run_campaign
+
+    rng = random.Random()
+    while True:
+        base = rng.randrange(20000, 31000)
+        socks = []
+        try:
+            for i in range(3):
+                socks.append(socket.socket())
+                socks[-1].bind((f"127.0.1.{i + 1}", base + i))
+            break
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    record = run_campaign(
+        {"time_limit": 5, "rate": 100, "lin_algorithm": "device",
+         "store_base": str(tmp_path / "store"),
+         "data_root": str(tmp_path / "nodes"), "base_port": base,
+         "cell_retries": 0},
+        families=["replicated"], nemeses=["kill-restart"], seeded=False)
+    [cell] = record["cells"]
+    assert cell["status"] == "ok" and cell["attempts"] == 1, cell
+    assert cell["valid"] is True and cell["audit"]["ok"] is True, cell
+    assert cell["faults"] >= 1
+    with open(os.path.join(cell["store"], "results.json")) as f:
+        linear = json.load(f)["linear"]
+    assert linear["engine"].startswith("device-bfs(cuda"), linear["engine"]

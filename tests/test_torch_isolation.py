@@ -1,8 +1,12 @@
 """The port imports neither jax nor the JAX package, at any depth: every
 module of ``jepsen_tpu_torch`` and ``chip_smoke`` import in a fresh
-interpreter that refuses both, and no source file names either."""
+interpreter that refuses both, no source file names either, and no
+string constant names a module of the JAX package (a daemon the port
+spawns with ``python -m`` runs in another process, where the import
+guard cannot see it)."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,7 +77,11 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "suites.chronos", "suites.rabbitmq", "suites.robustirc",
     "suites.galera", "suites.percona", "suites.postgres_rds",
     "suites.crate", "suites.elasticsearch", "suites.dgraph",
-    "suites.mysql_cluster")}
+    "suites.mysql_cluster", "live.links", "live.backend", "live.matrix",
+    "live.campaign", "live.__main__", "checker.parallel")}
+
+#: a whole string that is a dotted module path of the JAX package
+REFERENCE_MODULE = re.compile(r"^jepsen_tpu(\.\w+)+$")
 
 
 def _sources():
@@ -105,6 +113,33 @@ def test_no_source_names_jax_or_reference():
                     offenders.append(f"{path.relative_to(REPO)}:"
                                      f"{node.lineno} {name}")
     assert not offenders, offenders
+
+
+def test_no_string_names_a_reference_module():
+    """No string constant of a port source is a dotted module path of the
+    JAX package: a spawn target such as ``"jepsen_tpu.live.kv_server"``
+    would start the JAX package's daemon.  Prose that mentions a module
+    (a docstring) is not a whole path and passes."""
+    offenders = []
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant)
+                    and isinstance(node.value, str)
+                    and REFERENCE_MODULE.match(node.value)):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno} "
+                                 f"{node.value}")
+    assert not offenders, offenders
+
+
+def test_reference_module_pattern_catches_a_spawn_target():
+    """The pattern of the check above on what it must and must not match."""
+    assert REFERENCE_MODULE.match("jepsen_tpu.live.kv_server")
+    assert REFERENCE_MODULE.match("jepsen_tpu.suites.localnode_server")
+    assert not REFERENCE_MODULE.match("jepsen_tpu_torch.live.kv_server")
+    assert not REFERENCE_MODULE.match("jepsen_tpu")
+    assert not REFERENCE_MODULE.match(
+        "the counterpart of jepsen_tpu.live, in prose")
 
 
 def test_no_source_reads_the_environment():
