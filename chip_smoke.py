@@ -61,7 +61,10 @@ closes its loop on the card (:func:`phase_plan` to
 route, first dims and bucket the live searches take; the shard bench
 tier runs in full over eight logical shards, its live stats equal to the
 plan and to the JAX package's numbers; a seeded corpus replays through
-every route with B1 on the direct and bucketed ones; and the shard
+every route with B1 on the direct and bucketed ones; the differential
+fuzzer (:func:`phase_fuzz`) holds the device search on all five models
+to the host oracles, B1-T on the register models' rounds and one round
+past its widest frontier; and the shard
 tier's trace folds into its device share.  The model checker and the
 daemons come last (:func:`phase_mc` to :func:`phase_live`): ``python -m
 jepsen_tpu_torch.analyze --mc --mc-scope all`` sweeps the 17 family x
@@ -3366,6 +3369,81 @@ def phase_corpus(base):
     return {"corpus": {"grid": grid, "single": single}}
 
 
+#: the fuzz phase's (first seed, rounds) per model at the fuzzer's
+#: default size (60 ops, 4 processes), the audit on: B1's three models
+#: and the two queues (the torch step).  On the card cas-register's
+#: seed 50 is the first to climb past F=2048 into the torch step (to
+#: F=4096; the phase prints the seed), so its rounds run seeds 0-59
+FUZZ_PLAN = {"cas-register": (0, 60), "register": (0, 60),
+             "mutex": (0, 60), "unordered-queue": (0, 20),
+             "fifo-queue": (0, 20)}
+#: the command-line child: cas-register rounds from the seed after the
+#: in-process ones
+FUZZ_CLI = ("--model", "cas-register", "--rounds", "8", "--seed", "60",
+            "--audit")
+#: B1's widest frontier (``level_kernel.eligible``: F <= 2048)
+FUZZ_B1_MAX_F = 2048
+
+
+@_timed_phase("fuzz")
+def phase_fuzz(base):
+    """The differential fuzzer on the card: ``fuzz(model, audit=True,
+    device="cuda")`` for each of the five models (:data:`FUZZ_PLAN`),
+    the device leg on B1-T up to F=2048 and the torch step past it and
+    for the queues, held to the host oracle and the linear sweep with
+    every certificate audited; no divergence, no W-code, no round
+    skipped as an encode error, B1 launched and one cas-register round
+    past F=2048.  Then ``python -m jepsen_tpu_torch.fuzz``
+    (:data:`FUZZ_CLI`) in a child process, exit 0 with its clean last
+    line.  Returns its launches."""
+    from jepsen_tpu_torch.fuzz import fuzz
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    recs = {m: fuzz(m, rounds=n, seed=seed, n_ops=60, n_procs=4,
+                    audit=True, out=None, device="cuda")
+            for m, (seed, n) in FUZZ_PLAN.items()}
+    single, grid = _read_counts()
+    wall = time.perf_counter() - t0
+    for m, r in recs.items():
+        emit(f"fuzz[{m}]: {r['rounds']} rounds from seed "
+             f"{FUZZ_PLAN[m][0]} in {r['seconds']} s, "
+             f"divergence {r['divergence']}, W-codes "
+             f"{len(r['audit_failures'])}, encode errors "
+             f"{r['encode_errors']}; device leg engines "
+             f"{dict(sorted(r['engines'].items()))}, widest frontier "
+             f"{r['frontier']} (first at seed {r['frontier_seed']})")
+    argv = [sys.executable, "-m", "jepsen_tpu_torch.fuzz", *FUZZ_CLI,
+            "--device", "cuda", "--out",
+            os.path.join(base, "fuzz-repro.json")]
+    t0 = time.perf_counter()
+    code, out, err = _finish(subprocess.Popen(
+        argv, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), timeout=300)
+    child_s = time.perf_counter() - t0
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    rounds = FUZZ_CLI[FUZZ_CLI.index("--rounds") + 1]
+    emit(f"fuzz: in process {wall:.3f} s, B1 launches single={single} "
+         f"grid={grid}; child {' '.join(argv[1:])} exit {code} in "
+         f"{child_s:.3f} s: {last!r}")
+    for m, r in recs.items():
+        check(r["rounds"] == FUZZ_PLAN[m][1] and r["divergence"] is None
+              and not r["audit_failures"],
+              f"fuzz[{m}]: {r['divergence'] or r['audit_failures']}")
+        check(r["encode_errors"] == 0
+              and sum(r["engines"].values()) == r["rounds"],
+              f"fuzz[{m}]: {r['encode_errors']} rounds skipped as encode "
+              f"errors, engines {r['engines']}")
+    check(single > 0, f"fuzz: B1 single-key launches {single}")
+    check(recs["cas-register"]["frontier"] > FUZZ_B1_MAX_F,
+          f"fuzz: no cas-register round past F={FUZZ_B1_MAX_F} "
+          f"(widest {recs['cas-register']['frontier']})")
+    check(code == 0 and last.startswith(
+        f"fuzz: {rounds} rounds, no divergence ("),
+        f"fuzz: the child exited {code}: {last!r} {err[-2000:]}")
+    return {"fuzz": {"grid": grid, "single": single}}
+
+
 @_timed_phase("report")
 def phase_report(trace):
     """The shard tier's trace folded by ``obs/report.py``: its device
@@ -6181,6 +6259,7 @@ def main() -> int:
             shard_launches, shard_trace = phase_shard_tier(store_base)
             launches.update(shard_launches)
             launches.update(phase_corpus(store_base))
+            launches.update(phase_fuzz(store_base))
             launches.update(phase_mc(store_base))
             launches.update(phase_analyze_cli(store_base, checked["1k"]))
             launches.update(phase_live(store_base))

@@ -175,6 +175,7 @@ class ValueEncoder:
 
     def __init__(self):
         self._fwd: dict = {}
+        self._rev: dict = {}
         self._next = 0
 
     def encode(self, v) -> int:
@@ -187,7 +188,14 @@ class ValueEncoder:
         vid = 2**30 + self._next
         self._next += 1
         self._fwd[v] = vid
+        self._rev[vid] = v
         return vid
+
+    def decode(self, i: int):
+        """The value an id stands for (an identity-band int as itself)."""
+        if i == NIL:
+            return None
+        return self._rev.get(i, i)
 
 
 @dataclass

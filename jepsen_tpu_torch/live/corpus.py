@@ -459,7 +459,7 @@ def _minimal_verdict(entry: dict):
 
 
 def corpus_replay(pool_dir: str, *, audit: bool = True,
-                  device="cuda") -> dict:
+                  max_entries: int | None = None, device="cuda") -> dict:
     """Replay a pool through every route, as the JAX package's
     ``tools/fuzz.py --corpus`` does.
 
@@ -472,7 +472,8 @@ def corpus_replay(pool_dir: str, *, audit: bool = True,
     and the constraint compiler's multiset analysis.  Every decided
     verdict must agree, and agree with the banked one where there is
     one; a ``minimal`` repro must still reproduce; with ``audit`` every
-    certificate must replay clean.
+    certificate must replay clean.  ``max_entries`` bounds the replay
+    to the pool's first entries.
 
     Returns ``{"entries", "failures": [message...], "ok", "hb_decided",
     "unknowns", "engines": [{route: engine label} per engine entry],
@@ -482,6 +483,8 @@ def corpus_replay(pool_dir: str, *, audit: bool = True,
 
     dev = lin._resolve_device(device)
     entries = load_pool(pool_dir)
+    if max_entries is not None:
+        entries = entries[:max_entries]
     t0 = time.perf_counter()
     failures: list[str] = []
     engines: list[dict] = []

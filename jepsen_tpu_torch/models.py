@@ -41,6 +41,15 @@ class ModelSpec:
     tstep: Callable
     kernel_id: Optional[int] = None
 
+    def step(self, state: State, f: str, value) -> Optional[State]:
+        """One host step by f name with a raw int or pair value."""
+        code = self.f_codes[f]
+        if isinstance(value, (tuple, list)):
+            v1, v2 = value
+        else:
+            v1, v2 = (NIL if value is None else value), NIL
+        return self.pystep(state, code, v1, v2)
+
 
 # ---------------------------------------------------------------------------
 # register / cas-register

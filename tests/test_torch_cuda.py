@@ -988,3 +988,18 @@ def test_campaign_cell_checked_on_the_card(cuda, tmp_path):
     with open(os.path.join(cell["store"], "results.json")) as f:
         linear = json.load(f)["linear"]
     assert linear["engine"].startswith("device-bfs(cuda"), linear["engine"]
+
+
+@pytest.mark.cuda
+def test_fuzz_cas_register_on_the_card(cuda):
+    """Eight differential fuzz rounds of cas-register with the audit,
+    the device leg on the card: no divergence, no W-code, and B1 ran."""
+    from jepsen_tpu_torch.fuzz import fuzz
+
+    before = lk.LAUNCHES
+    rec = fuzz("cas-register", rounds=8, audit=True, out=None,
+               device="cuda")
+    assert rec["rounds"] == 8 and rec["encode_errors"] == 0, rec
+    assert rec["divergence"] is None and rec["audit_failures"] == [], rec
+    assert lk.LAUNCHES > before, rec
+    assert any(e.startswith("device-bfs(cuda") for e in rec["engines"]), rec

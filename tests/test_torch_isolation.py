@@ -78,7 +78,7 @@ MODULES = {"jepsen_tpu_torch." + m for m in (
     "suites.galera", "suites.percona", "suites.postgres_rds",
     "suites.crate", "suites.elasticsearch", "suites.dgraph",
     "suites.mysql_cluster", "live.links", "live.backend", "live.matrix",
-    "live.campaign", "live.__main__", "checker.parallel")}
+    "live.campaign", "live.__main__", "checker.parallel", "fuzz")}
 
 #: a whole string that is a dotted module path of the JAX package
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(\.\w+)+$")
