@@ -64,7 +64,8 @@ plan and to the JAX package's numbers; a seeded corpus replays through
 every route with B1 on the direct and bucketed ones; the differential
 fuzzer (:func:`phase_fuzz`) holds the device search on all five models
 to the host oracles, B1-T on the register models' rounds and one round
-past its widest frontier; and the shard
+past its widest frontier; batches of the fuzzer's histories hold B1's
+grid to its plain version (:func:`phase_fuzz_grid`); and the shard
 tier's trace folds into its device share.  The model checker and the
 daemons come last (:func:`phase_mc` to :func:`phase_live`): ``python -m
 jepsen_tpu_torch.analyze --mc --mc-scope all`` sweeps the 17 family x
@@ -119,7 +120,8 @@ paths and of batch256 runs with tracing on, and prints where the wall
 went by span (``bucket.prep``, ``bucket.device``, ``device.slice``,
 ``device.transfer``), each path's device share and the process's
 device idle fraction.  Every single-key shape and the grid form's first
-rung are timed with telemetry off and on.
+rung are timed with telemetry off and on; the grid's launches are split
+into the device's and the wrapper's time.
 
 The script imports torch, numpy and the port only.
 """
@@ -280,6 +282,14 @@ GRID_FIRST_RUNG_BEFORE_TELE_MS = 0.5761
 #: launches of the counted main paths by (form, telemetry), gathered
 #: over the paths by :func:`_read_counts`
 FORM_LAUNCHES: collections.Counter = collections.Counter()
+#: their grid launches by rung and telemetry, the same way, in this
+#: process; and those a child process reported (devlint's), by
+#: telemetry only
+GRID_RUNG_LAUNCHES: collections.Counter = collections.Counter()
+CHILD_GRID_LAUNCHES: collections.Counter = collections.Counter()
+#: rung -> (model, dims, arguments) of the first grid launch of
+#: batch256's bucketed run at that rung, for the grid timing
+GRID_CAPTURED: dict = {}
 
 #: device results whose per-level occupancy was checked against their
 #: configs (a search that never overflowed, within the per-level cap)
@@ -316,6 +326,7 @@ def _zero_counts() -> None:
     lk.LAUNCHES = lk.BATCH_LAUNCHES = 0
     for k in lk.LAUNCHES_BY_FORM:
         lk.LAUNCHES_BY_FORM[k] = 0
+    lk.GRID_LAUNCHES.clear()
 
 
 def _read_counts(counted: bool = True) -> tuple:
@@ -327,6 +338,8 @@ def _read_counts(counted: bool = True) -> tuple:
     if counted:
         for (form, tele), n in lk.LAUNCHES_BY_FORM.items():
             FORM_LAUNCHES[f"{form},{'on' if tele else 'off'}"] += n
+        for (f, tele), n in lk.GRID_LAUNCHES.items():
+            GRID_RUNG_LAUNCHES[f"F={f},{'on' if tele else 'off'}"] += n
     return lk.LAUNCHES, lk.BATCH_LAUNCHES
 
 
@@ -868,9 +881,11 @@ def grid_lockstep_cases():
     """(label, model, OpSeqs, frontier, lanes, bail, slices, lvl_cap) for
     the grid form against its plain version: batch256's keys in batches
     of 256, 37 (27 pad lanes) and 4 (4 pad lanes) at F=32, 128 and 512,
-    bail on and off; keys of 16 to 192 ops, so that finished and running
-    keys share a launch; and a 9000-op mutex key beside two short ones,
-    whose tables only fit in device memory."""
+    bail on and off; at F=32 one running key among seven pad lanes, and
+    the three keys that outgrow 32 rows, key 248's overflowing level
+    reverted in the first slice; keys of 16 to 192 ops, so that finished
+    and running keys share a launch; and a 9000-op mutex key beside two
+    short ones, whose tables only fit in device memory."""
     from jepsen_tpu_torch.history import encode_ops
     from jepsen_tpu_torch.models import cas_register, mutex
     from jepsen_tpu_torch.synth import register_history, sim_mutex_history
@@ -878,6 +893,9 @@ def grid_lockstep_cases():
     keys, m = batch_keys(BATCH_KEYS)
     out = [("batch256-F32-bail", m, keys, 32, 256, True, 2, 16),
            ("batch37-F32-nobail", m, keys[:37], 32, 64, False, 2, 16),
+           ("batch1+7pads-F32-bail", m, keys[:1], 32, 8, True, 2, 16),
+           ("overflow3-F32-bail", m, [keys[k] for k in (60, 248, 252)], 32,
+            4, True, 2, 64),
            ("batch37-F128-bail", m, keys[:37], 128, 64, True, 2, 16),
            ("batch37-F128-nobail", m, keys[:37], 128, 64, False, 2, 16),
            ("batch4-F512-bail", m, keys[:4], 512, 8, True, 2, 16),
@@ -901,21 +919,23 @@ def grid_lockstep_cases():
 def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
                        lvl_cap, n_keys):
     """The grid form vs its plain version from ``carry``, slice by
-    slice; returns (max abs error, slices that had finished keys beside
-    running ones, table path)."""
+    slice, off and with telemetry; returns (max abs error, slices that
+    had finished keys beside running ones, table path, keys whose
+    overflowing level was reverted)."""
     from jepsen_tpu_torch.checker import level_kernel as lk
 
     check(lk.eligible(model, dims), f"{label}: {dims} not eligible")
     plan = lk.launch_plan(dims, carry[0].device)
     ck = ct = cr = carry
     t_k, t_t, t_r = [], [], []
-    worst = idle = mixed = 0
+    worst = idle = mixed = reverted = 0
     B = carry[0].shape[0]
     total = None
     for s in range(slices):
         idle += _idle_lanes(ck, 10**8, bail)
         done = _idle_lanes(ck, 10**8, bail, n_keys)
         mixed += 0 < done < n_keys
+        fresh = (cr[2] == -1) & (cr[1] > 0) & ~cr[5]
         before = lk.BATCH_LAUNCHES
         ck, ms_k = _timed(lk.level_loop_batch, model, dims, *args, 10**8,
                           lvl_cap, bail, *ck)
@@ -942,6 +962,8 @@ def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
               f"(max abs err {err})")
         pad = int(ot[6][n_keys:].abs().sum())
         check(pad == 0, f"{label} slice {s}: pad lanes wrote telemetry")
+        if bail:
+            reverted += int((fresh & (cr[2] == -1) & cr[5]).sum())
         total = ot[6] if total is None else total + ot[6]
         if _idle_lanes(cr, 10**8, bail) == B:
             break
@@ -951,38 +973,40 @@ def _grid_lockstep_one(label, model, dims, args, carry, bail, slices,
          f"threads={plan['threads']} blocks/SM={plan['blocks_per_sm']} "
          f"slices={s + 1} identical; idle lanes handed back {idle} "
          f"({mixed} slices with finished keys beside running ones); "
-         f"status counts "
+         f"overflowing levels reverted {reverted}; status counts "
          f"{sorted(collections.Counter(cr[2].tolist()).items())}; "
          f"telemetry on == off, blocks == plain: column sums "
          f"{total.sum((0, 1)).tolist()}; kernel ms/slice "
          f"{[round(t, 3) for t in t_k]} (telemetry "
          f"{[round(t, 3) for t in t_t]}) plain ms/slice "
          f"{[round(t, 1) for t in t_r]}")
-    return worst, mixed, plan["tables"]
+    return worst, mixed, plan["tables"], reverted
 
 
 def phase_grid_lockstep(device):
     """The grid-over-keys form against its plain version on the card,
     every key's scalars and live rows identical after every slice; a
-    launch with idle lanes beside running ones, pad lanes, and both
-    table paths."""
-    worst = 0
+    launch with idle lanes beside running ones, pad lanes, both table
+    paths and an overflowing level reverted."""
+    worst = reverted = 0
     paths = set()
     idle_seen = False
     for label, model, seqs, frontier, lanes, bail, slices, lvl_cap in \
             grid_lockstep_cases():
         dims, args, carry = grid_setup(model, seqs, frontier, device,
                                        lanes=lanes)
-        err, mixed, tables = _grid_lockstep_one(
+        err, mixed, tables, rev = _grid_lockstep_one(
             label, model, dims, args, carry, bail, slices, lvl_cap,
             len(seqs))
         worst = max(worst, err)
         paths.add(tables)
         idle_seen = idle_seen or mixed > 0
+        reverted += rev
     check(paths == {"shared", "device"},
           f"grid lockstep ran the table paths {sorted(paths)}, want both")
     check(idle_seen, "mixed: no launch had finished keys beside running "
           "ones")
+    check(reverted, "grid lockstep: no launch reverted an overflowing level")
     return worst
 
 
@@ -993,6 +1017,9 @@ class _GridTrace:
 
     def __init__(self):
         self.slices: list = []  # (frontier, lanes, running keys, route)
+        #: rung -> (model, dims, the call's arguments) of its first
+        #: launch on the grid kernel
+        self.first: dict = {}
 
     def __enter__(self):
         from jepsen_tpu_torch.checker import linearizable as lin
@@ -1009,6 +1036,8 @@ class _GridTrace:
                 busy = int(((a[24] == -1) & (a[23] > 0)).sum())
                 self.slices.append((dims.frontier, int(a[22].shape[0]),
                                     busy, route))
+                if route == "cuda":
+                    self.first.setdefault(dims.frontier, (model, dims, a))
                 return fn(*a)
             return run
 
@@ -1138,6 +1167,8 @@ def phase_batch256(store_base):
     for way, run in ways:
         label = f"batch256[{way}]"
         res, cold, grid, single, trace = _batch_run(label, run)
+        if way == "bucketed":
+            GRID_CAPTURED.update(trace.first)
         res_w, warm, grid_w, single_w, _ = _batch_run(label, run,
                                                       counted=False)
         for r in (res, res_w):
@@ -1363,46 +1394,173 @@ def phase_checkpoint(store_base):
     return {"1k": launches}
 
 
-def phase_grid_timing(device):
-    """The grid form at batch256's first rung: the keys the greedy
-    witness leaves to the device, stacked as the ladder stacks them (F=32,
-    lanes rounded up by its rule), one slice of the ladder's first level
-    cap with bail; against its plain version and, as a control, the same
-    keys launched one by one through the single-key form.  The bound is
-    the larger of the real keys' tables and every lane's carry moved
-    once and the operations of the configurations the slice visited."""
-    import torch
+#: CUDA events around this many back-to-back grid launches queued behind
+#: a sleep kernel of _SLEEP_CYCLES (about 20 ms on an H100), so the card
+#: runs them while the host enqueues: the device's time per launch
+QUEUED_LAUNCHES = 30
+_SLEEP_CYCLES = 40_000_000
 
-    from jepsen_tpu_torch.checker import level_kernel as lk
+
+def _grid_split(fn, reps=20) -> dict:
+    """A grid launch ``fn()`` split: ``timed_ms``, CUDA events around one
+    call on an idle card (the wrapper's host work counts; median of
+    ``reps``); ``queued_ms``, the device's time per launch with the
+    queue kept full; ``host_ms``, the host's time per call meanwhile;
+    ``prof_ms``, the profiler's device time of the kernel itself per
+    launch (None where the trace shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    ms = sorted(_timed(fn)[1] for _ in range(reps))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event()
+    torch.cuda._sleep(_SLEEP_CYCLES)
+    slept.record()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(QUEUED_LAUNCHES):
+        fn()
+    host = (time.perf_counter() - t0) / QUEUED_LAUNCHES * 1e3
+    full = not slept.query()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if "level_loop" in e.key and "kernel" in e.key:
+            us += (getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0) or 0)
+            n += e.count
+    return {"timed_ms": ms[len(ms) // 2], "timed_min_ms": ms[0],
+            "timed_max_ms": ms[-1],
+            "queued_ms": start.elapsed_time(end) / QUEUED_LAUNCHES,
+            "host_ms": host, "full_queue": full,
+            "prof_ms": us / n / 1e3 if n and us else None}
+
+
+def _ladder_lanes(n: int) -> int:
+    """Lanes the batch ladder stacks ``n`` keys in: a power of two from 4
+    to 32, then a multiple of 32."""
+    return max(4, 1 << (n - 1).bit_length()) if n <= 32 else -(-n // 32) * 32
+
+
+def grid_first_rung(device):
+    """(model, dims, args, carry, keys) of batch256's first rung: the
+    keys the greedy witness leaves to the device, stacked at F=32 as the
+    ladder stacks them."""
     from jepsen_tpu_torch.checker import linearizable as lin
 
     keys, model = batch_keys()
     run = [s for s in keys if not lin.greedy_witness(s, model)]
-    n = len(run)
-    lanes = max(4, 1 << (n - 1).bit_length()) if n <= 32 else -(-n // 32) * 32
-    dims, args, carry = grid_setup(model, run, 32, device, lanes=lanes)
-    lvl_cap, bail, reps = lin._SLICE_LEVELS0, True, 20
-    call = (*args, 10**8, lvl_cap, bail, *carry)
-    out, _ = _timed(lk.level_loop_batch, model, dims, *call)  # warm-up
-    ms_k = sorted(_timed(lk.level_loop_batch, model, dims, *call)[1]
-                  for _ in range(reps))
-    # then the telemetry form the same way
-    tele = functools.partial(lk.level_loop_batch, telemetry=True)
-    on, _ = _timed(tele, model, dims, *call)  # warm-up
-    check(grid_diff(on[:6], out) == 0,
-          "grid timing: the telemetry form's carry != the off form's")
-    ms_t = sorted(_timed(tele, model, dims, *call)[1] for _ in range(reps))
-    ref, plain_ms = _timed(lk.level_loop_batch_reference, model, dims, *call)
-    err = grid_diff(out, ref)
-    check(err == 0, f"grid timing: kernel != plain (max abs err {err})")
-    # key-levels the slice ran: the grid form one level at a time
-    c, key_levels = carry, 0
+    dims, args, carry = grid_setup(model, run, 32, device,
+                                   lanes=_ladder_lanes(len(run)))
+    return model, dims, args, carry, len(run)
+
+
+def grid_levels(model, dims, args, carry, lvl_cap, bail):
+    """The levels each lane runs in one slice from ``carry`` (int64
+    ``[B]`` on the CPU): the grid form one level at a time."""
+    import torch
+
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    c, levels = carry, torch.zeros(carry[0].shape[0], dtype=torch.int64)
     for _ in range(lvl_cap):
-        busy = lanes - _idle_lanes(c, 10**8, bail)
-        if not busy:
+        busy = ((c[2] == -1) & (c[1] > 0) & (c[3] < 10**8)).cpu()
+        if bail:
+            busy &= ~c[5].cpu()
+        if not bool(busy.any()):
             break
-        key_levels += busy
+        levels += busy
         c = lk.level_loop_batch(model, dims, *args, 10**8, 1, bail, *c)
+    return levels
+
+
+def _grid_time(label, model, dims, args, carry, lvl_cap, bail, n_keys):
+    """The grid form on one slice: :func:`_grid_split` off and on, the
+    plain version once, the levels each key ran, and the bound (the
+    larger of the real keys' tables and every lane's carry moved once
+    and the operations of the configurations the slice visited)."""
+    import torch
+
+    from jepsen_tpu_torch.checker import level_kernel as lk
+
+    call = (*args, 10**8, lvl_cap, bail, *carry)
+    B = int(carry[0].shape[0])
+    off = functools.partial(lk.level_loop_batch, model, dims, *call)
+    on = functools.partial(off, telemetry=True)
+    out = off()
+    check(grid_diff(on()[:6], out) == 0,
+          f"timing {label}: the telemetry form's carry != the off form's")
+    split = {"off": _grid_split(off), "on": _grid_split(on)}
+    ref, plain_ms = _timed(lk.level_loop_batch_reference, model, dims,
+                           *call)
+    err = grid_diff(out, ref)
+    check(err == 0, f"timing {label}: kernel != plain (max abs err {err})")
+    levels = grid_levels(model, dims, args, carry, lvl_cap, bail)
+    ran = levels[levels > 0].double()
+    # bytes the launch must move: the tables of the real keys (a pad
+    # lane leaves before it reads one), every lane's carry read and
+    # written once (a pad lane copies its own back)
+    n_bytes = (sum(t[:n_keys].numel() * t.element_size() for t in args[:10])
+               + 2 * (carry[0].numel() * 4 + 5 * 4 * B))
+    configs = int((out[3] - carry[3]).sum())
+    n_ops = configs * (dims.window + dims.n_crash_pad) * OPS_PER_LANE
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    plan = lk.launch_plan(dims, carry[0].device)
+    sm = torch.cuda.get_device_properties(carry[0].device).multi_processor_count
+    o, t = split["off"], split["on"]
+    prof = "not shown" if o["prof_ms"] is None else f"{o['prof_ms']:.4f} ms"
+    emit(f"timing {label} B={B} ({n_keys} keys, {ran.numel()} running) "
+         f"F={dims.frontier} W={dims.window} NC={dims.n_crash_pad} "
+         f"n_det_pad={dims.n_det_pad} lvl_cap={lvl_cap} bail={int(bail)} "
+         f"threads={plan['threads']} smem={plan['smem_bytes']} B "
+         f"tables={plan['tables']} blocks={B} "
+         f"blocks/SM={plan['blocks_per_sm']} SMs used={min(B, sm)} of "
+         f"{sm}: levels per running key max "
+         f"{int(ran.max()) if ran.numel() else 0} mean "
+         f"{float(ran.mean()) if ran.numel() else 0.0:.2f}, "
+         f"configs={configs}; kernel {o['timed_ms']:.4f} ms/launch (min "
+         f"{o['timed_min_ms']:.4f} max {o['timed_max_ms']:.4f}); "
+         f"split: device {o['queued_ms']:.4f} ms/launch with the queue "
+         f"full ({o['full_queue']}), wrapper host {o['host_ms']:.4f} "
+         f"ms/call, profiler kernel {prof}; telemetry form "
+         f"{t['timed_ms']:.4f} ms/launch (device {t['queued_ms']:.4f}, "
+         f"host {t['host_ms']:.4f}); plain {plain_ms:.1f} ms; bound: bytes "
+         f"{bytes_ms:.3e} ms ({n_bytes} B), operations {ops_ms:.3e} ms "
+         f"({n_ops} int32 ops)")
+    return {"shape": f"{label} B={B} F={dims.frontier}",
+            "levels": int(ran.sum()),
+            "ms": o["timed_ms"], "ms_tele": t["timed_ms"],
+            "device_ms": o["queued_ms"], "host_ms": o["host_ms"],
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err}
+
+
+def phase_grid_timing(device):
+    """The grid form at batch256's first rung: the keys the greedy
+    witness leaves to the device, stacked as the ladder stacks them
+    (F=32, lanes rounded up by its rule), one slice of the ladder's
+    first level cap with bail, split into the device's and the wrapper's
+    time, against its plain version and, as a control, the same keys
+    launched one by one through the single-key form.  Then the next rung
+    batch256's bucketed run reached, from its first launch there.
+    Returns the two shapes."""
+    from jepsen_tpu_torch.checker import level_kernel as lk
+    from jepsen_tpu_torch.checker import linearizable as lin
+
+    model, dims, args, carry, n = grid_first_rung(device)
+    lvl_cap, bail = lin._SLICE_LEVELS0, True
+    first = _grid_time("batch256 grid", model, dims, args, carry, lvl_cap,
+                       bail, n)
     # the control: each key alone through the single-key form
     singles = []
     for b in range(n):
@@ -1417,44 +1575,24 @@ def phase_grid_timing(device):
 
     one_by_one()  # warm-up
     ms_s = sorted(_timed(one_by_one)[1] for _ in range(5))
+    out = lk.level_loop_batch(model, dims, *args, 10**8, lvl_cap, bail,
+                              *carry)
     for b, o in enumerate(one_by_one()):
         e = grid_diff(tuple(x[b:b + 1] for x in out),
                       tuple(x.reshape((1,) + x.shape) for x in o))
         check(e == 0, f"grid timing: key {b} alone != its grid lane")
-    # bytes the launch must move: the tables of the n real keys (a pad
-    # lane leaves before it reads one), every lane's carry read and
-    # written once (a pad lane copies its own back)
-    n_bytes = (sum(t[:n].numel() * t.element_size() for t in args[:10])
-               + 2 * (carry[0].numel() * 4 + 5 * 4 * lanes))
-    configs = int((out[3] - carry[3]).sum())
-    n_ops = configs * (dims.window + dims.n_crash_pad) * OPS_PER_LANE
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-    ms = ms_k[len(ms_k) // 2]
-    ms_tele = ms_t[len(ms_t) // 2]
-    single_ms = ms_s[len(ms_s) // 2]
-    plan = lk.launch_plan(dims, device)
-    sm = torch.cuda.get_device_properties(device).multi_processor_count
-    emit(f"timing batch256 grid B={lanes} ({n} keys) F={dims.frontier} "
-         f"W={dims.window} NC={dims.n_crash_pad} n_det_pad={dims.n_det_pad} "
-         f"lvl_cap={lvl_cap} bail={int(bail)} tables={plan['tables']} "
-         f"smem={plan['smem_bytes']} B threads={plan['threads']} "
-         f"blocks/SM={plan['blocks_per_sm']} SMs={sm}: key_levels="
-         f"{key_levels} configs={configs} kernel {ms:.4f} ms/launch "
-         f"({ms / max(1, key_levels) * 1e3:.3f} us/key-level, min "
-         f"{ms_k[0]:.4f} max {ms_k[-1]:.4f} over {reps}); telemetry form "
-         f"{ms_tele:.4f} ms/launch (min {ms_t[0]:.4f} max {ms_t[-1]:.4f}, "
-         f"{ms_tele / ms - 1:+.2%}); the same keys "
-         f"one by one through the single-key form {single_ms:.4f} ms "
-         f"({n} launches); plain {plain_ms:.1f} ms; bound: bytes "
-         f"{bytes_ms:.3e} ms ({n_bytes} B), operations {ops_ms:.3e} ms "
-         f"({n_ops} int32 ops)")
-    return {"shape": f"batch256 grid B={lanes} F={dims.frontier}",
-            "levels": key_levels, "ms": ms, "ms_tele": ms_tele,
-            "plain_ms": plain_ms,
-            "single_key_ms": single_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err}
+    first["single_key_ms"] = ms_s[len(ms_s) // 2]
+    emit(f"timing batch256 grid control: the same {n} keys one by one "
+         f"through the single-key form {first['single_key_ms']:.4f} ms "
+         f"({n} launches)")
+    wider = sorted(f for f in GRID_CAPTURED if f > dims.frontier)
+    check(wider, f"grid timing: batch256 ran no grid rung past "
+          f"F={dims.frontier} (rungs {sorted(GRID_CAPTURED)})")
+    m, d, a = GRID_CAPTURED[wider[0]]
+    busy = int(((a[24] == -1) & (a[23] > 0)).sum())
+    second = _grid_time(f"batch256 grid F={d.frontier}", m, d, a[:19],
+                        a[22:], a[20], a[21], busy)
+    return [first, second]
 
 
 def phase_lockstep_captured(captured):
@@ -3442,6 +3580,59 @@ def phase_fuzz(base):
         f"fuzz: {rounds} rounds, no divergence ("),
         f"fuzz: the child exited {code}: {last!r} {err[-2000:]}")
     return {"fuzz": {"grid": grid, "single": single}}
+
+
+#: B1's grid form fuzzed (:func:`phase_fuzz_grid`): the models, the
+#: rungs with the keys stacked at each, batches per (model, rung) and the
+#: first seed; each batch's histories from the fuzzer's generator
+FUZZ_GRID_MODELS = ("register", "cas-register", "mutex")
+FUZZ_GRID_RUNGS = {32: 9, 128: 4, 512: 2}
+FUZZ_GRID_ROUNDS = 2
+FUZZ_GRID_SEED = 7000
+
+
+@_timed_phase("fuzz_grid")
+def phase_fuzz_grid(device):
+    """B1's grid form fuzzed on the card: for each model of
+    :data:`FUZZ_GRID_MODELS` and rung of :data:`FUZZ_GRID_RUNGS`,
+    :data:`FUZZ_GRID_ROUNDS` batches of random histories from the
+    fuzzer's generator (``fuzz.gen_history``: 10 to 60 ops of four
+    processes with crashes, every other one corrupted by
+    ``fuzz.corrupt``), stacked with pad lanes by the ladder's rule, bail
+    on and off by turns, through the grid form (off and telemetry) and
+    its plain version slice by slice (:func:`_grid_lockstep_one`); any
+    difference fails.  Returns the worst error."""
+    from jepsen_tpu_torch.fuzz import MODELS, corrupt, gen_history
+    from jepsen_tpu_torch.history import encode_ops
+
+    worst = rounds = 0
+    seeds = []
+    for name in FUZZ_GRID_MODELS:
+        model = MODELS[name]()
+        for frontier, n in FUZZ_GRID_RUNGS.items():
+            for r in range(FUZZ_GRID_ROUNDS):
+                seed = FUZZ_GRID_SEED + len(seeds)
+                seeds.append(seed)
+                rng = random.Random(seed)
+                seqs = []
+                for _ in range(n):
+                    h = gen_history(rng, name, rng.randint(10, 60), 4, 0.05)
+                    if rng.random() < 0.5:
+                        h = corrupt(rng, h)
+                    seqs.append(encode_ops(h, model.f_codes))
+                dims, args, carry = grid_setup(model, seqs, frontier, device,
+                                               lanes=_ladder_lanes(n))
+                err, *_ = _grid_lockstep_one(
+                    f"fuzz[{name},F={frontier},seed={seed}]", model, dims,
+                    args, carry, r % 2 == 0, 4, 16, n)
+                worst = max(worst, err)
+                rounds += 1
+    emit(f"fuzz_grid: {rounds} batches of "
+         f"{dict(FUZZ_GRID_RUNGS)} keys by rung, models "
+         f"{list(FUZZ_GRID_MODELS)}, seeds {seeds[0]}..{seeds[-1]}: every "
+         f"batch identical to the plain version after every slice, off "
+         f"and telemetry forms; max abs err {worst}")
+    return worst
 
 
 @_timed_phase("report")
@@ -6165,6 +6356,8 @@ def phase_devlint():
           f"devlint: exit {proc.returncode} with {rep['errors']} errors")
     for form, n in rep["launches"].items():
         FORM_LAUNCHES[form] += n
+        if form.startswith("grid"):
+            CHILD_GRID_LAUNCHES[form] += n
     launches = {"single": sum(n for f, n in rep["launches"].items()
                               if f.startswith("single")),
                 "grid": sum(n for f, n in rep["launches"].items()
@@ -6260,6 +6453,7 @@ def main() -> int:
             launches.update(shard_launches)
             launches.update(phase_corpus(store_base))
             launches.update(phase_fuzz(store_base))
+            worst = max(worst, phase_fuzz_grid(device))
             launches.update(phase_mc(store_base))
             launches.update(phase_analyze_cli(store_base, checked["1k"]))
             launches.update(phase_live(store_base))
@@ -6271,23 +6465,36 @@ def main() -> int:
             phase_report(shard_trace)
             shares = phase_traced(store_base)
         shapes = phase_timing(device, captured)
-        shapes.append(phase_grid_timing(device))
+        grid_shapes = phase_grid_timing(device)
+        shapes += grid_shapes
         check(OCCUPANCY_CHECKED, "no device result had its occupancy "
               "column checked against its configs")
         check(FORM_LAUNCHES["single,on"] > 0 and FORM_LAUNCHES["grid,on"] > 0,
               f"the main paths did not run the telemetry forms: "
               f"{dict(FORM_LAUNCHES)}")
+        check(sum(GRID_RUNG_LAUNCHES.values())
+              + sum(CHILD_GRID_LAUNCHES.values()) == FORM_LAUNCHES["grid,on"]
+              + FORM_LAUNCHES["grid,off"],
+              f"the main paths' grid launches by rung "
+              f"{dict(GRID_RUNG_LAUNCHES)} and in a child "
+              f"{dict(CHILD_GRID_LAUNCHES)} != {dict(FORM_LAUNCHES)} in all")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     timing = shapes[0]  # the first port's shape: mutex2k, F=64
-    grid = shapes[-1]
+    grid, grid_wide = grid_shapes
     emit(f"single-key form: mutex2k F=64 {timing['ms']:.4f} ms/slice, "
          f"telemetry form {timing['ms_tele']:.4f} "
          f"({MUTEX2K_F64_BEFORE_TELE_MS} ms/slice before the telemetry "
          f"form); grid form at batch256's first rung {grid['ms']:.4f} "
          f"ms/launch, telemetry form {grid['ms_tele']:.4f} "
-         f"({GRID_FIRST_RUNG_BEFORE_TELE_MS} before); occupancy checked "
+         f"({GRID_FIRST_RUNG_BEFORE_TELE_MS} before the telemetry form), "
+         f"device {grid['device_ms']:.4f} and wrapper host "
+         f"{grid['host_ms']:.4f}; at {grid_wide['shape']} "
+         f"{grid_wide['ms']:.4f} ms/launch; grid launches of the main "
+         f"paths by rung and telemetry "
+         f"{dict(sorted(GRID_RUNG_LAUNCHES.items()))} and "
+         f"{dict(CHILD_GRID_LAUNCHES)} in devlint's child; occupancy checked "
          f"on {len(OCCUPANCY_CHECKED)} results; device share by path "
          f"{ {k: round(v, 4) for k, v in shares.items()} }; script wall "
          f"{time.perf_counter() - t_start:.1f} s of the 1200 s limit")
@@ -6304,6 +6511,8 @@ def main() -> int:
         "launches": total,
         "launches_by_path": launches,
         "launches_by_form": dict(FORM_LAUNCHES),
+        "grid_launches_by_rung": dict(sorted(GRID_RUNG_LAUNCHES.items())),
+        "grid_launches_in_a_child": dict(CHILD_GRID_LAUNCHES),
         "max_abs_err": max([worst] + [t["max_abs_err"] for t in shapes]),
         "ms": timing["ms"],
         "ms_tele": timing["ms_tele"],
@@ -6312,6 +6521,7 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": None,
         "shapes": [{k: t[k] for k in ("shape", "levels", "ms", "ms_tele",
+                                      "device_ms", "host_ms",
                                       "plain_ms", "single_key_ms",
                                       "bound_ms", "bound_by") if k in t}
                    for t in shapes],

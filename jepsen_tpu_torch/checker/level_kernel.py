@@ -24,8 +24,9 @@ memory where they fit.
     (shared or device memory), how much scratch it needs per key and
     how many blocks fit one SM;
   * :data:`LAUNCHES`, :data:`BATCH_LAUNCHES` — kernel launches so far,
-    single-key and grid form (plain versions excluded), and
-    :data:`LAUNCHES_BY_FORM`, the same split by telemetry off and on.
+    single-key and grid form (plain versions excluded),
+    :data:`LAUNCHES_BY_FORM`, the same split by telemetry off and on,
+    and :data:`GRID_LAUNCHES`, the grid form's by rung and telemetry.
 
 All take ``(model, dims, *step_args)`` where ``step_args`` are the 28
 arguments of a step function, stacked along a leading key axis for the
@@ -40,6 +41,7 @@ the torch step's telemetry build.  The carry is the same on and off.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import threading
@@ -62,8 +64,10 @@ BATCH_LAUNCHES = 0
 #: launches so far by (form, telemetry): form "single" or "grid"
 LAUNCHES_BY_FORM = {("single", False): 0, ("single", True): 0,
                     ("grid", False): 0, ("grid", True): 0}
-#: guards the three counts: the fleet's workers launch from several
-#: threads of one process
+#: grid-form launches so far by (frontier F, telemetry)
+GRID_LAUNCHES: collections.Counter = collections.Counter()
+#: guards the counts: the fleet's workers launch from several threads of
+#: one process
 _COUNT_LOCK = threading.Lock()
 
 _CUDA = torch.device("cuda")
@@ -122,8 +126,10 @@ _INERT_BATCH: list = []
 
 def _check_inert(args, seen: list = _INERT, extra=()) -> None:
     """Refuse reduction planes that are not inert: neither the kernel
-    nor its plain version reads them.  ``extra`` are (tensor, bad mask)
-    checks made with them, cached with them in ``seen``."""
+    nor its plain version reads them.  ``extra`` are (tensor, its bad
+    mask as a function of it) checks made with them, cached with them
+    in ``seen``: a call that passes the tensors last found good runs no
+    tensor op."""
     planes = args[_N_TABLES:_N_TABLES + 5]
     watched = tuple(planes) + tuple(t for t, _ in extra)
     if len(seen) == len(watched) and all(
@@ -139,7 +145,7 @@ def _check_inert(args, seen: list = _INERT, extra=()) -> None:
             "level_loop: the reduction planes are not inert; a masked or "
             "dedup search runs the torch step (step.py)")
     for t, bad in extra:
-        if bool(bad.any()):
+        if bool(bad(t).any()):
             raise ValueError(f"level_loop_batch: per-key counts out of "
                              f"range: {t.tolist()}")
     seen[:] = [weakref.ref(t) for t in watched]
@@ -326,8 +332,8 @@ def level_loop_batch(model, dims: SearchDims, *args,
     frontier = args[22]
     n_det, n_crash = args[15], args[16]
     _check_inert(args, _INERT_BATCH, extra=(
-        (n_det, (n_det < 0) | (n_det > dims.n_det_pad)),
-        (n_crash, (n_crash < 0) | (n_crash > dims.n_crash_pad))))
+        (n_det, lambda t: (t < 0) | (t > dims.n_det_pad)),
+        (n_crash, lambda t: (t < 0) | (t > dims.n_crash_pad))))
     if frontier.device.type == "cpu":
         return level_loop_batch_reference(model, dims, *args,
                                           telemetry=telemetry)
@@ -340,6 +346,7 @@ def level_loop_batch(model, dims: SearchDims, *args,
     with _COUNT_LOCK:
         BATCH_LAUNCHES += 1
         LAUNCHES_BY_FORM["grid", telemetry] += 1
+        GRID_LAUNCHES[dims.frontier, telemetry] += 1
     carry = (out, scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3],
              scal[:, 4] != 0)
     return carry + (tele,) if telemetry else carry

@@ -67,7 +67,14 @@
 // kernel keeps them.  Keys never
 // communicate, so the grid needs no synchronisation between blocks; small
 // batch shapes fit several blocks on one SM (jtt_level_loop_plan reports
-// the occupancy query's blocks per SM).
+// the occupancy query's blocks per SM: four of 256 threads at F <= 128).
+// A launch lasts as long as its slowest key, most of whose cycles go to
+// the crash closure.  A block per key stays at the narrow rungs too: a
+// warp per key, several keys to a block, was measured slower on the
+// H100, because a key's level is a serial chain that one warp issues from
+// one of an SM's four schedulers while a block issues it from all four,
+// and a batch (4 to 256 keys) never outnumbers the card's schedulers
+// (PERF.md, section 6).
 //
 // Telemetry form (TELE = true; the TPU kernel's telemetry=True build,
 // pallas_level.py:90-92, :203-204, :413, :477, :500-519): the same search,

@@ -284,19 +284,23 @@ def test_telemetry_form_matches_reference(cuda, seed, bail):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_keys,lanes,frontier,bail",
                          [(1, 1, 32, True), (5, 8, 128, False),
-                          (37, 64, 32, True)])
+                          (37, 64, 32, True), (2, 2, 32, False),
+                          (1, 8, 32, True)])
 def test_grid_telemetry_form_matches_reference(cuda, n_keys, lanes,
                                                frontier, bail):
     """The grid form's telemetry build against the plain version, key by
-    key, with pad lanes whose blocks read zero."""
+    key, with pad lanes whose blocks read zero: B=2, and a lone running
+    key among seven pad lanes; each launch counted at its rung."""
     from chip_smoke import batch_keys, grid_diff, grid_setup
 
     keys, model = batch_keys(n_keys)
     dims, args, carry = grid_setup(model, keys, frontier, cuda, lanes=lanes)
+    before = lk.GRID_LAUNCHES[frontier, True]
     total = _tele_steps(
         lambda *a, **k: lk.level_loop_batch(model, dims, *a, **k),
         lambda *a, **k: lk.level_loop_batch_reference(model, dims, *a, **k),
         grid_diff, args, carry, bail, 3, 16)
+    assert lk.GRID_LAUNCHES[frontier, True] == before + 3
     assert total.shape == (lanes, 128, 8)
     assert int(total[n_keys:].abs().sum()) == 0
     assert int(total[:n_keys, :, 0].sum()) > 0
